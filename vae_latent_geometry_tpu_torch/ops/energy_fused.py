@@ -1,0 +1,326 @@
+"""Fused expected ensemble energy: the port of ``ops/energy_pallas.py``.
+
+Two kernels, each beside a plain PyTorch version of the same function:
+
+- :func:`energy_fwd` (K1, replaces ``energy_pallas.py:254 _fwd_kernel``):
+  (T, B, D) curve -> (B,) energies
+  E_b = sum_t ||xbar_{t+1} - xbar_t||^2 + var_{t+1} + var_t
+  with centered statistics around decoder 0 (cancellation-free).
+- :func:`energy_bwd` (K2, replaces ``energy_pallas.py:325 _bwd_kernel``):
+  dgamma for a per-spline cotangent, through
+  dE/dx_{m,t} = 2 w_{m,b} ct_b (c_t x_{m,t} - (xbar_{t-1} + xbar_{t+1}))
+  and the ReLU-masked chain of the same decode.
+
+A CUDA tensor launches the kernel (``csrc/energy_expected.cu``) or raises;
+only a CPU tensor takes the plain version.  Both follow the precision-rung
+semantics of ``_split_hi_lo`` / ``_prep_w`` / ``_mp_dot``: bf16 hi/lo
+operands, exact fp32 products, fp32 accumulation.  The plain version
+upcasts the bf16-rounded operands before each product, since a bf16
+``torch.matmul`` would round its OUTPUT to bf16.
+
+Weights (decoders) and the weight plane ``wmb`` are never differentiated:
+geodesic optimization trains only the curve.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PRECISIONS = ("float32", "f32x3", "f32x2", "bfloat16")
+_RUNG = {"float32": 0, "f32x3": 1, "f32x2": 2, "bfloat16": 3}
+HIDDEN = 128     # hidden width the CUDA kernels support
+MAX_X = 64       # widest decoder output the CUDA kernels support
+MAX_D = 4        # widest latent the CUDA kernels support
+
+# Launches of each kernel's wrapper (one per wrapper call that launched the
+# CUDA kernel; the plain CPU version does not count).
+LAUNCHES = {"energy_fwd": 0, "energy_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown kernel precision {precision!r}")
+
+
+def uniform_weights(M: int, B: int, device=None):
+    """The (M, B) weight plane of the plain ensemble mean."""
+    return torch.full((M, B), 1.0 / M, dtype=torch.float32, device=device)
+
+
+def active_weights(num_active, M: int, B: int, device=None):
+    """Masked-mean weight plane for per-spline first-k-decoder subsets:
+    w[m, b] = (m < k_b) / k_b."""
+    k = torch.as_tensor(num_active, dtype=torch.int32,
+                        device=device).expand(B)
+    mask = (torch.arange(M, device=k.device)[:, None] < k[None, :]).float()
+    return mask / k.float()[None, :]
+
+
+def stack_weights(decoders):
+    """(ws, bs): stacked (M, in, out) weights and (M, out) biases."""
+    layers = decoders["layers"]
+    return [l["w"] for l in layers], [l["b"] for l in layers]
+
+
+def ship_weights(ws, precision):
+    """At the bfloat16 rung every weight — W1 included — is shipped as bf16
+    (``_cast_ws``); the other rungs ship fp32."""
+    if precision == "bfloat16":
+        return [w.to(torch.bfloat16).float() for w in ws]
+    return [w.float() for w in ws]
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _split(x):
+    hi = _bf(x)
+    return hi, _bf(x - hi)
+
+
+def _mp_matmul(h, w, precision):
+    """h @ w at a precision rung, fp32 accumulation."""
+    if precision == "float32":
+        return h @ w
+    if precision == "bfloat16":
+        return _bf(h) @ _bf(w)
+    w_hi, w_lo = _split(w)
+    h_hi, h_lo = _split(h)
+    out = h_hi @ w_hi + h_lo @ w_hi
+    if precision == "f32x3":
+        out = out + h_hi @ w_lo
+    return out
+
+
+def _decode_plain(g, ws, bs, m, precision):
+    """One decoder on (N, D) points -> (x (N, X), ReLU masks of the hidden
+    layers)."""
+    w1 = ws[0][m]
+    h = bs[0][m]
+    for d in range(g.shape[1]):
+        h = h + g[:, d:d + 1] * w1[d]
+    h = torch.relu(h)
+    masks = [h > 0]
+    n_layers = len(ws)
+    for i in range(1, n_layers):
+        h = _mp_matmul(h, ws[i][m], precision) + bs[i][m]
+        if i < n_layers - 1:
+            h = torch.relu(h)
+            masks.append(h > 0)
+    return h, masks
+
+
+def energy_fwd_plain(ws, bs, gamma, wmb, precision):
+    """Plain version of K1 (same arguments as :func:`energy_fwd`)."""
+    check_precision(precision)
+    ws = ship_weights(ws, precision)
+    T, B, D = gamma.shape
+    M = ws[0].shape[0]
+    g = gamma.reshape(T * B, D)
+    x0 = _decode_plain(g, ws, bs, 0, precision)[0].reshape(T, B, -1)
+    ybar = torch.zeros_like(x0)
+    sqy = torch.zeros((T, B), dtype=torch.float32, device=gamma.device)
+    for m in range(1, M):
+        y = _decode_plain(g, ws, bs, m, precision)[0].reshape(T, B, -1) - x0
+        ybar = ybar + wmb[m][None, :, None] * y
+        sqy = sqy + wmb[m][None, :] * (y * y).sum(-1)
+    xbar = x0 + ybar
+    diff = xbar[1:] - xbar[:-1]
+    seg = (diff * diff).sum(-1)
+    if M > 1:
+        var = sqy - (ybar * ybar).sum(-1)
+        seg = seg + var[1:] + var[:-1]
+    return seg.sum(0)
+
+
+def energy_bwd_plain(ws, bs, gamma, wmb, ct, precision):
+    """Plain version of K2 (same arguments as :func:`energy_bwd`)."""
+    check_precision(precision)
+    ws = ship_weights(ws, precision)
+    T, B, D = gamma.shape
+    M = ws[0].shape[0]
+    chain = "bfloat16" if precision in ("f32x3", "f32x2") else precision
+    g = gamma.reshape(T * B, D)
+    xbar = 0.0
+    for m in range(M):
+        x = _decode_plain(g, ws, bs, m, precision)[0].reshape(T, B, -1)
+        xbar = xbar + wmb[m][None, :, None] * x
+    nb = torch.zeros_like(xbar)
+    nb[1:] = xbar[:-1]
+    nb[:-1] = nb[:-1] + xbar[1:]
+    t = torch.arange(T, device=gamma.device)
+    c = ((t > 0).float() + (t < T - 1).float())[:, None, None]
+    dg = torch.zeros((T * B, D), dtype=torch.float32, device=gamma.device)
+    for m in range(M):
+        x, masks = _decode_plain(g, ws, bs, m, precision)
+        scale = 2.0 * (wmb[m] * ct)[None, :, None]
+        dh = (scale * (c * x.reshape(T, B, -1) - nb)).reshape(T * B, -1)
+        for i in range(len(ws) - 1, 0, -1):
+            dh = _mp_matmul(dh, ws[i][m].T, chain) * masks[i - 1]
+        dg = dg + dh @ ws[0][m].T
+    return dg.reshape(T, B, D)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_cuda(ws, bs, gamma, wmb, extra=()):
+    dev = gamma.device
+    tensors = [gamma, wmb, *ws, *bs, *extra]
+    for x in tensors:
+        if x.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, got {x.device}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"kernel inputs must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    T, B, D = gamma.shape
+    if len(ws) != 3 or len(bs) != 3:
+        raise ValueError(f"the kernels take 3-layer decoders, got {len(ws)}")
+    M = ws[0].shape[0]
+    X = ws[2].shape[-1]
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"latent width D={D} outside 1..{MAX_D}")
+    if ws[0].shape != (M, D, HIDDEN) or ws[1].shape != (M, HIDDEN, HIDDEN) \
+            or ws[2].shape != (M, HIDDEN, X) or not 1 <= X <= MAX_X:
+        raise ValueError(
+            f"decoder shapes {[tuple(w.shape) for w in ws]} unsupported: the "
+            f"kernels take D -> {HIDDEN} -> {HIDDEN} -> X with X <= {MAX_X}")
+    if [tuple(b.shape) for b in bs] != [(M, HIDDEN), (M, HIDDEN), (M, X)]:
+        raise ValueError(f"bias shapes {[tuple(b.shape) for b in bs]} "
+                         "do not match the weights")
+    if tuple(wmb.shape) != (M, B):
+        raise ValueError(f"wmb must be (M, B) = ({M}, {B}), got "
+                         f"{tuple(wmb.shape)}")
+    if T * B * HIDDEN >= 2**31:
+        raise ValueError(f"T*B={T * B} too large for the kernels' indexing")
+    return T, B, D, M, X
+
+
+def _ptrs(ws, bs):
+    out = []
+    for w, b in zip(ws, bs):
+        out += [w.data_ptr(), b.data_ptr()]
+    return out
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def energy_fwd(ws, bs, gamma, wmb, precision):
+    """K1: (T, B, D) curve -> (B,) expected energies."""
+    if gamma.device.type == "cpu":
+        return energy_fwd_plain(ws, bs, gamma, wmb, precision)
+    if gamma.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gamma.device}")
+    from vae_latent_geometry_tpu_torch.ops._build import check, library
+
+    check_precision(precision)
+    ws = [w.contiguous() for w in ship_weights(ws, precision)]
+    T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb)
+    lib = library("energy_expected")
+    partial = torch.empty((lib.vlg_energy_fwd_tiles(T), B),
+                          dtype=torch.float32, device=gamma.device)
+    out = torch.empty((B,), dtype=torch.float32, device=gamma.device)
+    check(lib.vlg_energy_fwd(_RUNG[precision], gamma.data_ptr(), T, B, D, M, X,
+                             *_ptrs(ws, bs), wmb.data_ptr(), partial.data_ptr(),
+                             out.data_ptr(), _stream(gamma.device)),
+          "energy_fwd")
+    LAUNCHES["energy_fwd"] += 1
+    return out
+
+
+def energy_bwd(ws, bs, gamma, wmb, ct, precision):
+    """K2: dgamma (T, B, D) of sum_b ct_b E_b."""
+    if gamma.device.type == "cpu":
+        return energy_bwd_plain(ws, bs, gamma, wmb, ct, precision)
+    if gamma.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gamma.device}")
+    from vae_latent_geometry_tpu_torch.ops._build import check, library
+
+    check_precision(precision)
+    ws = [w.contiguous() for w in ship_weights(ws, precision)]
+    T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb, (ct,))
+    if tuple(ct.shape) != (B,):
+        raise ValueError(f"ct must be (B,) = ({B},), got {tuple(ct.shape)}")
+    lib = library("energy_expected")
+    xbar = torch.empty((T, B, X), dtype=torch.float32, device=gamma.device)
+    dgamma = torch.empty((T, B, D), dtype=torch.float32, device=gamma.device)
+    check(lib.vlg_energy_bwd(_RUNG[precision], gamma.data_ptr(), T, B, D, M, X,
+                             *_ptrs(ws, bs), wmb.data_ptr(), ct.data_ptr(),
+                             xbar.data_ptr(), dgamma.data_ptr(),
+                             _stream(gamma.device)),
+          "energy_bwd")
+    LAUNCHES["energy_bwd"] += 1
+    return dgamma
+
+
+# ---------------------------------------------------------------------------
+# differentiable entry points
+# ---------------------------------------------------------------------------
+
+class _EnergyExpectedFused(torch.autograd.Function):
+    """Energy (or zeros, ``grad_only``) forward; K2 backward.  The backward
+    needs only the inputs (it recomputes activations), so the gradient is
+    the same whether or not the forward kernel ran."""
+
+    @staticmethod
+    def forward(ctx, gamma, ws, bs, wmb, precision, grad_only):
+        ctx.save_for_backward(gamma)
+        ctx.ws, ctx.bs, ctx.wmb, ctx.precision = ws, bs, wmb, precision
+        if grad_only:
+            check_precision(precision)
+            return gamma.new_zeros(gamma.shape[1])
+        return energy_fwd(ws, bs, gamma, wmb, precision)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (gamma,) = ctx.saved_tensors
+        dg = energy_bwd(ctx.ws, ctx.bs, gamma.contiguous(), ctx.wmb,
+                        ct.contiguous().float(), ctx.precision)
+        return dg, None, None, None, None, None
+
+
+def _prepare(decoders, gamma, wmb):
+    ws, bs = stack_weights(decoders)
+    ws = [w.detach() for w in ws]
+    bs = [b.detach().contiguous() for b in bs]
+    M, B = ws[0].shape[0], gamma.shape[1]
+    if wmb is None:
+        wmb = uniform_weights(M, B, gamma.device)
+    wmb = wmb.detach().float().contiguous()
+    return ws, bs, wmb
+
+
+def energy_expected_fused(decoders, gamma, wmb=None,
+                          precision: str = "float32"):
+    """Fused expected ensemble energy: (T, B, D) curve -> (B,) energies.
+
+    ``wmb``: optional (M, B) per-spline weights summing to 1 over M (default
+    uniform); see :func:`active_weights`.  Differentiable in ``gamma``
+    only."""
+    ws, bs, wmb = _prepare(decoders, gamma, wmb)
+    return _EnergyExpectedFused.apply(gamma.contiguous(), ws, bs, wmb,
+                                      precision, False)
+
+
+def energy_expected_fused_grad(decoders, gamma, wmb=None,
+                               precision: str = "float32"):
+    """Gradient-only variant: returns ZEROS as the value but carries the
+    same backward, so the forward kernel never runs.  Use only where the
+    energy value is discarded (the optimizer's trajectory steps)."""
+    ws, bs, wmb = _prepare(decoders, gamma, wmb)
+    return _EnergyExpectedFused.apply(gamma.contiguous(), ws, bs, wmb,
+                                      precision, True)

@@ -1,0 +1,250 @@
+"""Batched geodesic energy minimization: the framework's core workload.
+
+Loss semantics match the JAX package and the reference: per-spline
+``energy + endpoint_weight * ||gamma(1) - b||^2`` summed over the batch,
+Adam(lr, 0.9, 0.999, eps=1e-8) on omega only, with optax's update rule and
+learning-rate schedules written out in plain torch (:class:`Adam`,
+:func:`warmup_cosine_decay`).  The JAX package runs all steps as one
+``lax.scan``; here a Python loop drives the same steps eagerly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from vae_latent_geometry_tpu_torch.config import GeodesicConfig
+from vae_latent_geometry_tpu_torch.device import resolve_device
+from vae_latent_geometry_tpu_torch.geometry import energy as energy_lib
+from vae_latent_geometry_tpu_torch.geometry.spline import (
+    design_matrix,
+    eval_spline_design,
+    t_grid,
+)
+from vae_latent_geometry_tpu_torch.ops import energy_fused
+
+ENERGY_MODES = ("expected", "expected_fused", "expected_fused_bf16",
+                "single", "single_fused")
+
+
+class GeodesicResult(NamedTuple):
+    omega: torch.Tensor       # (B, K, D) optimized parameters
+    energy: torch.Tensor      # (B,) final energy, exact float32
+    lengths: torch.Tensor     # (B,) sqrt(energy)
+    energy_history: Optional[torch.Tensor] = None  # (steps, B) if recorded
+
+
+def _energy_fn(mode: str, decoders, gamma, num_active=None,
+               kernel_precision: str = "f32x3", grad_only: bool = False):
+    """Per-spline energies (B,) of curve points gamma (T, B, D).
+    ``decoders`` is the stacked ensemble, or one decoder for ``single``."""
+    if mode == "single":
+        return energy_lib.energy_single(decoders, gamma)
+    if mode == "single_fused":
+        # the expected kernel with an M=1 ensemble IS the single-decoder
+        # energy (its statistics reduce to direct segment differences)
+        stacked = {"layers": [{"w": l["w"][None], "b": l["b"][None]}
+                              for l in decoders["layers"]]}
+        fn = (energy_fused.energy_expected_fused_grad if grad_only
+              else energy_fused.energy_expected_fused)
+        return fn(stacked, gamma, None, kernel_precision)
+    if mode == "expected":
+        return energy_lib.energy_expected(decoders, gamma, num_active)
+    if mode in ("expected_fused", "expected_fused_bf16"):
+        precision = "bfloat16" if mode.endswith("bf16") else kernel_precision
+        m_dec = decoders["layers"][0]["w"].shape[0]
+        wmb = (energy_fused.active_weights(num_active, m_dec, gamma.shape[1],
+                                           gamma.device)
+               if num_active is not None else None)
+        fn = (energy_fused.energy_expected_fused_grad if grad_only
+              else energy_fused.energy_expected_fused)
+        return fn(decoders, gamma, wmb, precision)
+    raise ValueError(f"unknown energy mode {mode!r} (the PyTorch port "
+                     f"supports {', '.join(ENERGY_MODES)})")
+
+
+def make_loss_fn(decoders, basis, cfg: GeodesicConfig, device,
+                 grad_only: bool = False) -> Callable:
+    """loss(omega, a, b, num_active=None) -> (scalar_loss, per_spline_energy).
+
+    ``grad_only=True``: the fused modes return zeros as energy values while
+    their gradient is unchanged (the forward kernel never runs).  The total
+    is linear in the energies, which is what makes that sound."""
+    e_cfg = cfg.energy
+    if e_cfg.ep_axis is not None or e_cfg.target_num_t is not None:
+        raise ValueError("ep_axis / target_num_t are not available in the "
+                         "PyTorch port")
+    t = t_grid(e_cfg.num_t, device)
+    phi = design_matrix(t, basis, cfg.spline.n_poly)
+    t_end = torch.ones(1, dtype=torch.float32, device=device)
+    phi_end = design_matrix(t_end, basis, cfg.spline.n_poly)
+
+    def loss(omega, a, b, num_active=None):
+        gamma = eval_spline_design(omega, a, b, phi, t)
+        e = _energy_fn(e_cfg.mode, decoders, gamma, num_active,
+                       e_cfg.kernel_precision, grad_only)
+        # endpoint penalty (reference src/optimize.py:158-160): zero in exact
+        # arithmetic (the basis enforces offset(1)=0), kept for faithful
+        # gradients under float32
+        gamma_end = eval_spline_design(omega, a, b, phi_end, t_end)
+        ep = ((gamma_end[0] - b) ** 2).sum(-1)
+        per_spline = e + e_cfg.endpoint_weight * ep
+        return per_spline.sum(), e
+
+    return loss
+
+
+def _phase_cfgs(cfg: GeodesicConfig) -> list:
+    """Phases the Adam loop runs, each with its own step count, quadrature
+    resolution and schedule: ``phase_plan`` entries (steps, num_t,
+    lr_schedule, lr[, energy_mode]) win outright; else a coarse
+    ``traj_num_t`` phase plus a full-resolution constant-lr polish when both
+    ``traj_num_t`` and ``polish_steps`` are set; else one phase."""
+    if cfg.phase_plan:
+        phases = []
+        for i, entry in enumerate(cfg.phase_plan):
+            try:
+                s, T, sched, lr, *rest = entry
+                if len(rest) > 1:
+                    raise ValueError
+                mode = rest[0] if rest else cfg.energy.mode
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"phase_plan[{i}] must be a (steps, num_t, lr_schedule, "
+                    f"lr[, energy_mode]) tuple, got {entry!r}") from None
+            if int(s) < 1 or int(T) < 2 or float(lr) <= 0.0:
+                raise ValueError(
+                    f"phase_plan[{i}]={entry!r}: need steps >= 1, "
+                    "num_t >= 2, lr > 0")
+            phases.append(dataclasses.replace(
+                cfg, steps=int(s), lr=float(lr), lr_schedule=sched,
+                traj_num_t=None, polish_steps=0, phase_plan=None,
+                energy=dataclasses.replace(cfg.energy, num_t=int(T),
+                                           mode=str(mode))))
+        return phases
+    coarse = cfg if cfg.traj_num_t is None else dataclasses.replace(
+        cfg, energy=dataclasses.replace(cfg.energy, num_t=cfg.traj_num_t))
+    if cfg.traj_num_t is None or cfg.polish_steps <= 0:
+        return [coarse]
+    polish = dataclasses.replace(
+        cfg, steps=cfg.polish_steps, lr=cfg.polish_lr,
+        lr_schedule="constant", traj_num_t=None)
+    return [coarse, polish]
+
+
+def _exact_cfg(cfg: GeodesicConfig) -> GeodesicConfig:
+    """Config of the final re-evaluation: always float32, full
+    ``energy.num_t``, ``final_energy_mode`` when set — reduced rungs and
+    coarse grids only steer the trajectory, never the reported numbers."""
+    mode = (cfg.final_energy_mode or cfg.energy.mode).removesuffix("_bf16")
+    return dataclasses.replace(
+        cfg, energy=dataclasses.replace(
+            cfg.energy, mode=mode, target_num_t=None,
+            kernel_precision="float32"))
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float,
+                        warmup_steps: int, decay_steps: int,
+                        end_value: float) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule (exponent 1): linear from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then cosine to
+    ``end_value`` at ``decay_steps``."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = decay_steps - warmup_steps
+    if span <= 0:
+        raise ValueError("the cosine schedule requires decay_steps > "
+                         f"warmup_steps, got {decay_steps} <= {warmup_steps}")
+
+    def sched(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1.0 - min(max(count, 0), warmup_steps) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(count - warmup_steps, span)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * c / span))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return sched
+
+
+class Adam:
+    """optax.adam: mu/nu moments with bias correction,
+    update = -lr(count) * mu_hat / (sqrt(nu_hat) + eps), count from 0."""
+
+    def __init__(self, lr: Callable[[int], float], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def init(self, params: torch.Tensor):
+        return {"mu": torch.zeros_like(params), "nu": torch.zeros_like(params),
+                "count": 0}
+
+    @torch.no_grad()
+    def step(self, params: torch.Tensor, grad: torch.Tensor, state) -> None:
+        """Update ``params`` in place."""
+        b1, b2 = self.b1, self.b2
+        mu = state["mu"].mul_(b1).add_(grad, alpha=1.0 - b1)
+        nu = state["nu"].mul_(b2).addcmul_(grad, grad, value=1.0 - b2)
+        count = state["count"] + 1
+        mu_hat = mu / np.float32(1.0 - b1 ** count)
+        nu_hat = nu / np.float32(1.0 - b2 ** count)
+        upd = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        params.add_(upd, alpha=-float(np.float32(self.lr(state["count"]))))
+        state["count"] = count
+
+
+def _make_opt(cfg: GeodesicConfig) -> Adam:
+    if cfg.lr_schedule == "constant":
+        return Adam(lambda count, lr=cfg.lr: lr)
+    if cfg.lr_schedule == "cosine":
+        # a phase shorter than the warmup would give a negative cosine span
+        warmup = min(cfg.lr_warmup, max(cfg.steps // 4, 1))
+        return Adam(warmup_cosine_decay(0.0, cfg.lr, warmup, cfg.steps,
+                                        cfg.lr_end))
+    raise ValueError(f"unknown lr_schedule: {cfg.lr_schedule!r} "
+                     "(expected 'constant' or 'cosine')")
+
+
+def optimize_splines(decoders, omega0, a, b, basis, cfg: GeodesicConfig,
+                     record_history: bool = False, num_active=None,
+                     device=None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> GeodesicResult:
+    """Optimize a batch of splines jointly.
+
+    decoders: stacked ensemble dict (one decoder for mode 'single'/
+    'single_fused'), on ``device``.  omega0: (B, K, D); a, b: (B, D).
+    ``generator`` is the random stream of the stochastic (MC) energy modes,
+    which this port does not provide yet; the deterministic modes take none.
+    Returned energies are re-evaluated at the FINAL omega (exact float32,
+    full num_t).
+    """
+    if cfg.early_stop:
+        raise ValueError("early stopping is not available in the PyTorch port")
+    del generator  # no stochastic mode is available yet
+    dev = resolve_device(device)
+    omega = torch.as_tensor(omega0, dtype=torch.float32, device=dev).clone()
+    a = torch.as_tensor(a, dtype=torch.float32, device=dev)
+    b = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    hists = []
+    for pcfg in _phase_cfgs(cfg):
+        grad_only = cfg.energy.gradonly_traj and not record_history
+        loss_fn = make_loss_fn(decoders, basis, pcfg, dev, grad_only)
+        opt = _make_opt(pcfg)
+        state = opt.init(omega)
+        for _ in range(pcfg.steps):
+            om = omega.detach().requires_grad_(True)
+            total, e = loss_fn(om, a, b, num_active)
+            (grad,) = torch.autograd.grad(total, om)
+            if record_history:
+                hists.append(e.detach())
+            opt.step(omega, grad, state)
+    with torch.no_grad():
+        exact_loss = make_loss_fn(decoders, basis, _exact_cfg(cfg), dev)
+        _, e_final = exact_loss(omega, a, b, num_active)
+    return GeodesicResult(
+        omega=omega, energy=e_final, lengths=torch.sqrt(e_final),
+        energy_history=torch.stack(hists) if record_history else None)
