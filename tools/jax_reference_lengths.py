@@ -2,15 +2,18 @@
 """Reference geodesic lengths from the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python tools/jax_reference_lengths.py \
-        --first 0 --count 190 --out tools/jax_reference_lengths_seed42.json
+        --out tools/jax_reference_lengths_seed42.json
+    JAX_PLATFORMS=cpu python tools/jax_reference_lengths.py \
+        --pairs 0 42 65 164 --precision float32 \
+        --out tools/jax_reference_lengths_seed42_float32.json
 
 Runs ``vae_latent_geometry_tpu.optim.optimize_splines`` — the reference
 recipe (expected_fused, 1000 Adam steps at lr 1e-3 constant, T=2000,
-kernel precision f32x2, final re-evaluation at float32) — on pairs
-``first .. first+count-1`` of the seed-42 entropy init blob, with the Pallas
-kernels in interpret mode, and writes their lengths.  ``chip_smoke.py``
-holds the PyTorch port's main path against this file.  CPU only; all 190
-pairs take about 25 minutes on an 8-core CPU.
+kernel precision f32x2 or ``--precision``, final re-evaluation at
+float32) — on ``--pairs`` (default: all 190) of the seed-42 entropy init
+blob, with the Pallas kernels in interpret mode, and writes their lengths.
+``chip_smoke.py`` holds the PyTorch port against both files above.  CPU
+only; all 190 pairs take about 25 minutes on an 8-core CPU.
 """
 
 import argparse
@@ -37,8 +40,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--first", type=int, default=0)
-    ap.add_argument("--count", type=int, default=190)
+    ap.add_argument("--pairs", type=int, nargs="+", default=list(range(190)))
     ap.add_argument("--precision", default="f32x2")
     ap.add_argument("--out", required=True)
     args = ap.parse_args()
@@ -48,7 +50,7 @@ def main():
     art = load_spline_batch(os.path.join(
         ROOT, "experiment", "splines_init_model_seed42",
         "spline_batch_init_entropy_20.npz"))
-    sel = np.arange(args.first, args.first + args.count)
+    sel = np.asarray(args.pairs)
     cfg = GeodesicConfig(steps=1000, lr=1e-3, lr_schedule="constant",
                          energy=EnergyConfig(num_t=2000, mode="expected_fused",
                                              kernel_precision=args.precision))
