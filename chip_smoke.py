@@ -8,9 +8,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
 1. build   — compile the CUDA kernels from ``vae_latent_geometry_tpu_torch/
              ops/csrc`` with nvcc (sm_90a); card name, power limit, versions.
 2. kernels — at full width (seed-42 10-decoder EVAE, the 190 seed-42 init
-             curves padded to B=200, T=2000): each kernel against its plain
-             PyTorch version on the same inputs, every precision rung, M=10
-             and M=1; CUDA-event times of kernel and plain version.
+             curves padded to B=200, T=2000, S=2 MC samples): each kernel
+             against its plain PyTorch version on the same inputs, every
+             precision rung, M=10 and M=1, and once with mixed per-spline
+             decoder counts; CUDA-event times of kernel and plain version.
 3. main    — ``optimize_spline_batch`` (expected_fused, f32x2, 1000 Adam
              steps at lr 1e-3 constant, T=2000) then ``distance_matrix``;
              launch counts of both kernels during that run; lengths against
@@ -21,7 +22,21 @@ Phases, each printing one JSON line; any failure exits nonzero:
              as the end-to-end yardstick.
 4. rung    — pairs 0, 42, 65, 164 through the same recipe at float32
              against the JAX package on the CPU at float32.
-5. the ``kernels`` summary line, the card line, and the result line.
+5. mc_stats — the mean of the in-kernel-draw MC energy (K7) over 64 seeds
+             against the expected energy (K1, float32), per spline, as
+             z-scores; a histogram of the drawn decoder indices.
+6. mc_main — ``optimize_spline_batch`` at ``mc_fused`` (f32x2, draws made
+             in the kernels, 1000 steps, final energies by
+             ``expected_fused``): launch counts, steps/s, lengths against
+             phase ``main``; mc_repeat — the same seed again with the final
+             energies by the MC kernel itself: bit-identical curves.
+7. mc_ext  — 200 steps with the draws shipped as index planes (K5/K6), and
+             200 steps of the unfused plain-PyTorch ``mc`` mode as the
+             end-to-end yardstick.
+8. the ``kernels`` summary line, the card line, and the result line.
+
+The kernels phase also holds the four MC kernels (K5-K8) against their plain
+versions, and K7/K8 against K5/K6 on the planes of ``philox_draws``.
 
 Imports nothing of JAX or of the JAX package.  Needs one CUDA GPU.
 """
@@ -70,6 +85,11 @@ PEAK_BYTES = 3.35e12
 # phase prints their share).
 E_RTOL = 1e-5
 E_RTOL_BF16_M1 = 5e-3
+# The MC energies at the bfloat16 rung with M=10: a sampled endpoint is ONE
+# decoder's output, so the bf16 rounding flips that the expected energy
+# averages over ten decoders (4.8e-6 there) show about sqrt(10) larger
+# (measured 9.5e-6 on given planes, 1.2e-5 on the in-kernel draws).
+E_RTOL_MC_BF16 = 5e-5
 DG_MED = 1e-4
 DG_P99 = 1e-3
 DG_OVER = 1e-3            # element error level counted ...
@@ -91,6 +111,26 @@ LEN_MAX = 1e-2
 LEN_MAX_F32 = 1e-4
 TPU_LEN_MED = 2e-3
 TPU_LEN_MAX = 5e-2
+# MC path.  (c) The mean of K7 over MC_SEEDS seeds against K1's float32
+# expected energy: |z| <= 5 per spline, z = (mean - expected) / (std /
+# sqrt(n)); with 200 splines an unbiased estimator exceeds that about once
+# in a thousand runs, and the seeds are fixed.  The drawn indices' chi-square
+# over the 10 decoders (9 degrees of freedom) stays below its 99.9th
+# percentile.  The same z-scores of K5 on ``torch.randint`` planes are the
+# yardstick beside it and are held to the same limit.  (d) Lengths of the
+# MC-optimized curves, measured by the same float32 expected energy as phase
+# main's: MC_LEN_MED is the slice's proposed median (measured 2.4e-3); the
+# max is about twice the measured 4.6% (pair 188): single pairs settle
+# elsewhere under gradient noise, as they do between precision rungs (3.3%
+# between f32x2 and float32, phase plain_path), and another seed moves
+# other pairs (PERF.md, Findings).
+MC_SAMPLES = 2
+MC_SEEDS = 64
+MC_Z_MAX = 5.0
+MC_CHI2_MAX = 27.9
+MC_LEN_MED = 1e-2
+MC_LEN_MAX = 1e-1
+MC_EXT_STEPS = 200
 
 
 def emit(obj) -> None:
@@ -123,6 +163,21 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def dgamma_stats(g_k, g_p, prefix=""):
+    """Errors of a kernel's dgamma relative to max|dgamma| of the plain
+    version's."""
+    import torch
+
+    err = ((g_k - g_p).abs() / g_p.abs().max()).flatten()
+    return {prefix + "dgamma_max_abs": float((g_k - g_p).abs().max()),
+            prefix + "dgamma_rel_max": float(err.max()),
+            prefix + "dgamma_rel_median": float(err.median()),
+            prefix + "dgamma_rel_p99": float(torch.quantile(
+                err[::7].double(), 0.99)),
+            prefix + "dgamma_share_over_1e-3": float(
+                (err > DG_OVER).double().mean())}
+
+
 def decode_flops(D, H, X, passes):
     """FLOP of one decoder on one point, tail layers at ``passes``."""
     return 2 * D * H + passes * (2 * H * H + 2 * H * X)
@@ -143,6 +198,7 @@ def main() -> int:
     from vae_latent_geometry_tpu_torch.models.evae import load_npz
     from vae_latent_geometry_tpu_torch.ops import _build
     from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
     from vae_latent_geometry_tpu_torch.optim.geodesic import optimize_splines
     from vae_latent_geometry_tpu_torch.pipeline.evaluate import distance_matrix
     from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
@@ -180,6 +236,78 @@ def main() -> int:
     X = ws_all[2].shape[2]
     ct = torch.ones(B, dtype=torch.float32, device=dev)
     errors, times = {}, {}
+    mc_ct = torch.linspace(0.5, 2.0, B, device=dev)
+    mc_seed = (1 << 40) + 42
+
+    def mc_inputs(M, num_active):
+        """Index planes, per-spline counts and the planes K7/K8 draw."""
+        gen = torch.Generator(device=dev).manual_seed(7)
+        d1, d2 = mc.sample_decoder_indices(gen, T, B, M, MC_SAMPLES,
+                                           num_active)
+        kmax = (torch.full((B,), float(M), device=dev) if num_active is None
+                else num_active.float())
+        p1, p2 = (d.contiguous() for d in mc.philox_draws(
+            mc_seed, MC_SAMPLES, T, B, kmax))
+        return d1, d2, kmax, p1, p2
+
+    def mc_check(ws, bs, M, prec, num_active):
+        """K5/K6 against their plain versions on given planes; K7/K8 against
+        K5/K6 on the planes of ``philox_draws`` (exact: the proof that
+        forward and backward make the same draws) and so against the plain
+        versions on those planes."""
+        d1, d2, kmax, p1, p2 = mc_inputs(M, num_active)
+        e5 = mc.energy_mc_fwd(ws, bs, gamma, d1, d2, prec)
+        e5_p = mc.energy_mc_fwd_plain(ws, bs, gamma, d1, d2, prec)
+        g6 = mc.energy_mc_bwd(ws, bs, gamma, d1, d2, mc_ct, prec)
+        g6_p = mc.energy_mc_bwd_plain(ws, bs, gamma, d1, d2, mc_ct, prec)
+        e7 = mc.energy_mc_fwd_rng(ws, bs, gamma, mc_seed, kmax, MC_SAMPLES,
+                                  prec)
+        g8 = mc.energy_mc_bwd_rng(ws, bs, gamma, mc_seed, kmax, MC_SAMPLES,
+                                  mc_ct, prec)
+        e7_p = mc.energy_mc_fwd_plain(ws, bs, gamma, p1, p2, prec)
+        g8_p = mc.energy_mc_bwd_plain(ws, bs, gamma, p1, p2, mc_ct, prec)
+        torch.cuda.synchronize()
+        return {
+            "mc_energy_max_rel": float(((e5 - e5_p).abs() / e5_p.abs()).max()),
+            "mc_energy_max_abs": float((e5 - e5_p).abs().max()),
+            **dgamma_stats(g6, g6_p, "mc_"),
+            "mc_rng_energy_max_rel": float(
+                ((e7 - e7_p).abs() / e7_p.abs()).max()),
+            "mc_rng_energy_max_abs": float((e7 - e7_p).abs().max()),
+            **dgamma_stats(g8, g8_p, "mc_rng_"),
+            "k7_equals_k5_on_philox_planes": bool(torch.equal(
+                e7, mc.energy_mc_fwd(ws, bs, gamma, p1, p2, prec))),
+            "k8_equals_k6_on_philox_planes": bool(torch.equal(
+                g8, mc.energy_mc_bwd(ws, bs, gamma, p1, p2, mc_ct, prec))),
+            "mc_draws_in_range": bool((p1 < kmax[None, None]).all()
+                                      and (p2 < kmax[None, None]).all()
+                                      and p1.min() >= 0 and p2.min() >= 0),
+            "mc_finite": bool(torch.isfinite(e5).all()
+                              and torch.isfinite(g6).all()
+                              and torch.isfinite(e7).all()
+                              and torch.isfinite(g8).all())}
+
+    def mc_times(ws, bs, M, prec):
+        d1, d2, kmax, _, _ = mc_inputs(M, None)
+        S = MC_SAMPLES
+        return {
+            "mc_fwd_ms": time_ms(lambda: mc.energy_mc_fwd(
+                ws, bs, gamma, d1, d2, prec), 5),
+            "mc_fwd_plain_ms": time_ms(lambda: mc.energy_mc_fwd_plain(
+                ws, bs, gamma, d1, d2, prec), 3),
+            "mc_bwd_ms": time_ms(lambda: mc.energy_mc_bwd(
+                ws, bs, gamma, d1, d2, mc_ct, prec), 5),
+            "mc_bwd_plain_ms": time_ms(lambda: mc.energy_mc_bwd_plain(
+                ws, bs, gamma, d1, d2, mc_ct, prec), 3),
+            "mc_rng_fwd_ms": time_ms(lambda: mc.energy_mc_fwd_rng(
+                ws, bs, gamma, mc_seed, kmax, S, prec), 5),
+            "mc_rng_fwd_plain_ms": time_ms(lambda: mc.energy_mc_fwd_rng_plain(
+                ws, bs, gamma, mc_seed, kmax, S, prec), 3),
+            "mc_rng_bwd_ms": time_ms(lambda: mc.energy_mc_bwd_rng(
+                ws, bs, gamma, mc_seed, kmax, S, mc_ct, prec), 5),
+            "mc_rng_bwd_plain_ms": time_ms(lambda: mc.energy_mc_bwd_rng_plain(
+                ws, bs, gamma, mc_seed, kmax, S, mc_ct, prec), 3)}
+
     for M in (ws_all[0].shape[0], 1):
         ws = [w[:M].contiguous() for w in ws_all]
         bs = [b[:M].contiguous() for b in bs_all]
@@ -190,20 +318,14 @@ def main() -> int:
             g_k = ef.energy_bwd(ws, bs, gamma, wmb, ct, prec)
             g_p = ef.energy_bwd_plain(ws, bs, gamma, wmb, ct, prec)
             torch.cuda.synchronize()
-            e_rel = float(((e_k - e_p).abs() / e_p.abs()).max())
-            g_err = ((g_k - g_p).abs() / g_p.abs().max()).flatten()
             rec = {"phase": "kernels", "M": M, "precision": prec,
-                   "energy_max_rel": e_rel,
+                   "energy_max_rel": float(
+                       ((e_k - e_p).abs() / e_p.abs()).max()),
                    "energy_max_abs": float((e_k - e_p).abs().max()),
-                   "dgamma_max_abs": float((g_k - g_p).abs().max()),
-                   "dgamma_rel_max": float(g_err.max()),
-                   "dgamma_rel_median": float(g_err.median()),
-                   "dgamma_rel_p99": float(torch.quantile(
-                       g_err[::7].double(), 0.99)),
-                   "dgamma_share_over_1e-3": float(
-                       (g_err > DG_OVER).double().mean()),
+                   **dgamma_stats(g_k, g_p),
                    "finite": bool(torch.isfinite(e_k).all()
                                   and torch.isfinite(g_k).all())}
+            rec.update(mc_check(ws, bs, M, prec, None))
             if M > 1 and prec in ("float32", "f32x2"):
                 reps = 5
                 rec["fwd_ms"] = time_ms(
@@ -216,9 +338,19 @@ def main() -> int:
                 rec["bwd_plain_ms"] = time_ms(
                     lambda: ef.energy_bwd_plain(ws, bs, gamma, wmb, ct,
                                                 prec), 3)
+                rec.update(mc_times(ws, bs, M, prec))
                 times[prec] = rec
             emit(rec)
             errors[(M, prec)] = rec
+    # the MC kernels once more with mixed per-spline decoder counts
+    num_active = torch.as_tensor(
+        np.random.default_rng(3).integers(1, 11, size=B), device=dev)
+    rec = {"phase": "kernels", "M": ws_all[0].shape[0], "precision": "f32x2",
+           "num_active": "mixed",
+           **mc_check(ws_all, bs_all, ws_all[0].shape[0], "f32x2",
+                      num_active)}
+    emit(rec)
+    errors[("mixed", "f32x2")] = rec
 
     # 3. main path ----------------------------------------------------------
     cfg = GeodesicConfig(
@@ -294,9 +426,107 @@ def main() -> int:
           "lengths": len32.tolist(), "len_rel": rel32.tolist(),
           "len_rel_max": float(rel32.max())})
 
-    # 5. kernels line -------------------------------------------------------
-    P = T * B
+    # 5. mc_stats: K7's mean over seeds against K1's expected energy --------
     M = ws_all[0].shape[0]
+    kmax = torch.full((B,), float(M), device=dev)
+    e_exp = ef.energy_fwd(ws_all, bs_all, gamma, ef.uniform_weights(M, B, dev),
+                          "float32").double()
+    draws = torch.stack([mc.energy_mc_fwd_rng(
+        ws_all, bs_all, gamma, seed, kmax, MC_SAMPLES, "float32")
+        for seed in range(MC_SEEDS)]).double()
+    z = (draws.mean(0) - e_exp) / (draws.std(0) / MC_SEEDS ** 0.5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws_ext = torch.stack([mc.energy_mc_fwd(
+        ws_all, bs_all, gamma,
+        *mc.sample_decoder_indices(gen, T, B, M, MC_SAMPLES), "float32")
+        for _ in range(MC_SEEDS)]).double()
+    z_ext = (draws_ext.mean(0) - e_exp) / (draws_ext.std(0) / MC_SEEDS ** 0.5)
+    d1, d2 = mc.philox_draws(0, MC_SAMPLES, T, B, kmax)
+    hist = torch.bincount(torch.cat([d1, d2]).flatten().long(),
+                          minlength=M).double()
+    chi2 = float(((hist - hist.mean()) ** 2 / hist.mean()).sum())
+    stats_rec = {"phase": "mc_stats", "seeds": MC_SEEDS,
+                 "mc_samples": MC_SAMPLES, "z_max_abs": float(z.abs().max()),
+                 "z_mean": float(z.mean()), "z_std": float(z.std()),
+                 "planes_z_max_abs": float(z_ext.abs().max()),
+                 "planes_z_mean": float(z_ext.mean()),
+                 "planes_z_std": float(z_ext.std()),
+                 "mean_rel_err_max": float(
+                     (draws.mean(0) / e_exp - 1).abs().max()),
+                 "draw_rel_std_median": float(
+                     (draws.std(0) / e_exp).median()),
+                 "index_histogram": [int(v) for v in hist.tolist()],
+                 "index_chi2": chi2}
+    emit(stats_rec)
+
+    # 6. MC main path: draws made in the kernels ----------------------------
+    def mc_run(energy, steps, final_mode, seed=0):
+        """``optimize_spline_batch`` in an MC mode with the launch counts of
+        that run alone."""
+        mcfg = dataclasses.replace(
+            cfg, steps=steps, final_energy_mode=final_mode, energy=energy)
+        torch.cuda.synchronize()
+        ef.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = optimize_spline_batch(
+            params, art, cfg=mcfg, device=dev, log_every_chunk=False,
+            generator=torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return res, secs, dict(ef.LAUNCHES)
+
+    mc_energy = dataclasses.replace(cfg.energy, mode="mc_fused",
+                                    mc_samples=MC_SAMPLES,
+                                    mc_inkernel_rng=True)
+    mc_out, mc_s, mc_launches = mc_run(mc_energy, STEPS, "expected_fused")
+    mc_len = np.asarray(mc_out.geodesic_length, np.float64)
+    rel_mc = np.abs(mc_len / lengths - 1)
+    mc_rec = {"phase": "mc_main", "mode": "mc_fused", "precision": "f32x2",
+              "mc_inkernel_rng": True, "steps": STEPS, "optimize_s": mc_s,
+              "steps_per_s": STEPS / mc_s, "launches": mc_launches,
+              "lengths_finite": bool(np.isfinite(mc_len).all()),
+              "vs_main_len_rel_median": float(np.median(rel_mc)),
+              "vs_main_len_rel_p99": float(np.quantile(rel_mc, 0.99)),
+              "vs_main_len_rel_max": float(rel_mc.max()),
+              "vs_main_len_rel_argmax_pair": int(np.argmax(rel_mc)),
+              "len_mean": float(mc_len.mean()),
+              "len_mean_main": float(lengths.mean())}
+    emit(mc_rec)
+    # the same seed again; the final energies now come from the MC kernel
+    # itself (K7, float32, one more draw), so they carry draw noise
+    rep_out, rep_s, rep_launches = mc_run(mc_energy, STEPS, None)
+    rep_len = np.asarray(rep_out.geodesic_length, np.float64)
+    rep_rec = {"phase": "mc_repeat", "optimize_s": rep_s,
+               "steps_per_s": STEPS / rep_s, "launches": rep_launches,
+               "omega_bit_identical": bool(np.array_equal(
+                   rep_out.omega_optimized, mc_out.omega_optimized)),
+               "moved_from_init": bool(not np.array_equal(
+                   mc_out.omega_optimized, art.omega_init)),
+               "mc_len_vs_expected_len_rel_median": float(
+                   np.median(np.abs(rep_len / mc_len - 1))),
+               "mc_len_vs_expected_len_rel_max": float(
+                   np.abs(rep_len / mc_len - 1).max())}
+    emit(rep_rec)
+
+    # 7. the draws shipped as index planes (K5/K6), and the unfused mode ----
+    ext_out, ext_s, ext_launches = mc_run(
+        dataclasses.replace(mc_energy, mc_inkernel_rng=False), MC_EXT_STEPS,
+        None)
+    ext_len = np.asarray(ext_out.geodesic_length, np.float64)
+    plain_mc_out, plain_mc_s, plain_mc_launches = mc_run(
+        dataclasses.replace(mc_energy, mode="mc"), MC_EXT_STEPS, None)
+    ext_rec = {"phase": "mc_ext", "steps": MC_EXT_STEPS, "optimize_s": ext_s,
+               "steps_per_s": MC_EXT_STEPS / ext_s, "launches": ext_launches,
+               "lengths_finite": bool(np.isfinite(ext_len).all()),
+               "plain_mc_optimize_s": plain_mc_s,
+               "plain_mc_steps_per_s": MC_EXT_STEPS / plain_mc_s,
+               "plain_mc_launches": plain_mc_launches,
+               "vs_plain_mc_len_rel_median": float(np.median(np.abs(
+                   ext_len / np.asarray(plain_mc_out.geodesic_length) - 1)))}
+    emit(ext_rec)
+
+    # 8. kernels line -------------------------------------------------------
+    P = T * B
     in_bytes = 4 * (gamma.numel() + sum(w.numel() for w in ws_all)
                     + sum(b.numel() for b in bs_all) + M * B)
     k1_flops = P * M * decode_flops(D, H, X, 1)
@@ -305,6 +535,35 @@ def main() -> int:
     k1_bound = max(k1_flops / PEAK_FP32, (in_bytes + 4 * B) / PEAK_BYTES)
     k2_bound = max(k2_flops / PEAK_BF16,
                    (in_bytes + 4 * B + 4 * gamma.numel()) / PEAK_BYTES)
+    # MC kernels: one decode per decoder (K5/K7), decode + chain as K2
+    # (K6/K8); bytes add the index planes (K5/K6) or the counts (K7/K8), and
+    # for the two-launch backward the difference planes, written and read
+    plane_bytes = 2 * MC_SAMPLES * (T - 1) * B * 4
+    diff_bytes = 2 * MC_SAMPLES * (T - 1) * B * X * 4
+    mc_bounds = {
+        "k5": max(k1_flops / PEAK_FP32,
+                  (in_bytes - 4 * M * B + plane_bytes + 4 * B) / PEAK_BYTES),
+        "k7": max(k1_flops / PEAK_FP32,
+                  (in_bytes - 4 * M * B + 4 * B + 4 * B) / PEAK_BYTES),
+        "k6": max(k2_flops / PEAK_BF16,
+                  (in_bytes - 4 * M * B + plane_bytes + 4 * B + diff_bytes
+                   + 4 * gamma.numel()) / PEAK_BYTES),
+        "k8": max(k2_flops / PEAK_BF16,
+                  (in_bytes - 4 * M * B + 8 * B + diff_bytes
+                   + 4 * gamma.numel()) / PEAK_BYTES)}
+
+    def mc_kernel(name, line, launches_, err_key, ms_key, prec, bound):
+        return {"name": name, "route": "cuda",
+                "source": "vae_latent_geometry_tpu_torch/ops/csrc/energy_mc.cu",
+                "replaces":
+                    f"vae_latent_geometry_tpu/ops/energy_mc_pallas.py:{line}",
+                "launches": launches_,
+                "max_abs_err": errors[(M, prec)][err_key],
+                "ms": times[prec][ms_key + "_ms"],
+                "plain_ms": times[prec][ms_key + "_plain_ms"],
+                "bound_ms": 1e3 * bound, "bound_by": "operations",
+                "library_ms": None}
+
     kernels = [
         {"name": "energy_fwd (K1, float32 final re-evaluation)",
          "route": "cuda",
@@ -326,10 +585,48 @@ def main() -> int:
          "plain_ms": times["f32x2"]["bwd_plain_ms"],
          "bound_ms": 1e3 * k2_bound, "bound_by": "operations",
          "library_ms": None},
+        mc_kernel("energy_mc_fwd (K5, float32 final evaluation, planes)", 473,
+                  ext_launches["energy_mc_fwd"], "mc_energy_max_abs",
+                  "mc_fwd", "float32", mc_bounds["k5"]),
+        mc_kernel("energy_mc_bwd (K6, f32x2 trajectory steps, planes)", 548,
+                  ext_launches["energy_mc_bwd"], "mc_dgamma_max_abs",
+                  "mc_bwd", "f32x2", mc_bounds["k6"]),
+        mc_kernel("energy_mc_fwd_rng (K7, float32 final evaluation, "
+                  "in-kernel draws)", 166,
+                  rep_launches["energy_mc_fwd_rng"], "mc_rng_energy_max_abs",
+                  "mc_rng_fwd", "float32", mc_bounds["k7"]),
+        mc_kernel("energy_mc_bwd_rng (K8, f32x2 trajectory steps, in-kernel "
+                  "draws)", 235, mc_launches["energy_mc_bwd_rng"],
+                  "mc_rng_dgamma_max_abs", "mc_rng_bwd", "f32x2",
+                  mc_bounds["k8"]),
     ]
 
     # checks ----------------------------------------------------------------
     for (m, prec), r in errors.items():
+        for pre, names in (("mc_", "K5/K6"), ("mc_rng_", "K7/K8")):
+            e_tol = (E_RTOL if prec != "bfloat16" else
+                     E_RTOL_BF16_M1 if m == 1 else E_RTOL_MC_BF16)
+            if not r["mc_finite"] or not r["mc_draws_in_range"]:
+                fail(f"MC kernels: non-finite output or draw out of range "
+                     f"at M={m} {prec}")
+            if r[pre + "energy_max_rel"] > e_tol:
+                fail(f"{names} energy rel err "
+                     f"{r[pre + 'energy_max_rel']:.3g} > {e_tol} at M={m} "
+                     f"{prec}")
+            if (r[pre + "dgamma_share_over_1e-3"] > DG_OVER_SHARE[prec]
+                    or r[pre + "dgamma_rel_median"] > DG_MED
+                    or r[pre + "dgamma_rel_p99"] > DG_P99):
+                fail(f"{names} dgamma median/p99/share "
+                     f"{r[pre + 'dgamma_rel_median']:.3g}/"
+                     f"{r[pre + 'dgamma_rel_p99']:.3g}/"
+                     f"{r[pre + 'dgamma_share_over_1e-3']:.3g} at M={m} "
+                     f"{prec}")
+        if not (r["k7_equals_k5_on_philox_planes"]
+                and r["k8_equals_k6_on_philox_planes"]):
+            fail(f"K7/K8 do not equal K5/K6 on the philox planes at M={m} "
+                 f"{prec}")
+        if "finite" not in r:        # the mixed-count case holds K5-K8 only
+            continue
         if not r["finite"]:
             fail(f"non-finite kernel output at M={m} {prec}")
         e_tol = E_RTOL_BF16_M1 if (prec, m) == ("bfloat16", 1) else E_RTOL
@@ -365,6 +662,40 @@ def main() -> int:
     if not (np.isfinite(len32).all() and rel32.max() <= LEN_MAX_F32):
         fail(f"float32 lengths vs the JAX package on the CPU: "
              f"max {rel32.max():.3g}")
+
+    if (max(stats_rec["z_max_abs"], stats_rec["planes_z_max_abs"]) > MC_Z_MAX
+            or stats_rec["index_chi2"] > MC_CHI2_MAX):
+        fail(f"mc_stats: max |z| {stats_rec['z_max_abs']:.3g} (in-kernel "
+             f"draws), {stats_rec['planes_z_max_abs']:.3g} (planes), index "
+             f"chi-square {stats_rec['index_chi2']:.3g}")
+    want = {"mc_main": (mc_launches, {"energy_mc_bwd_rng": STEPS * n_chunks,
+                                      "energy_fwd": n_chunks}),
+            "mc_repeat": (rep_launches,
+                          {"energy_mc_bwd_rng": STEPS * n_chunks,
+                           "energy_mc_fwd_rng": n_chunks}),
+            "mc_ext": (ext_launches,
+                       {"energy_mc_bwd": MC_EXT_STEPS * n_chunks,
+                        "energy_mc_fwd": n_chunks}),
+            "plain mc": (plain_mc_launches, {})}
+    for phase, (got, expected) in want.items():
+        for name, count in got.items():
+            if count != expected.get(name, 0):
+                fail(f"{phase}: {name} launched {count} times, expected "
+                     f"{expected.get(name, 0)}")
+    if not (mc_rec["lengths_finite"] and ext_rec["lengths_finite"]
+            and np.isfinite(rep_len).all() and rep_rec["moved_from_init"]):
+        fail("MC path output malformed")
+    if not rep_rec["omega_bit_identical"]:
+        fail("the same seed did not reproduce the MC-optimized curves bit "
+             "for bit")
+    if (mc_rec["vs_main_len_rel_median"] > MC_LEN_MED
+            or mc_rec["vs_main_len_rel_max"] > MC_LEN_MAX):
+        fail(f"MC-optimized lengths vs phase main: median "
+             f"{mc_rec['vs_main_len_rel_median']:.3g}, max "
+             f"{mc_rec['vs_main_len_rel_max']:.3g}")
+    for k in kernels:
+        if k["launches"] < 1:
+            fail(f"{k['name']} was not launched on its path")
 
     emit({"kernels": kernels})
     print(card)

@@ -101,6 +101,75 @@ def test_default_device_entry_points_raise_without_gpu():
     assert r.returncode != 0 and "no CUDA device" in r.stderr
 
 
+@pytest.mark.parametrize("mode", ["mc", "mc_scan", "mc_fused",
+                                  "mc_fused_bf16"])
+def test_mc_entry_points_raise_without_gpu(mode):
+    """The MC modes run on the card unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from vae_latent_geometry_tpu_torch.config import (EnergyConfig,
+                                                      GeodesicConfig)
+    from vae_latent_geometry_tpu_torch.io.artifacts import load_spline_batch
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.optim.geodesic import optimize_splines
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch)
+
+    cpu = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"), "cpu")
+    art = load_spline_batch(os.path.join(
+        REPO, "experiment", "splines_init_model_seed42",
+        "spline_batch_init_entropy_20.npz"))
+    cfg = GeodesicConfig(steps=1, energy=EnergyConfig(num_t=8, mode=mode))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        optimize_splines(cpu.decoders, art.omega_init[:1], art.a[:1],
+                         art.b[:1], art.basis, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        optimize_spline_batch(cpu, art, cfg=cfg)
+    res = optimize_splines(cpu.decoders, art.omega_init[:1], art.a[:1],
+                           art.b[:1], art.basis, cfg, device="cpu")
+    assert torch.isfinite(res.energy).all()
+
+
+def test_mc_kernel_wrappers_take_only_cpu_or_cuda_tensors():
+    """A tensor that lies neither on the CPU nor on a CUDA device raises:
+    the plain version is taken for CPU tensors only."""
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+
+    g = torch.empty((8, 2, 2), device="meta")
+    d = torch.empty((2, 7, 2), dtype=torch.int32, device="meta")
+    k = torch.empty((2,), device="meta")
+    for call in (lambda: mc.energy_mc_fwd([], [], g, d, d, "float32"),
+                 lambda: mc.energy_mc_bwd([], [], g, d, d, k, "float32"),
+                 lambda: mc.energy_mc_fwd_rng([], [], g, 0, k, 2, "float32"),
+                 lambda: mc.energy_mc_bwd_rng([], [], g, 0, k, 2, k,
+                                              "float32")):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            call()
+    assert all(v == 0 for n, v in mc.LAUNCHES.items() if "mc" in n)
+
+
+def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """The build's file name hashes the source and every header under csrc/
+    that it includes, so an edited header cannot load a stale library."""
+    from vae_latent_geometry_tpu_torch.ops import _build
+
+    for name in ("energy_expected", "energy_mc"):
+        files = [p.name for p in _build.source_files(name)]
+        assert files == [f"{name}.cu", "decode_common.cuh"]
+    for f in os.listdir(_build.CSRC):
+        (tmp_path / f).write_bytes((_build.CSRC / f).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._target(n).name for n in _build.SIGNATURES}
+    with open(tmp_path / "decode_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build._target(n).name for n in _build.SIGNATURES}
+    assert all(before[n] != after[n] for n in before)
+    with open(tmp_path / "energy_mc.cu", "a") as f:
+        f.write("// edited\n")
+    assert _build._target("energy_mc").name != after["energy_mc"]
+    assert _build._target("energy_expected").name == after["energy_expected"]
+
+
 def test_console_script_and_package_data_in_pyproject():
     import tomllib
 
@@ -110,8 +179,9 @@ def test_console_script_and_package_data_in_pyproject():
             == "vae_latent_geometry_tpu_torch.cli:main")
     data = cfg["tool"]["setuptools"]["package-data"]
     assert "ops/csrc/*.cu" in data["vae_latent_geometry_tpu_torch"]
-    assert os.path.exists(os.path.join(PKG, "ops", "csrc",
-                                       "energy_expected.cu"))
+    assert "ops/csrc/*.cuh" in data["vae_latent_geometry_tpu_torch"]
+    for src in ("energy_expected.cu", "energy_mc.cu", "decode_common.cuh"):
+        assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
 
 
 def test_chip_smoke_refuses_without_gpu():
@@ -151,3 +221,50 @@ def test_kernels_match_plain_versions_on_gpu(precision):
     err = ((d - d_p).abs() / d_p.abs().max()).flatten()
     assert float(err.median()) < 1e-4
     assert float(torch.quantile(err, 0.99)) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mc_samples", [2, 3])
+@pytest.mark.parametrize("precision", ["float32", "f32x3", "f32x2",
+                                       "bfloat16"])
+def test_mc_kernels_match_plain_versions_on_gpu(precision, mc_samples):
+    """K5-K8 against their plain versions on the card, small shapes with
+    ragged tile edges, mixed per-spline decoder counts; K7/K8 are K5/K6 on
+    the planes of ``philox_draws``, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+
+    p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
+    ws, bs = ef.stack_weights(p.decoders)
+    rng = np.random.default_rng(0)
+    T, B, S = 67, 13, mc_samples
+    g = torch.as_tensor(rng.normal(size=(T, B, 2)).astype(np.float32) * 2,
+                        device="cuda")
+    ct = torch.as_tensor(rng.uniform(0.5, 2, B).astype(np.float32),
+                         device="cuda")
+    num_active = torch.as_tensor(rng.integers(1, 11, B), device="cuda")
+    d1, d2 = mc.sample_decoder_indices(
+        torch.Generator(device="cuda").manual_seed(5), T, B, 10, S, num_active)
+
+    def close(e, e_p, d, d_p):
+        torch.testing.assert_close(e, e_p, rtol=1e-5, atol=0)
+        err = ((d - d_p).abs() / d_p.abs().max()).flatten()
+        assert float(err.median()) < 1e-4
+        assert float(torch.quantile(err, 0.99)) < 1e-3
+
+    close(mc.energy_mc_fwd(ws, bs, g, d1, d2, precision),
+          mc.energy_mc_fwd_plain(ws, bs, g, d1, d2, precision),
+          mc.energy_mc_bwd(ws, bs, g, d1, d2, ct, precision),
+          mc.energy_mc_bwd_plain(ws, bs, g, d1, d2, ct, precision))
+    seed, kmax = (1 << 40) + 3, num_active.float()
+    e7 = mc.energy_mc_fwd_rng(ws, bs, g, seed, kmax, S, precision)
+    d8 = mc.energy_mc_bwd_rng(ws, bs, g, seed, kmax, S, ct, precision)
+    close(e7, mc.energy_mc_fwd_rng_plain(ws, bs, g, seed, kmax, S, precision),
+          d8, mc.energy_mc_bwd_rng_plain(ws, bs, g, seed, kmax, S, ct,
+                                         precision))
+    p1, p2 = (d.contiguous() for d in mc.philox_draws(seed, S, T, B, kmax))
+    assert torch.equal(e7, mc.energy_mc_fwd(ws, bs, g, p1, p2, precision))
+    assert torch.equal(d8, mc.energy_mc_bwd(ws, bs, g, p1, p2, ct, precision))

@@ -143,7 +143,7 @@ def test_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(energy=EnergyConfig(mode="mc")),
+    dict(energy=EnergyConfig(num_t=16, mode="jvp")),
     dict(phase_plan=((5, 32, "cosine"),)),
     dict(lr_schedule="linear"),
 ])

@@ -127,3 +127,42 @@ def test_cli_optimize_then_eval_matrix(tmp_path):
     art = jart.load_spline_batch(str(opt))   # the JAX package reads it
     assert art.metadata["energy_mode"] == "expected_fused"
     assert np.isfinite(art.geodesic_length).all()
+
+
+def test_cli_optimize_mc_fused_then_eval_matrix(tmp_path):
+    """The MC path end to end on the CPU: ``optimize --energy-mode mc_fused``
+    (draws made as the kernels make them), ``eval --mode matrix``, and the
+    JAX package reads the artifact; the same ``--seed`` reproduces it."""
+    init = tmp_path / "init.npz"
+    tart.save_spline_batch(_first(tart.load_spline_batch(INIT), 3), str(init))
+    mat = tmp_path / "matrix.json"
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    base = [sys.executable, "-m", "vae_latent_geometry_tpu_torch"]
+    arts = []
+    for name in ("opt.npz", "again.npz"):
+        r = subprocess.run(base + [
+            "optimize", "--device", "cpu", "--model", MODEL, "--splines",
+            str(init), "--steps", "3", "--num-t", "32", "--no-euclidean",
+            "--energy-mode", "mc_fused", "--seed", "7", "--output",
+            str(tmp_path / name)],
+            cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr[-2000:]
+        arts.append(jart.load_spline_batch(str(tmp_path / name)))
+    r = subprocess.run(base + ["eval", "--mode", "matrix", "--splines",
+                               str(tmp_path / "opt.npz"), "--output",
+                               str(mat)],
+                       cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    out = json.loads(mat.read_text())
+    vals = [v for row in out["distance_matrix"] for v in row if v]
+    assert len(vals) == 6 and all(np.isfinite(vals))
+    art = arts[0]                             # the JAX package reads it
+    assert art.metadata["energy_mode"] == "mc_fused"
+    assert art.metadata["mc_samples"] == 2
+    assert np.isfinite(art.geodesic_length).all()
+    assert not np.array_equal(art.omega_optimized, art.omega_init)
+    np.testing.assert_array_equal(arts[1].omega_optimized,
+                                  art.omega_optimized)
+    np.testing.assert_array_equal(arts[1].geodesic_length,
+                                  art.geodesic_length)

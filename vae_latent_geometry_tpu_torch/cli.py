@@ -1,7 +1,7 @@
 """Command line of the PyTorch port: ``optimize`` and ``eval --mode matrix``.
 
   python -m vae_latent_geometry_tpu_torch optimize --model experiment/model_seed42.npz \\
-      --splines <init artifact> --energy-mode expected_fused
+      --splines <init artifact> --energy-mode mc_fused
   python -m vae_latent_geometry_tpu_torch eval --mode matrix --splines <opt artifact>
 
 Flags and defaults follow ``vae_latent_geometry_tpu.cli``; the artifacts are
@@ -30,6 +30,28 @@ _FAST_FLAG_DEFAULTS = {"steps": 1000, "lr": 1e-3, "lr_schedule": "constant",
                        "polish_lr": 1e-3}
 
 
+# --coarse-bf16: the turbo plan's coarse phase keeps its estimator and runs
+# the fused kernels at bfloat16.
+_COARSE_BF16_MODE = {"mc": "mc_fused_bf16", "mc_fused": "mc_fused_bf16",
+                     "expected": "expected_fused_bf16",
+                     "expected_fused": "expected_fused_bf16"}
+
+
+def coarse_bf16_plan(energy_mode: str, phase_plan):
+    """The turbo plan with its coarse (first) phase at the estimator's fused
+    bf16 mode; the other phases keep the run's mode and precision."""
+    if phase_plan is None:
+        raise SystemExit("--coarse-bf16 requires --turbo (it modifies the "
+                         "turbo plan's coarse phase)")
+    coarse_mode = _COARSE_BF16_MODE.get(energy_mode)
+    if coarse_mode is None:
+        raise SystemExit(
+            f"--coarse-bf16 needs an energy mode with a fused bf16 rung "
+            f"({'/'.join(_COARSE_BF16_MODE)}), got {energy_mode!r}")
+    first, *rest = phase_plan
+    return ((*first[:4], coarse_mode), *rest)
+
+
 def _fill_unset(args, values: dict) -> None:
     for k, v in values.items():
         if getattr(args, k) is None:
@@ -37,6 +59,8 @@ def _fill_unset(args, values: dict) -> None:
 
 
 def cmd_optimize(args):
+    import torch
+
     from vae_latent_geometry_tpu_torch.config import EnergyConfig, GeodesicConfig
     from vae_latent_geometry_tpu_torch.data.tasic import load_tasic
     from vae_latent_geometry_tpu_torch.device import resolve_device
@@ -63,11 +87,14 @@ def cmd_optimize(args):
     if args.fast and not args.turbo:
         _fill_unset(args, FAST_PRESET)
     _fill_unset(args, _FAST_FLAG_DEFAULTS)
+    phase_plan = TURBO_PHASES if args.turbo else None
+    if args.coarse_bf16:
+        phase_plan = coarse_bf16_plan(args.energy_mode, phase_plan)
     cfg = GeodesicConfig(
         steps=args.steps, lr=args.lr, batch_size=args.batch_size,
         lr_schedule=args.lr_schedule, traj_num_t=args.traj_num_t,
         polish_steps=args.polish_steps, polish_lr=args.polish_lr,
-        phase_plan=TURBO_PHASES if args.turbo else None,
+        phase_plan=phase_plan,
         energy=EnergyConfig(num_t=args.num_t, mc_samples=args.mc_samples,
                             mode=args.energy_mode,
                             kernel_precision=args.kernel_precision),
@@ -76,7 +103,8 @@ def cmd_optimize(args):
                f"experiment/splines_opt_{model_name}/"
                f"spline_batch_opt_{args.init_type}_{args.pair_count}.npz")
     optimize_spline_batch(params, art, data=data, cfg=cfg, device=device,
-                          output_path=str(out))
+                          output_path=str(out),
+                          generator=torch.Generator().manual_seed(args.seed))
     print(f"[ok] optimized {len(art)} splines -> {out}")
 
 
@@ -141,11 +169,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pairs per optimization chunk")
     o.add_argument("--num-t", type=int, default=2000)
     o.add_argument("--mc-samples", type=int, default=2)
-    o.add_argument("--energy-mode", default="expected_fused",
-                   choices=["expected", "expected_fused",
+    o.add_argument("--coarse-bf16", action="store_true",
+                   help="run the turbo plan's coarse phase at bfloat16 "
+                        "(requires --turbo and mc/mc_fused/expected/"
+                        "expected_fused); the polish phase and the final "
+                        "evaluation keep their precision")
+    o.add_argument("--energy-mode", default="mc",
+                   choices=["mc", "mc_scan", "mc_fused", "mc_fused_bf16",
+                            "expected", "expected_fused",
                             "expected_fused_bf16", "single", "single_fused"],
-                   help="energy estimator (the MC modes of the JAX package "
-                        "are not ported yet)")
+                   help="energy estimator: the reference's Monte-Carlo "
+                        "estimator (mc; mc_scan streams T in chunks; "
+                        "mc_fused runs it in the fused kernels) or its "
+                        "closed-form expectation (expected*)")
+    o.add_argument("--seed", type=int, default=0,
+                   help="seed of the MC modes' decoder draws; a run is "
+                        "reproducible per seed")
     o.add_argument("--kernel-precision", default="f32x2",
                    choices=["float32", "f32x3", "f32x2"],
                    help="precision rung of the fused kernels on trajectory "

@@ -2,9 +2,9 @@
 
 A copy of ``vae_latent_geometry_tpu.config`` with the same fields and
 defaults, so a config built for one package means the same run in the
-other.  Fields whose feature is not yet ported (``mc_inkernel_rng``,
-``ep_axis``, ``target_num_t``, ``early_stop``) keep their defaults here and
-are refused where they would change a result.
+other.  Fields whose feature is not yet ported (``ep_axis``,
+``target_num_t``, ``early_stop``) keep their defaults here and are refused
+where they would change a result.
 """
 
 from __future__ import annotations
@@ -54,6 +54,8 @@ class EnergyConfig:
     # "f32x3" | "f32x2" | "bfloat16"; ops/energy_fused.py).  Final energies
     # are always re-evaluated at "float32".
     kernel_precision: str = "f32x3"
+    # mc_fused modes: make the decoder draws inside the kernels from a
+    # per-step seed (True) or ship (S, T-1, B) index planes to them (False).
     mc_inkernel_rng: bool = True
     target_num_t: Optional[int] = None
     ep_axis: Optional[str] = None

@@ -5,19 +5,28 @@
 - ``energy_expected``: closed-form expectation of the reference's MC
   ensemble estimator in the centered, cancellation-free form
   ||xbar_{i+1} - xbar_i||^2 + var_{i+1} + var_i.
+- ``energy_mc``: the reference's Monte-Carlo ensemble estimator: per MC
+  sample, independent decoder indices d1, d2 per (segment, spline) and
+  sum_i ||f_{d2}(g_{i+1}) - f_{d1}(g_i)||^2, averaged over the samples;
+  ``energy_mc_from_indices`` is the estimator on given index planes and
+  ``energy_mc_scan`` the same distribution streamed over T in chunks.
 - ``geodesic_lengths``: data-space arc length through one decoder.
 
 They mirror ``vae_latent_geometry_tpu.geometry.energy`` and are the
-unfused modes ``single`` / ``expected``.  Inputs are curve points gamma
-(T, B, D); outputs are per-spline (B,).
+unfused modes ``single`` / ``expected`` / ``mc`` / ``mc_scan``.  Inputs are
+curve points gamma (T, B, D); outputs are per-spline (B,).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from vae_latent_geometry_tpu_torch.models import nets
 from vae_latent_geometry_tpu_torch.models.evae import decode_all
+from vae_latent_geometry_tpu_torch.ops.energy_mc_fused import (
+    sample_decoder_indices,
+)
 
 
 def energy_single(decoder_params, gamma):
@@ -58,3 +67,72 @@ def energy_expected(decoders, gamma, num_active=None):
     step = xbar[1:] - xbar[:-1]
     seg = (step * step).sum(dim=-1) + var[1:] + var[:-1]
     return seg.sum(dim=0)
+
+
+def _mc_segments(x_lo, x_hi, d1, d2):
+    """Per-segment sampled energies (n, B), averaged over the S samples:
+    x_lo, x_hi (M, n, B, X) are the decodes of each segment's two ends,
+    d1, d2 (S, n, B) the decoders drawn for them."""
+    lo = x_lo.permute(1, 2, 0, 3)[None]                 # (1, n, B, M, X)
+    hi = x_hi.permute(1, 2, 0, 3)[None]
+    x1 = torch.take_along_dim(lo, d1.long()[..., None, None], dim=3)
+    x2 = torch.take_along_dim(hi, d2.long()[..., None, None], dim=3)
+    d = (x2 - x1)[:, :, :, 0]                           # (S, n, B, X)
+    return (d * d).sum(dim=-1).mean(dim=0)
+
+
+def energy_mc_from_indices(decoders, gamma, d1, d2):
+    """The MC estimator on given draws d1, d2 (S, T-1, B): decoder
+    ``d1[s, t, b]`` decodes the left end of segment t, ``d2[s, t, b]`` its
+    right end.  Decoder means only."""
+    decoded = decode_all(decoders, gamma)               # (M, T, B, X)
+    return _mc_segments(decoded[:, :-1], decoded[:, 1:], d1, d2).sum(dim=0)
+
+
+def energy_mc(decoders, gamma, generator, mc_samples: int = 2,
+              num_active=None):
+    """Reference MC ensemble estimator: d1, d2 ~ U[0, M) independently per
+    (sample, segment, spline), drawn from ``generator`` (a
+    ``torch.Generator`` on gamma's device).
+
+    ``num_active``: optional (B,) int, per-spline count k of active
+    decoders; indices are then drawn from U[0, k_b)."""
+    T, B, _ = gamma.shape
+    m_dec = decoders["layers"][0]["w"].shape[0]
+    d1, d2 = sample_decoder_indices(generator, T, B, m_dec, mc_samples,
+                                    num_active)
+    return energy_mc_from_indices(decoders, gamma, d1, d2)
+
+
+def energy_mc_scan(decoders, gamma, generator, mc_samples: int = 2,
+                   num_active=None, chunk: int = 125):
+    """Memory-flat MC estimator: the distribution of :func:`energy_mc`, but
+    the T axis is streamed in chunks with a one-row carry and each chunk is
+    rematerialized in the backward pass, so neither the (M, T, B, X) decode
+    nor its activations are ever held whole.  The random stream differs from
+    :func:`energy_mc`'s (one draw call per chunk)."""
+    T, B, _ = gamma.shape
+    m_dec = decoders["layers"][0]["w"].shape[0]
+    # largest divisor of T <= requested chunk; degenerate cases fall back
+    chunk = max((c for c in range(1, min(chunk, T) + 1) if T % c == 0),
+                default=1)
+    if chunk <= 1:
+        return energy_mc(decoders, gamma, generator, mc_samples, num_active)
+
+    def body(gc, prev_x, d1, d2, first):
+        xc = decode_all(decoders, gc)                   # (M, chunk, B, X)
+        x_ext = torch.cat([prev_x[:, None], xc], dim=1)
+        seg = _mc_segments(x_ext[:, :-1], x_ext[:, 1:], d1, d2)
+        # the first segment of the first chunk joins nothing
+        return (seg[1:] if first else seg).sum(dim=0), xc[:, -1]
+
+    x_dim = decoders["layers"][-1]["w"].shape[-1]
+    prev_x = gamma.new_zeros((m_dec, B, x_dim))
+    energy = gamma.new_zeros(B)
+    for c in range(T // chunk):
+        d1, d2 = sample_decoder_indices(generator, chunk + 1, B, m_dec,
+                                        mc_samples, num_active)
+        e, prev_x = checkpoint(body, gamma[c * chunk:(c + 1) * chunk], prev_x,
+                               d1, d2, c == 0, use_reentrant=False)
+        energy = energy + e
+    return energy

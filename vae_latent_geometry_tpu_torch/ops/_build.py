@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, on first use, into the package's ``build/``
 directory (git-ignored); the library is loaded with ``ctypes``.  The file
-name carries a hash of the source and flags, so an edited source is rebuilt
-and a stale library is never loaded.  Nothing here runs at import time.
+name carries a hash of the source, of every header under ``csrc/`` that it
+includes, and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 # C signatures of the entry points, per source
 SIGNATURES = {
     "energy_expected": {
@@ -33,6 +36,13 @@ SIGNATURES = {
                            _P, _P, _P, _P],
         "vlg_energy_bwd": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P],
+    },
+    "energy_mc": {
+        "vlg_mc_fwd_tiles": [_I],
+        "vlg_mc_fwd": [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _U, _U, _P, _P, _P],
+        "vlg_mc_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _U, _U, _P, _P, _P, _P],
     },
 }
 
@@ -51,10 +61,26 @@ def _nvcc() -> str:
                        "source on first use and need the CUDA toolkit")
 
 
+def source_files(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every file under ``csrc/`` that it includes
+    with ``#include "..."``, directly or through another such header."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for inc in re.findall(r'^\s*#\s*include\s*"([^"]+)"', path.read_text(),
+                              re.MULTILINE):
+            todo.append((path.parent / inc).resolve())
+    return files
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: List[str] = None) -> float:

@@ -1,0 +1,365 @@
+// Monte-Carlo (sampled) ensemble curve energy and its gradient, for sm_90a
+// (H100).
+//
+// Replaces the Pallas TPU kernels of
+// vae_latent_geometry_tpu/ops/energy_mc_pallas.py:
+//   K5  _fwd_kernel      (:473)  -> mc_segments + mc_sum_tiles, planes given
+//   K6  _bwd_kernel      (:548)  -> mc_segments (writing differences) + mc_chain
+//   K7  _fwd_kernel_rng  (:166)  -> K5 with the draws made in the kernel
+//   K8  _bwd_kernel_rng  (:235)  -> K6 with the draws made in the kernel
+//
+// Function.  The decoder ensemble is M ReLU MLPs D -> 128 -> 128 -> X applied
+// to every curve point gamma[t, b, :] (T, B, D).  Sample s of S draws, per
+// segment t and spline b, a decoder d1[s,t,b] for the segment's left end
+// (point t) and d2[s,t,b] for its right end (point t+1):
+//   diff_s(t) = x_{d2[s,t,b]}(t+1) - x_{d1[s,t,b]}(t)
+//   K5/K7: E_b = (1/S) sum_s sum_t ||diff_s(t)||^2
+//   K6/K8: dgamma for a per-spline cotangent ct_b:
+//       dx_m(t) = (2/S) ct_b sum_s ([d2[s,t-1,b] = m] diff_s(t-1)
+//                                   - [d1[s,t,b] = m] diff_s(t)),
+//       back-propagated through the ReLU masks of decoder m's decode.
+// Point 0 has no left segment and point T-1 no right one.
+//
+// Draws.  K5/K6 read int32 planes d1, d2 (S, T-1, B).  K7/K8 make them:
+// Philox4x32-10 keyed by the step's 64-bit seed, counter (t, b, j / 4, 0)
+// for plane j in [0, 2S) (d1 planes first), output word j % 4; then, as the
+// TPU kernels map bits to a decoder, u = (bits >> 8) * 2^-24 and
+// d = floor(u * kmax_b) in fp32, with kmax_b the spline's count of active
+// decoders.  A draw depends on (seed, plane, t, b) alone, so forward and
+// backward see the same draws whatever their tiling, and the planes can be
+// reproduced outside the kernel bit for bit (philox_draws in
+// ops/energy_mc_fused.py): K7 equals K5 on those planes exactly.
+//
+// Selection is exact: a selected endpoint is copied from its decoder's output
+// by a predicated update, never formed as a weighted sum, so diff_s(t) is the
+// fp32 difference of two decoder outputs whichever decoder comes first.
+//
+// Work (counted from the code, per point per decoder): the float32 decode is
+// 46 kFLOP at D=2, X=50 (energy_expected.cu), i.e. 1.8e11 FLOP per K5 call at
+// T=2000, B=200, M=10.  K6 at f32x2 is two two-pass decodes plus a
+// single-pass chain.  The index planes (6.4 MB at S=2) and K6's difference
+// planes (160 MB written and read once) are small beside that: all four
+// kernels are bound by operations, not bytes, on this card.
+//
+// Design for Hopper.  The TPU kernels stream T in chunks inside one program
+// with a one-row carry; here blocks run in no order.  mc_segments gives each
+// group of 16 threads a run of 8 consecutive t-rows of one spline, so that
+// the 7 segments inside the run are formed in the thread's own registers
+// (the 8th row is the next run's first: 8 rows decoded per 7 segments).  A
+// tile is 4 splines x 4 runs = 28 segments per spline.  The draws of the
+// tile are staged in shared memory once; per decoder (weights staged one at
+// a time, decode_common.cuh) each thread updates its difference registers
+// where a draw names that decoder.  Two samples are held per decode sweep
+// (56 registers); more samples take further sweeps.  Energies go to an
+// (n_tiles, B) buffer of per-tile partial sums that a second launch adds in
+// a fixed order: no float atomics, repeated runs are bitwise identical.
+// The backward is two launches, as K2: mc_segments writes the S difference
+// planes (S, T-1, B, X), then mc_chain re-decodes each decoder per tile of
+// 128 points, gathers dx from the planes and runs the masked chain.  This
+// decodes twice where the TPU kernel decodes once; the single decode with
+// kept masks is later work.
+
+#include "decode_common.cuh"
+
+namespace {
+
+constexpr int MC_COLS = 4;                       // splines per tile
+constexpr int MC_RUN = 8;                        // t-rows a thread group decodes
+constexpr int MC_SEGS = MC_RUN - 1;              // segments it owns
+constexpr int MC_RUNS = TP / MC_RUN / MC_COLS;   // runs per spline per tile
+constexpr int MC_TILE_SEGS = MC_RUNS * MC_SEGS;  // segments per spline per tile
+constexpr int SLOTS = 2;                         // samples per decode sweep
+constexpr int SMAX = 8;                          // most samples mc_chain stages
+
+struct McSmem : DecodeSmem {
+  int idx[2 * SMAX * TP];   // the tile's draws, -1 where there is no segment
+  float red[TP];            // mc_segments: energy of the segment after point p
+};
+
+// Where the draws come from: planes in device memory (d1 != nullptr) or the
+// counter-based generator.
+struct Draws {
+  const int *d1, *d2;       // (S, T-1, B)
+  const float* kmax;        // (B,) active decoders per spline
+  uint32_t key0, key1;      // the step's seed
+};
+
+__device__ uint32_t philox4x32_10(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1,
+                                  uint32_t c2, uint32_t c3, int word) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c2 = hi0 ^ c3 ^ k1;
+    c1 = lo1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return word == 0 ? c0 : word == 1 ? c1 : word == 2 ? c2 : c3;
+}
+
+// Decoder drawn for the left (side 0) or right (side 1) end of segment t of
+// spline b in sample smp.
+__device__ int draw(const Draws& dr, int S, int T, int B, int side, int smp, int t, int b) {
+  if (dr.d1 != nullptr)
+    return (side ? dr.d2 : dr.d1)[((size_t)smp * (T - 1) + t) * B + b];
+  const int j = side * S + smp;
+  const uint32_t bits = philox4x32_10(dr.key0, dr.key1, (uint32_t)t, (uint32_t)b,
+                                      (uint32_t)(j >> 2), 0u, j & 3);
+  const float k = dr.kmax[b];
+  const float u = __fmul_rn((float)(bits >> 8), 1.f / 16777216.f);
+  return min((int)floorf(__fmul_rn(u, k)), (int)k - 1);
+}
+
+// Pass 1 of both directions.  Tile (blockIdx.y: segments t0..t0+27,
+// blockIdx.x: splines b0..b0+3).  diffs == nullptr: per-tile partial energies
+// -> partial[blockIdx.y * B + b]; else the difference planes -> diffs.
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+mc_segments(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
+            Weights w, Draws dr, float* __restrict__ partial, float* __restrict__ diffs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  McSmem& s = *reinterpret_cast<McSmem*>(smem_raw);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int t0 = blockIdx.y * MC_TILE_SEGS, b0 = blockIdx.x * MC_COLS;
+  // point p = run * 8 + i: row i of run (p / 8), which is run (p / 8) /
+  // MC_COLS of spline b0 + (p / 8) % MC_COLS
+  for (int e = tid; e < TP * DMAX; e += NT) {
+    const int p = e / DMAX, d = e % DMAX, run = p / MC_RUN, i = p % MC_RUN;
+    const int t = min(t0 + (run / MC_COLS) * MC_SEGS + i, T - 1);
+    const int b = min(b0 + run % MC_COLS, B - 1);
+    s.g[e] = d < D ? gamma[((size_t)t * B + b) * D + d] : 0.f;
+  }
+  if (tid < TP) s.red[tid] = 0.f;
+  const int tb = t0 + (ty / MC_COLS) * MC_SEGS;   // this thread's first row
+  const int b = b0 + ty % MC_COLS;                // and its spline
+  for (int s0 = 0; s0 < S; s0 += SLOTS) {
+    __syncthreads();
+    // stage the sweep's draws: idx[(side * SLOTS + slot) * TP + p] for the
+    // segment from point p to point p + 1
+    for (int e = tid; e < 2 * SLOTS * TP; e += NT) {
+      const int p = e % TP, q = e / TP, side = q / SLOTS, smp = s0 + q % SLOTS;
+      const int run = p / MC_RUN, i = p % MC_RUN;
+      const int tt = t0 + (run / MC_COLS) * MC_SEGS + i, bb = b0 + run % MC_COLS;
+      const bool ok = i < MC_SEGS && tt < T - 1 && bb < B && smp < S;
+      s.idx[e] = ok ? draw(dr, S, T, B, side, smp, tt, bb) : -1;
+    }
+    float diff[SLOTS][MC_SEGS][4];
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k)
+#pragma unroll
+      for (int i = 0; i < MC_SEGS; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) diff[k][i][j] = 0.f;
+    for (int m = 0; m < M; ++m) {
+      __syncthreads();
+      stage_weights<R>(s, m, D, X, w);
+      __syncthreads();
+      float x[8][4];
+      uint32_t m1[2], m2[2];
+      decode_tile<R>(s, D, x, m1, m2);
+#pragma unroll
+      for (int k = 0; k < SLOTS; ++k)
+#pragma unroll
+        for (int i = 0; i < MC_SEGS; ++i) {
+          const int p = ty * MC_RUN + i;
+          const bool lo = s.idx[k * TP + p] == m;
+          const bool hi = s.idx[(SLOTS + k) * TP + p] == m;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (hi) diff[k][i][j] = __fadd_rn(diff[k][i][j], x[i + 1][j]);
+            if (lo) diff[k][i][j] = __fsub_rn(diff[k][i][j], x[i][j]);
+          }
+        }
+    }
+    if (diffs != nullptr) {
+#pragma unroll
+      for (int k = 0; k < SLOTS; ++k)
+#pragma unroll
+        for (int i = 0; i < MC_SEGS; ++i) {
+          if (s0 + k >= S || tb + i >= T - 1 || b >= B) continue;
+          float* row = diffs + (((size_t)(s0 + k) * (T - 1) + tb + i) * B + b) * X;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (tx + 16 * j < X) row[tx + 16 * j] = diff[k][i][j];
+        }
+    } else {
+      // features >= X decode to zero, so their differences are zero
+#pragma unroll
+      for (int i = 0; i < MC_SEGS; ++i) {
+        float q = 0.f;
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) q += diff[k][i][j] * diff[k][i][j];
+        q = sum16(q);
+        if (tx == 0) s.red[ty * MC_RUN + i] += q;
+      }
+    }
+  }
+  __syncthreads();
+  if (diffs == nullptr && tid < MC_COLS && b0 + tid < B) {
+    float e = 0.f;
+    for (int run = 0; run < MC_RUNS; ++run)
+      for (int i = 0; i < MC_SEGS; ++i) e += s.red[(run * MC_COLS + tid) * MC_RUN + i];
+    partial[(size_t)blockIdx.y * B + b0 + tid] = e;
+  }
+}
+
+// K5/K7, pass 2: fixed-order sum of the per-tile partial energies, over S.
+__global__ void mc_sum_tiles(const float* __restrict__ partial, int n_tiles, int B, int S,
+                             float* __restrict__ out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  float e = 0.f;
+  for (int i = 0; i < n_tiles; ++i) e += partial[(size_t)i * B + b];
+  out[b] = e / (float)S;
+}
+
+// K6/K8, pass 2: per decoder, re-decode the tile of 128 points of the
+// flattened (T*B) curve, gather dx from the difference planes and run the
+// masked cotangent chain back to dgamma (T*B, D).
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+mc_chain(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
+         Weights w, Draws dr, const float* __restrict__ ct,
+         const float* __restrict__ diffs, float* __restrict__ dgamma) {
+  constexpr int C = CHAIN_RUNG<R>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  McSmem& s = *reinterpret_cast<McSmem*>(smem_raw);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int N = T * B, p0 = blockIdx.x * TP;
+  load_points(s, gamma, N, D, p0);
+  for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
+  // idx[smp * TP + p]: d1 of the segment after point p; idx[(S + smp) * TP
+  // + p]: d2 of the segment before it
+  for (int e = tid; e < 2 * S * TP; e += NT) {
+    const int p = e % TP, q = e / TP, side = q / S, smp = q % S;
+    const int pg = p0 + p, t = pg / B, b = pg % B;
+    int v = -1;
+    if (pg < N && side == 0 && t < T - 1) v = draw(dr, S, T, B, 0, smp, t, b);
+    if (pg < N && side == 1 && t > 0) v = draw(dr, S, T, B, 1, smp, t - 1, b);
+    s.idx[e] = v;
+  }
+  const float two_over_s = 2.f / (float)S;
+  for (int m = 0; m < M; ++m) {
+    __syncthreads();
+    stage_weights<R>(s, m, D, X, w);
+    __syncthreads();
+    float x[8][4];
+    uint32_t m1[2], m2[2];
+    decode_tile<R>(s, D, x, m1, m2);
+    // dx -> act[n][p] at the chain rung
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int p = ty * 8 + i, pg = p0 + p, pc = min(pg, N - 1);
+      const int t = pc / B, b = pc % B;
+      const float sc = pg < N ? __fmul_rn(two_over_s, ct[b]) : 0.f;
+      float dx[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int smp = 0; smp < S; ++smp) {
+        if (s.idx[smp * TP + p] == m) {
+          const float* row = diffs + (((size_t)smp * (T - 1) + t) * B + b) * X;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (tx + 16 * j < X) dx[j] = __fsub_rn(dx[j], row[tx + 16 * j]);
+        }
+        if (s.idx[(S + smp) * TP + p] == m) {
+          const float* row = diffs + (((size_t)smp * (T - 1) + t - 1) * B + b) * X;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (tx + 16 * j < X) dx[j] = __fadd_rn(dx[j], row[tx + 16 * j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (tx + 16 * j < X) s.act[(tx + 16 * j) * S_ACT + p] = pack<C>(__fmul_rn(dx[j], sc));
+    }
+    __syncthreads();
+    chain_tile<C>(s, D, X, m1, m2);
+  }
+  __syncthreads();
+  store_dgamma(s, dgamma, N, D, p0);
+}
+
+int fwd_tiles(int T) { return T > 1 ? (T - 1 + MC_TILE_SEGS - 1) / MC_TILE_SEGS : 1; }
+
+template <int R>
+cudaError_t launch_segments(const float* gamma, int T, int B, int D, int M, int X, int S,
+                            Weights w, Draws dr, float* partial, float* diffs,
+                            cudaStream_t st) {
+  cudaError_t err = prepare<McSmem>(mc_segments<R>);
+  if (err != cudaSuccess) return err;
+  dim3 grid((B + MC_COLS - 1) / MC_COLS, fwd_tiles(T));
+  mc_segments<R><<<grid, NT, sizeof(McSmem), st>>>(gamma, T, B, D, M, X, S, w, dr, partial,
+                                                   diffs);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, int S,
+                       Weights w, Draws dr, float* partial, float* out, cudaStream_t st) {
+  cudaError_t err = launch_segments<R>(gamma, T, B, D, M, X, S, w, dr, partial, nullptr, st);
+  if (err != cudaSuccess) return err;
+  mc_sum_tiles<<<(B + 127) / 128, 128, 0, st>>>(partial, fwd_tiles(T), B, S, out);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, int S,
+                       Weights w, Draws dr, const float* ct, float* diffs, float* dgamma,
+                       cudaStream_t st) {
+  cudaError_t err = launch_segments<R>(gamma, T, B, D, M, X, S, w, dr, nullptr, diffs, st);
+  if (err == cudaSuccess) err = prepare<McSmem>(mc_chain<R>);
+  if (err != cudaSuccess) return err;
+  mc_chain<R><<<(T * B + TP - 1) / TP, NT, sizeof(McSmem), st>>>(
+      gamma, T, B, D, M, X, S, w, dr, ct, diffs, dgamma);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Tile count of the forward's (n_tiles, B) partial-energy buffer.
+int vlg_mc_fwd_tiles(int T) { return fwd_tiles(T); }
+
+// d1 == nullptr: the draws are made in the kernel from (key0, key1) and kmax
+// (K7, K8); else from the planes d1, d2 (K5, K6).
+int vlg_mc_fwd(int rung, const float* gamma, int T, int B, int D, int M, int X, int S,
+               const float* W1, const float* b1, const float* W2, const float* b2,
+               const float* W3, const float* b3, const int* d1, const int* d2,
+               const float* kmax, unsigned key0, unsigned key1, float* partial, float* out,
+               void* stream) {
+  const Weights w{W1, b1, W2, b2, W3, b3};
+  const Draws dr{d1, d2, kmax, key0, key1};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (rung) {
+    case F32: return launch_fwd<F32>(gamma, T, B, D, M, X, S, w, dr, partial, out, st);
+    case F32X3: return launch_fwd<F32X3>(gamma, T, B, D, M, X, S, w, dr, partial, out, st);
+    case F32X2: return launch_fwd<F32X2>(gamma, T, B, D, M, X, S, w, dr, partial, out, st);
+    case BF16: return launch_fwd<BF16>(gamma, T, B, D, M, X, S, w, dr, partial, out, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int vlg_mc_bwd(int rung, const float* gamma, int T, int B, int D, int M, int X, int S,
+               const float* W1, const float* b1, const float* W2, const float* b2,
+               const float* W3, const float* b3, const int* d1, const int* d2,
+               const float* kmax, unsigned key0, unsigned key1, const float* ct,
+               float* diffs, float* dgamma, void* stream) {
+  if (S > SMAX) return cudaErrorInvalidValue;
+  const Weights w{W1, b1, W2, b2, W3, b3};
+  const Draws dr{d1, d2, kmax, key0, key1};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (rung) {
+    case F32: return launch_bwd<F32>(gamma, T, B, D, M, X, S, w, dr, ct, diffs, dgamma, st);
+    case F32X3: return launch_bwd<F32X3>(gamma, T, B, D, M, X, S, w, dr, ct, diffs, dgamma, st);
+    case F32X2: return launch_bwd<F32X2>(gamma, T, B, D, M, X, S, w, dr, ct, diffs, dgamma, st);
+    case BF16: return launch_bwd<BF16>(gamma, T, B, D, M, X, S, w, dr, ct, diffs, dgamma, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

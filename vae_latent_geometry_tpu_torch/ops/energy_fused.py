@@ -175,9 +175,11 @@ def energy_bwd_plain(ws, bs, gamma, wmb, ct, precision):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_cuda(ws, bs, gamma, wmb, extra=()):
+def _check_cuda(ws, bs, gamma, wmb=None, extra=()):
+    """Raise on what the kernels do not take; returns (T, B, D, M, X).
+    ``wmb``: the (M, B) weight plane of K1/K2 (the MC kernels have none)."""
     dev = gamma.device
-    tensors = [gamma, wmb, *ws, *bs, *extra]
+    tensors = [gamma, *ws, *bs, *extra] + ([] if wmb is None else [wmb])
     for x in tensors:
         if x.device != dev:
             raise ValueError(f"all inputs must be on {dev}, got {x.device}")
@@ -200,7 +202,7 @@ def _check_cuda(ws, bs, gamma, wmb, extra=()):
     if [tuple(b.shape) for b in bs] != [(M, HIDDEN), (M, HIDDEN), (M, X)]:
         raise ValueError(f"bias shapes {[tuple(b.shape) for b in bs]} "
                          "do not match the weights")
-    if tuple(wmb.shape) != (M, B):
+    if wmb is not None and tuple(wmb.shape) != (M, B):
         raise ValueError(f"wmb must be (M, B) = ({M}, {B}), got "
                          f"{tuple(wmb.shape)}")
     if T * B * HIDDEN >= 2**31:

@@ -6,6 +6,13 @@ Adam(lr, 0.9, 0.999, eps=1e-8) on omega only, with optax's update rule and
 learning-rate schedules written out in plain torch (:class:`Adam`,
 :func:`warmup_cosine_decay`).  The JAX package runs all steps as one
 ``lax.scan``; here a Python loop drives the same steps eagerly.
+
+The stochastic (MC) modes draw from a stream of integer seeds derived from
+the caller's ``torch.Generator`` with the structure of the JAX package's key
+stream: one independent draw per step, a stream of its own for every phase,
+a draw of its own for the final re-evaluation.  The seeds are computed on
+the host (:func:`fold_seed`), so the loop never waits for the device.
+Results are reproducible per seed; the bits are not the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,10 +32,30 @@ from vae_latent_geometry_tpu_torch.geometry.spline import (
     eval_spline_design,
     t_grid,
 )
-from vae_latent_geometry_tpu_torch.ops import energy_fused
+from vae_latent_geometry_tpu_torch.ops import energy_fused, energy_mc_fused
 
-ENERGY_MODES = ("expected", "expected_fused", "expected_fused_bf16",
+ENERGY_MODES = ("mc", "mc_scan", "mc_fused", "mc_fused_bf16",
+                "expected", "expected_fused", "expected_fused_bf16",
                 "single", "single_fused")
+_M64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A new 63-bit seed from ``seed`` and an integer (the splitmix64
+    finalizer): the counterpart of ``jax.random.fold_in`` for the integer
+    seeds of the MC modes."""
+    z = (seed + 0x9E3779B97F4A7C15 * (data + 1)) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1
+
+
+def root_seed(generator: Optional[torch.Generator]) -> int:
+    """The seed that names a caller's random stream: the generator's
+    ``initial_seed()`` (0 without a generator, as the JAX package's
+    ``PRNGKey(0)``).  Like a JAX key the generator is only read, never
+    advanced: the same generator gives the same run again."""
+    return 0 if generator is None else generator.initial_seed() & _M64
 
 
 class GeodesicResult(NamedTuple):
@@ -38,10 +65,12 @@ class GeodesicResult(NamedTuple):
     energy_history: Optional[torch.Tensor] = None  # (steps, B) if recorded
 
 
-def _energy_fn(mode: str, decoders, gamma, num_active=None,
-               kernel_precision: str = "f32x3", grad_only: bool = False):
+def _energy_fn(mode: str, decoders, gamma, seed: int = 0, mc_samples: int = 2,
+               num_active=None, kernel_precision: str = "f32x3",
+               mc_inkernel_rng: bool = True, grad_only: bool = False):
     """Per-spline energies (B,) of curve points gamma (T, B, D).
-    ``decoders`` is the stacked ensemble, or one decoder for ``single``."""
+    ``decoders`` is the stacked ensemble, or one decoder for ``single``.
+    ``seed`` is the step's draw of the MC modes."""
     if mode == "single":
         return energy_lib.energy_single(decoders, gamma)
     if mode == "single_fused":
@@ -52,6 +81,32 @@ def _energy_fn(mode: str, decoders, gamma, num_active=None,
         fn = (energy_fused.energy_expected_fused_grad if grad_only
               else energy_fused.energy_expected_fused)
         return fn(stacked, gamma, None, kernel_precision)
+    if mode in ("mc", "mc_scan"):
+        gen = torch.Generator(device=gamma.device).manual_seed(seed)
+        fn = (energy_lib.energy_mc if mode == "mc"
+              else energy_lib.energy_mc_scan)
+        return fn(decoders, gamma, gen, mc_samples, num_active)
+    if mode in ("mc_fused", "mc_fused_bf16"):
+        # a shape the kernels do not take raises in their wrappers: there is
+        # no fallback to the unfused estimator
+        precision = "bfloat16" if mode.endswith("bf16") else kernel_precision
+        T, B, _ = gamma.shape
+        m_dec = decoders["layers"][0]["w"].shape[0]
+        if mc_inkernel_rng:
+            # the draws are made inside the kernels (on the CPU: the same
+            # draws, made by philox_draws): no index planes in device memory
+            kmax = (torch.as_tensor(num_active, device=gamma.device).expand(B)
+                    if num_active is not None
+                    else torch.full((B,), m_dec, device=gamma.device))
+            fn = (energy_mc_fused.energy_mc_fused_rng_grad if grad_only
+                  else energy_mc_fused.energy_mc_fused_rng)
+            return fn(decoders, gamma, seed, kmax, mc_samples, precision)
+        gen = torch.Generator(device=gamma.device).manual_seed(seed)
+        d1, d2 = energy_mc_fused.sample_decoder_indices(
+            gen, T, B, m_dec, mc_samples, num_active)
+        fn = (energy_mc_fused.energy_mc_fused_grad if grad_only
+              else energy_mc_fused.energy_mc_fused)
+        return fn(decoders, gamma, d1, d2, precision)
     if mode == "expected":
         return energy_lib.energy_expected(decoders, gamma, num_active)
     if mode in ("expected_fused", "expected_fused_bf16"):
@@ -69,7 +124,8 @@ def _energy_fn(mode: str, decoders, gamma, num_active=None,
 
 def make_loss_fn(decoders, basis, cfg: GeodesicConfig, device,
                  grad_only: bool = False) -> Callable:
-    """loss(omega, a, b, num_active=None) -> (scalar_loss, per_spline_energy).
+    """loss(omega, a, b, seed=0, num_active=None) -> (scalar_loss,
+    per_spline_energy).  ``seed``: the step's draw of the MC modes.
 
     ``grad_only=True``: the fused modes return zeros as energy values while
     their gradient is unchanged (the forward kernel never runs).  The total
@@ -83,10 +139,11 @@ def make_loss_fn(decoders, basis, cfg: GeodesicConfig, device,
     t_end = torch.ones(1, dtype=torch.float32, device=device)
     phi_end = design_matrix(t_end, basis, cfg.spline.n_poly)
 
-    def loss(omega, a, b, num_active=None):
+    def loss(omega, a, b, seed=0, num_active=None):
         gamma = eval_spline_design(omega, a, b, phi, t)
-        e = _energy_fn(e_cfg.mode, decoders, gamma, num_active,
-                       e_cfg.kernel_precision, grad_only)
+        e = _energy_fn(e_cfg.mode, decoders, gamma, seed, e_cfg.mc_samples,
+                       num_active, e_cfg.kernel_precision,
+                       e_cfg.mc_inkernel_rng, grad_only)
         # endpoint penalty (reference src/optimize.py:158-160): zero in exact
         # arithmetic (the basis enforces offset(1)=0), kept for faithful
         # gradients under float32
@@ -217,34 +274,36 @@ def optimize_splines(decoders, omega0, a, b, basis, cfg: GeodesicConfig,
 
     decoders: stacked ensemble dict (one decoder for mode 'single'/
     'single_fused'), on ``device``.  omega0: (B, K, D); a, b: (B, D).
-    ``generator`` is the random stream of the stochastic (MC) energy modes,
-    which this port does not provide yet; the deterministic modes take none.
+    ``generator`` names the random stream of the MC energy modes
+    (:func:`root_seed`; default seed 0); the deterministic modes ignore it.
     Returned energies are re-evaluated at the FINAL omega (exact float32,
-    full num_t).
+    full num_t; in an MC mode that is one more draw).
     """
     if cfg.early_stop:
         raise ValueError("early stopping is not available in the PyTorch port")
-    del generator  # no stochastic mode is available yet
+    root = root_seed(generator)
     dev = resolve_device(device)
     omega = torch.as_tensor(omega0, dtype=torch.float32, device=dev).clone()
     a = torch.as_tensor(a, dtype=torch.float32, device=dev)
     b = torch.as_tensor(b, dtype=torch.float32, device=dev)
     hists = []
-    for pcfg in _phase_cfgs(cfg):
+    for i, pcfg in enumerate(_phase_cfgs(cfg)):
         grad_only = cfg.energy.gradonly_traj and not record_history
         loss_fn = make_loss_fn(decoders, basis, pcfg, dev, grad_only)
         opt = _make_opt(pcfg)
         state = opt.init(omega)
-        for _ in range(pcfg.steps):
+        phase_seed = fold_seed(root, 1 + i)
+        for step in range(pcfg.steps):
             om = omega.detach().requires_grad_(True)
-            total, e = loss_fn(om, a, b, num_active)
+            total, e = loss_fn(om, a, b, fold_seed(phase_seed, step),
+                               num_active)
             (grad,) = torch.autograd.grad(total, om)
             if record_history:
                 hists.append(e.detach())
             opt.step(omega, grad, state)
     with torch.no_grad():
         exact_loss = make_loss_fn(decoders, basis, _exact_cfg(cfg), dev)
-        _, e_final = exact_loss(omega, a, b, num_active)
+        _, e_final = exact_loss(omega, a, b, fold_seed(root, 0), num_active)
     return GeodesicResult(
         omega=omega, energy=e_final, lengths=torch.sqrt(e_final),
         energy_history=torch.stack(hists) if record_history else None)

@@ -30,7 +30,11 @@ from vae_latent_geometry_tpu_torch.io.artifacts import (
     save_spline_batch,
 )
 from vae_latent_geometry_tpu_torch.models import evae as evae_lib
-from vae_latent_geometry_tpu_torch.optim.geodesic import optimize_splines
+from vae_latent_geometry_tpu_torch.optim.geodesic import (
+    fold_seed,
+    optimize_splines,
+    root_seed,
+)
 
 # GeodesicConfig fields that cannot change any produced value; left out of
 # the recipe stamp (same set as the JAX package).
@@ -72,6 +76,9 @@ def optimize_spline_batch(
     is the data-space arc length; otherwise it is sqrt(energy).
     data: dataset for the latent Euclidean distances (skipped when None).
     output_path: when set, the result is saved there at the end.
+    generator: names the random stream of the MC modes (default seed 0);
+    every chunk draws from a stream of its own, derived from it and the
+    chunk's first pair, so a chunk's result does not depend on the others.
     """
     dev = resolve_device(device)
     single = cfg.energy.mode in ("single", "single_fused")
@@ -81,6 +88,7 @@ def optimize_spline_batch(
     omega_opt = np.array(art.omega_init, np.float32, copy=True)
     lengths = np.full(P, np.nan, np.float32)
     stamp = config_stamp(art, cfg)
+    root = root_seed(generator)
 
     eucl = None
     if data is not None:
@@ -101,7 +109,8 @@ def optimize_spline_batch(
             idx = np.concatenate([idx, np.full(bs - n_sl, stop - 1)])
         res = optimize_splines(energy_params, art.omega_init[idx], art.a[idx],
                                art.b[idx], art.basis, cfg, device=dev,
-                               generator=generator)
+                               generator=torch.Generator().manual_seed(
+                                   fold_seed(root, start)))
         om = res.omega[:n_sl].cpu().numpy()
         e = res.energy[:n_sl].cpu().numpy()
         omega_opt[start:stop] = om
