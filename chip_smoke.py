@@ -24,7 +24,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
              against the JAX package on the CPU at float32.
 5. mc_stats — the mean of the in-kernel-draw MC energy (K7) over 64 seeds
              against the expected energy (K1, float32), per spline, as
-             z-scores; a histogram of the drawn decoder indices.
+             z-scores, for 16 groups of 64 seeds: consecutive raw seeds, the
+             optimizer's own seed stream (``fold_seed``), and K5 on
+             ``torch.randint`` planes as the yardstick; a histogram of the
+             drawn decoder indices.
 6. mc_main — ``optimize_spline_batch`` at ``mc_fused`` (f32x2, draws made
              in the kernels, 1000 steps, final energies by
              ``expected_fused``): launch counts, steps/s, lengths against
@@ -32,7 +35,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
              energies by the MC kernel itself: bit-identical curves.
 7. mc_ext  — 200 steps with the draws shipped as index planes (K5/K6), and
              200 steps of the unfused plain-PyTorch ``mc`` mode as the
-             end-to-end yardstick.
+             end-to-end yardstick; mc_scan — 20 steps of the chunked unfused
+             mode (no kernel) after a 2-step warm-up; mc_coarse_bf16 — a cut turbo plan with its
+             coarse phase at ``mc_fused_bf16`` (the CLI's ``--coarse-bf16``).
 8. the ``kernels`` summary line, the card line, and the result line.
 
 The kernels phase also holds the four MC kernels (K5-K8) against their plain
@@ -112,12 +117,17 @@ LEN_MAX_F32 = 1e-4
 TPU_LEN_MED = 2e-3
 TPU_LEN_MAX = 5e-2
 # MC path.  (c) The mean of K7 over MC_SEEDS seeds against K1's float32
-# expected energy: |z| <= 5 per spline, z = (mean - expected) / (std /
-# sqrt(n)); with 200 splines an unbiased estimator exceeds that about once
-# in a thousand runs, and the seeds are fixed.  The drawn indices' chi-square
-# over the 10 decoders (9 degrees of freedom) stays below its 99.9th
-# percentile.  The same z-scores of K5 on ``torch.randint`` planes are the
-# yardstick beside it and are held to the same limit.  (d) Lengths of the
+# expected energy, z = (mean - expected) / (std / sqrt(n)) per spline and
+# group of seeds, MC_GROUPS x 200 = 3200 scores per seed stream.  Unbiased,
+# independent draws give Student-t scores (63 degrees): mean 0 +- 0.018,
+# spread 1.016 +- 0.013, so |mean| <= 0.1, spread within 1.02 +- 0.08 and
+# |z| <= 5 (about one run in a hundred would exceed that by chance; the
+# seeds are fixed).  A correlation between seeds would widen the spread, a
+# bias would move the mean.  Held alike for consecutive raw seeds, for the
+# seeds the optimizer uses (fold_seed of a phase seed and the step) and for
+# K5 on ``torch.randint`` planes, the yardstick.  The drawn indices'
+# chi-square over the 10 decoders (9 degrees of freedom) stays below its
+# 99.9th percentile.  (d) Lengths of the
 # MC-optimized curves, measured by the same float32 expected energy as phase
 # main's: MC_LEN_MED is the slice's proposed median (measured 2.4e-3); the
 # max is about twice the measured 4.6% (pair 188): single pairs settle
@@ -126,11 +136,16 @@ TPU_LEN_MAX = 5e-2
 # other pairs (PERF.md, Findings).
 MC_SAMPLES = 2
 MC_SEEDS = 64
+MC_GROUPS = 16
 MC_Z_MAX = 5.0
+MC_Z_MEAN = 0.1
+MC_Z_SPREAD = (0.94, 1.10)
 MC_CHI2_MAX = 27.9
 MC_LEN_MED = 1e-2
 MC_LEN_MAX = 1e-1
 MC_EXT_STEPS = 200
+MC_SCAN_STEPS = 20
+MC_COARSE_PLAN = ((100, 256, "cosine", 3e-3), (20, 2000, "constant", 1e-3))
 
 
 def emit(obj) -> None:
@@ -190,6 +205,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from vae_latent_geometry_tpu_torch.cli import coarse_bf16_plan
     from vae_latent_geometry_tpu_torch.config import EnergyConfig, GeodesicConfig
     from vae_latent_geometry_tpu_torch.data.tasic import load_tasic
     from vae_latent_geometry_tpu_torch.geometry.spline import (
@@ -199,7 +215,8 @@ def main() -> int:
     from vae_latent_geometry_tpu_torch.ops import _build
     from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
     from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
-    from vae_latent_geometry_tpu_torch.optim.geodesic import optimize_splines
+    from vae_latent_geometry_tpu_torch.optim.geodesic import (
+        fold_seed, optimize_splines)
     from vae_latent_geometry_tpu_torch.pipeline.evaluate import distance_matrix
     from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
         optimize_spline_batch)
@@ -287,10 +304,21 @@ def main() -> int:
                               and torch.isfinite(e7).all()
                               and torch.isfinite(g8).all())}
 
+    def decodes_needed(d1, d2, M):
+        """(point, decoder) pairs that the sampled energy on these planes
+        uses: decoder m at point t where d1[s, t] or d2[s, t-1] names it."""
+        need = torch.zeros((T, B, M), dtype=torch.bool, device=dev)
+        for s in range(d1.shape[0]):
+            need[:-1].scatter_(2, d1[s].long()[..., None], True)
+            need[1:].scatter_(2, d2[s].long()[..., None], True)
+        return int(need.sum())
+
     def mc_times(ws, bs, M, prec):
-        d1, d2, kmax, _, _ = mc_inputs(M, None)
+        d1, d2, kmax, p1, p2 = mc_inputs(M, None)
         S = MC_SAMPLES
         return {
+            "mc_decodes_needed": decodes_needed(d1, d2, M),
+            "mc_rng_decodes_needed": decodes_needed(p1, p2, M),
             "mc_fwd_ms": time_ms(lambda: mc.energy_mc_fwd(
                 ws, bs, gamma, d1, d2, prec), 5),
             "mc_fwd_plain_ms": time_ms(lambda: mc.energy_mc_fwd_plain(
@@ -431,32 +459,47 @@ def main() -> int:
     kmax = torch.full((B,), float(M), device=dev)
     e_exp = ef.energy_fwd(ws_all, bs_all, gamma, ef.uniform_weights(M, B, dev),
                           "float32").double()
-    draws = torch.stack([mc.energy_mc_fwd_rng(
-        ws_all, bs_all, gamma, seed, kmax, MC_SAMPLES, "float32")
-        for seed in range(MC_SEEDS)]).double()
-    z = (draws.mean(0) - e_exp) / (draws.std(0) / MC_SEEDS ** 0.5)
+    n_draws = MC_GROUPS * MC_SEEDS
+
+    def z_scores(energies):
+        """(n_draws, B) sampled energies -> z per (group of seeds, spline)."""
+        d = energies.double().reshape(MC_GROUPS, MC_SEEDS, B)
+        return (d.mean(1) - e_exp) / (d.std(1) / MC_SEEDS ** 0.5), d
+
+    def k7(seed):
+        return mc.energy_mc_fwd_rng(ws_all, bs_all, gamma, seed, kmax,
+                                    MC_SAMPLES, "float32")
+
+    # consecutive raw seeds; the optimizer's stream (group = phase, seed =
+    # step, as optimize_splines folds them); planes from torch.randint
+    phase_seeds = [fold_seed(0, 1 + g) for g in range(MC_GROUPS)]
     gen = torch.Generator(device=dev).manual_seed(0)
-    draws_ext = torch.stack([mc.energy_mc_fwd(
-        ws_all, bs_all, gamma,
-        *mc.sample_decoder_indices(gen, T, B, M, MC_SAMPLES), "float32")
-        for _ in range(MC_SEEDS)]).double()
-    z_ext = (draws_ext.mean(0) - e_exp) / (draws_ext.std(0) / MC_SEEDS ** 0.5)
+    streams = {
+        "": torch.stack([k7(seed) for seed in range(n_draws)]),
+        "folded_": torch.stack([k7(fold_seed(ps, step)) for ps in phase_seeds
+                                for step in range(MC_SEEDS)]),
+        "planes_": torch.stack([mc.energy_mc_fwd(
+            ws_all, bs_all, gamma,
+            *mc.sample_decoder_indices(gen, T, B, M, MC_SAMPLES), "float32")
+            for _ in range(n_draws)])}
     d1, d2 = mc.philox_draws(0, MC_SAMPLES, T, B, kmax)
     hist = torch.bincount(torch.cat([d1, d2]).flatten().long(),
                           minlength=M).double()
     chi2 = float(((hist - hist.mean()) ** 2 / hist.mean()).sum())
-    stats_rec = {"phase": "mc_stats", "seeds": MC_SEEDS,
-                 "mc_samples": MC_SAMPLES, "z_max_abs": float(z.abs().max()),
-                 "z_mean": float(z.mean()), "z_std": float(z.std()),
-                 "planes_z_max_abs": float(z_ext.abs().max()),
-                 "planes_z_mean": float(z_ext.mean()),
-                 "planes_z_std": float(z_ext.std()),
-                 "mean_rel_err_max": float(
-                     (draws.mean(0) / e_exp - 1).abs().max()),
-                 "draw_rel_std_median": float(
-                     (draws.std(0) / e_exp).median()),
+    stats_rec = {"phase": "mc_stats", "seeds": MC_SEEDS, "groups": MC_GROUPS,
+                 "mc_samples": MC_SAMPLES,
                  "index_histogram": [int(v) for v in hist.tolist()],
                  "index_chi2": chi2}
+    for pre, energies in streams.items():
+        z, d = z_scores(energies)
+        stats_rec.update({
+            pre + "z_max_abs": float(z.abs().max()),
+            pre + "z_mean": float(z.mean()), pre + "z_std": float(z.std()),
+            pre + "z_std_first_group": float(z[0].std()),
+            pre + "mean_rel_err_max": float(
+                (d.mean((0, 1)) / e_exp - 1).abs().max()),
+            pre + "draw_rel_std_median": float(
+                (d.std(1) / e_exp).median())})
     emit(stats_rec)
 
     # 6. MC main path: draws made in the kernels ----------------------------
@@ -524,6 +567,48 @@ def main() -> int:
                "vs_plain_mc_len_rel_median": float(np.median(np.abs(
                    ext_len / np.asarray(plain_mc_out.geodesic_length) - 1)))}
     emit(ext_rec)
+    # the chunked unfused mode: no kernel at all, final energies its own.
+    # Its first call in a process spends seconds on first-use set-up of the
+    # chunk-sized library kernels, so two steps run before the timed ones.
+    scan_energy = dataclasses.replace(mc_energy, mode="mc_scan")
+    mc_run(scan_energy, 2, None)
+    scan_out, scan_s, scan_launches = mc_run(scan_energy, MC_SCAN_STEPS, None)
+    scan_len = np.asarray(scan_out.geodesic_length, np.float64)
+    scan_rec = {"phase": "mc_scan", "steps": MC_SCAN_STEPS,
+                "optimize_s": scan_s, "steps_per_s": MC_SCAN_STEPS / scan_s,
+                "launches": scan_launches,
+                "lengths_finite": bool(np.isfinite(scan_len).all()),
+                "moved_from_init": bool(not np.array_equal(
+                    scan_out.omega_optimized, art.omega_init)),
+                "len_mean": float(scan_len.mean())}
+    emit(scan_rec)
+    # a cut turbo plan with its coarse phase at mc_fused_bf16, as the CLI's
+    # --turbo --coarse-bf16 builds it; final energies by expected_fused
+    coarse_plan = coarse_bf16_plan("mc_fused", MC_COARSE_PLAN)
+    coarse_steps = sum(ph[0] for ph in coarse_plan)
+    coarse_cfg = dataclasses.replace(
+        cfg, phase_plan=coarse_plan, final_energy_mode="expected_fused",
+        energy=mc_energy)
+    torch.cuda.synchronize()
+    ef.reset_launch_counts()
+    t0 = time.perf_counter()
+    coarse_out = optimize_spline_batch(
+        params, art, cfg=coarse_cfg, device=dev, log_every_chunk=False,
+        generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    coarse_s = time.perf_counter() - t0
+    coarse_launches = dict(ef.LAUNCHES)
+    coarse_len = np.asarray(coarse_out.geodesic_length, np.float64)
+    init_len = np.sqrt(e_exp.cpu().numpy()[:len(art)])
+    coarse_rec = {"phase": "mc_coarse_bf16",
+                  "plan": [list(ph) for ph in coarse_plan],
+                  "optimize_s": coarse_s, "launches": coarse_launches,
+                  "lengths_finite": bool(np.isfinite(coarse_len).all()),
+                  "len_mean": float(coarse_len.mean()),
+                  "len_mean_init": float(init_len.mean()),
+                  "share_shorter_than_init": float(
+                      (coarse_len < init_len).mean())}
+    emit(coarse_rec)
 
     # 8. kernels line -------------------------------------------------------
     P = T * B
@@ -535,22 +620,27 @@ def main() -> int:
     k1_bound = max(k1_flops / PEAK_FP32, (in_bytes + 4 * B) / PEAK_BYTES)
     k2_bound = max(k2_flops / PEAK_BF16,
                    (in_bytes + 4 * B + 4 * gamma.numel()) / PEAK_BYTES)
-    # MC kernels: one decode per decoder (K5/K7), decode + chain as K2
-    # (K6/K8); bytes add the index planes (K5/K6) or the counts (K7/K8), and
-    # for the two-launch backward the difference planes, written and read
+    # MC kernels: a point needs only the decoders drawn there (at most 2S
+    # of M), counted from the planes this run timed; one decode each
+    # (K5/K7), decode + chain as K2 (K6/K8).  Bytes: the inputs and the
+    # output once, the index planes (K5/K6) or the counts (K7/K8) among
+    # them; the backward's difference planes are an intermediate of this
+    # implementation and are not counted.
     plane_bytes = 2 * MC_SAMPLES * (T - 1) * B * 4
-    diff_bytes = 2 * MC_SAMPLES * (T - 1) * B * X * 4
+    mc_in = in_bytes - 4 * M * B
+    k2_per_decode = k2_flops / (P * M)
+    n_pl = times["float32"]["mc_decodes_needed"]
+    n_rng = times["float32"]["mc_rng_decodes_needed"]
     mc_bounds = {
-        "k5": max(k1_flops / PEAK_FP32,
-                  (in_bytes - 4 * M * B + plane_bytes + 4 * B) / PEAK_BYTES),
-        "k7": max(k1_flops / PEAK_FP32,
-                  (in_bytes - 4 * M * B + 4 * B + 4 * B) / PEAK_BYTES),
-        "k6": max(k2_flops / PEAK_BF16,
-                  (in_bytes - 4 * M * B + plane_bytes + 4 * B + diff_bytes
-                   + 4 * gamma.numel()) / PEAK_BYTES),
-        "k8": max(k2_flops / PEAK_BF16,
-                  (in_bytes - 4 * M * B + 8 * B + diff_bytes
-                   + 4 * gamma.numel()) / PEAK_BYTES)}
+        "k5": (n_pl * decode_flops(D, H, X, 1) / PEAK_FP32,
+               (mc_in + plane_bytes + 4 * B) / PEAK_BYTES),
+        "k7": (n_rng * decode_flops(D, H, X, 1) / PEAK_FP32,
+               (mc_in + 4 * B + 4 * B) / PEAK_BYTES),
+        "k6": (n_pl * k2_per_decode / PEAK_BF16,
+               (mc_in + plane_bytes + 4 * B + 4 * gamma.numel())
+               / PEAK_BYTES),
+        "k8": (n_rng * k2_per_decode / PEAK_BF16,
+               (mc_in + 8 * B + 4 * gamma.numel()) / PEAK_BYTES)}
 
     def mc_kernel(name, line, launches_, err_key, ms_key, prec, bound):
         return {"name": name, "route": "cuda",
@@ -561,7 +651,8 @@ def main() -> int:
                 "max_abs_err": errors[(M, prec)][err_key],
                 "ms": times[prec][ms_key + "_ms"],
                 "plain_ms": times[prec][ms_key + "_plain_ms"],
-                "bound_ms": 1e3 * bound, "bound_by": "operations",
+                "bound_ms": 1e3 * max(bound),
+                "bound_by": "operations" if bound[0] >= bound[1] else "bytes",
                 "library_ms": None}
 
     kernels = [
@@ -663,11 +754,15 @@ def main() -> int:
         fail(f"float32 lengths vs the JAX package on the CPU: "
              f"max {rel32.max():.3g}")
 
-    if (max(stats_rec["z_max_abs"], stats_rec["planes_z_max_abs"]) > MC_Z_MAX
-            or stats_rec["index_chi2"] > MC_CHI2_MAX):
-        fail(f"mc_stats: max |z| {stats_rec['z_max_abs']:.3g} (in-kernel "
-             f"draws), {stats_rec['planes_z_max_abs']:.3g} (planes), index "
-             f"chi-square {stats_rec['index_chi2']:.3g}")
+    for pre in ("", "folded_", "planes_"):
+        z_max, z_mean, z_std = (stats_rec[pre + k] for k in
+                                ("z_max_abs", "z_mean", "z_std"))
+        if (z_max > MC_Z_MAX or abs(z_mean) > MC_Z_MEAN
+                or not MC_Z_SPREAD[0] <= z_std <= MC_Z_SPREAD[1]):
+            fail(f"mc_stats ({pre or 'raw_'}seeds): max |z| {z_max:.3g}, "
+                 f"mean {z_mean:.3g}, spread {z_std:.3g}")
+    if stats_rec["index_chi2"] > MC_CHI2_MAX:
+        fail(f"mc_stats: index chi-square {stats_rec['index_chi2']:.3g}")
     want = {"mc_main": (mc_launches, {"energy_mc_bwd_rng": STEPS * n_chunks,
                                       "energy_fwd": n_chunks}),
             "mc_repeat": (rep_launches,
@@ -676,15 +771,25 @@ def main() -> int:
             "mc_ext": (ext_launches,
                        {"energy_mc_bwd": MC_EXT_STEPS * n_chunks,
                         "energy_mc_fwd": n_chunks}),
-            "plain mc": (plain_mc_launches, {})}
+            "plain mc": (plain_mc_launches, {}),
+            "mc_scan": (scan_launches, {}),
+            "mc_coarse_bf16": (coarse_launches,
+                               {"energy_mc_bwd_rng": coarse_steps * n_chunks,
+                                "energy_fwd": n_chunks})}
     for phase, (got, expected) in want.items():
         for name, count in got.items():
             if count != expected.get(name, 0):
                 fail(f"{phase}: {name} launched {count} times, expected "
                      f"{expected.get(name, 0)}")
     if not (mc_rec["lengths_finite"] and ext_rec["lengths_finite"]
-            and np.isfinite(rep_len).all() and rep_rec["moved_from_init"]):
+            and np.isfinite(rep_len).all() and rep_rec["moved_from_init"]
+            and scan_rec["lengths_finite"] and scan_rec["moved_from_init"]
+            and coarse_rec["lengths_finite"]):
         fail("MC path output malformed")
+    if coarse_rec["len_mean"] >= coarse_rec["len_mean_init"]:
+        fail(f"coarse-bf16 plan: mean length {coarse_rec['len_mean']:.6g} "
+             f"not below the init curves' "
+             f"{coarse_rec['len_mean_init']:.6g}")
     if not rep_rec["omega_bit_identical"]:
         fail("the same seed did not reproduce the MC-optimized curves bit "
              "for bit")

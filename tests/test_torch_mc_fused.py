@@ -231,3 +231,55 @@ def test_wrapper_checks_raise(setup):
     with pytest.raises(ValueError, match="no kernel for device"):
         tmc._launch("energy_mc_fwd", False, [], [], g, "float32", S, ok, ok,
                     None, 0, None)
+
+
+@pytest.mark.parametrize("case", ["index_high", "index_negative", "kmax_high",
+                                  "kmax_zero", "num_active_high"])
+def test_draws_out_of_range_raise(setup, case):
+    """A decoder index outside [0, M) or an active count outside [1, M]
+    would select no decoder and silently zero that endpoint: the entry
+    points raise instead, forward and gradient-only alike."""
+    from vae_latent_geometry_tpu_torch.optim.geodesic import _energy_fn
+
+    tp, gamma = setup
+    M = 3
+    tdec = members(tp, M)[0]
+    g = torch.from_numpy(gamma).requires_grad_(True)
+    planes = torch.zeros((S, T - 1, B), dtype=torch.int32)
+    if case.startswith("index"):
+        bad = planes.clone()
+        bad[1, 3, 2] = M if case == "index_high" else -1
+        with pytest.raises(ValueError, match="decoder indices"):
+            tmc.energy_mc_fused(tdec, g, planes, bad)
+        with pytest.raises(ValueError, match="decoder indices"):
+            tmc.energy_mc_fused_grad(tdec, g, bad, planes)
+    elif case.startswith("kmax"):
+        kmax = torch.full((B,), float(M))
+        kmax[1] = M + 1 if case == "kmax_high" else 0
+        with pytest.raises(ValueError, match="kmax"):
+            tmc.energy_mc_fused_rng(tdec, g, 3, kmax, S)
+        with pytest.raises(ValueError, match="kmax"):
+            tmc.energy_mc_fused_rng_grad(tdec, g, 3, kmax.numpy(), S)
+        with pytest.raises(ValueError, match="kmax"):
+            tmc.energy_mc_fused_rng(tdec, g, 3, kmax[1].item(), S)
+    else:
+        num_active = np.full(B, M + 2)
+        with pytest.raises(ValueError, match="kmax"):
+            _energy_fn("mc_fused", tdec, g, 1, S, num_active, "float32", True)
+        with pytest.raises(ValueError, match="num_active"):
+            _energy_fn("mc_fused", tdec, g, 1, S, num_active, "float32",
+                       False)
+        with pytest.raises(ValueError, match="num_active"):
+            _energy_fn("mc", tdec, g, 1, S, np.zeros(B, np.int64))
+
+
+def test_one_count_for_all_splines(setup):
+    """``kmax`` as one number is that count for every spline."""
+    tp, gamma = setup
+    tdec = members(tp, 3)[0]
+    g = torch.from_numpy(gamma)
+    e = tmc.energy_mc_fused_rng(tdec, g, 9, 2, S)
+    assert torch.equal(e, tmc.energy_mc_fused_rng(
+        tdec, g, 9, torch.full((B,), 2.0), S))
+    assert torch.equal(e, tmc.energy_mc_fused_rng(tdec, g, 9, np.array([2]),
+                                                  S))

@@ -9,7 +9,8 @@
   sample, independent decoder indices d1, d2 per (segment, spline) and
   sum_i ||f_{d2}(g_{i+1}) - f_{d1}(g_i)||^2, averaged over the samples;
   ``energy_mc_from_indices`` is the estimator on given index planes and
-  ``energy_mc_scan`` the same distribution streamed over T in chunks.
+  ``energy_mc_scan`` the same distribution streamed over T in chunks;
+  ``sample_decoder_indices`` draws the planes.
 - ``geodesic_lengths``: data-space arc length through one decoder.
 
 They mirror ``vae_latent_geometry_tpu.geometry.energy`` and are the
@@ -24,9 +25,6 @@ from torch.utils.checkpoint import checkpoint
 
 from vae_latent_geometry_tpu_torch.models import nets
 from vae_latent_geometry_tpu_torch.models.evae import decode_all
-from vae_latent_geometry_tpu_torch.ops.energy_mc_fused import (
-    sample_decoder_indices,
-)
 
 
 def energy_single(decoder_params, gamma):
@@ -67,6 +65,29 @@ def energy_expected(decoders, gamma, num_active=None):
     step = xbar[1:] - xbar[:-1]
     seg = (step * step).sum(dim=-1) + var[1:] + var[:-1]
     return seg.sum(dim=0)
+
+
+def sample_decoder_indices(generator: torch.Generator, T: int, B: int,
+                           m_dec: int, mc_samples: int = 2, num_active=None):
+    """(d1, d2): (S, T-1, B) int32 decoder draws, U[0, num_active_b), on the
+    generator's device.  31 random bits modulo the bound: the bias of a draw
+    is below num_active_b / 2^31 < 1e-5.  ``num_active`` must lie in
+    [1, m_dec] (ValueError; checked without waiting for the device when it
+    is host data), so every draw names a decoder."""
+    dev = generator.device
+    if num_active is None:
+        maxval = torch.full((B,), m_dec, dtype=torch.int32, device=dev)
+    else:
+        num_active = torch.as_tensor(num_active)
+        k_min, k_max = torch.stack(torch.aminmax(num_active)).tolist()
+        if k_min < 1 or k_max > m_dec:
+            raise ValueError(f"num_active must lie in [1, {m_dec}], got "
+                             f"[{k_min:g}, {k_max:g}]")
+        maxval = num_active.to(device=dev, dtype=torch.int32).expand(B)
+    val = torch.randint(0, 2**31 - 1, (2 * mc_samples, T - 1, B),
+                        generator=generator, device=dev, dtype=torch.int32)
+    draws = val % maxval[None, None, :]
+    return draws[:mc_samples], draws[mc_samples:]
 
 
 def _mc_segments(x_lo, x_hi, d1, d2):
@@ -132,7 +153,10 @@ def energy_mc_scan(decoders, gamma, generator, mc_samples: int = 2,
     for c in range(T // chunk):
         d1, d2 = sample_decoder_indices(generator, chunk + 1, B, m_dec,
                                         mc_samples, num_active)
+        # the body draws nothing, so there is no generator state to keep
+        # (reading the CUDA generator's state would wait for the device)
         e, prev_x = checkpoint(body, gamma[c * chunk:(c + 1) * chunk], prev_x,
-                               d1, d2, c == 0, use_reentrant=False)
+                               d1, d2, c == 0, use_reentrant=False,
+                               preserve_rng_state=False)
         energy = energy + e
     return energy

@@ -32,6 +32,11 @@ from __future__ import annotations
 
 import torch
 
+# the external planes' sampler lives beside the plain estimator; it is
+# re-exported here as the counterpart of energy_mc_pallas's
+from vae_latent_geometry_tpu_torch.geometry.energy import (  # noqa: F401
+    sample_decoder_indices,
+)
 from vae_latent_geometry_tpu_torch.ops.energy_fused import (
     _RUNG,
     LAUNCHES,
@@ -56,22 +61,6 @@ _M32 = 0xFFFFFFFF
 # ---------------------------------------------------------------------------
 # draws
 # ---------------------------------------------------------------------------
-
-def sample_decoder_indices(generator: torch.Generator, T: int, B: int,
-                           m_dec: int, mc_samples: int = 2, num_active=None):
-    """(d1, d2): (S, T-1, B) int32 decoder draws, U[0, num_active_b), on the
-    generator's device.  31 random bits modulo the bound: the bias of a draw
-    is below num_active_b / 2^31 < 1e-5."""
-    dev = generator.device
-    maxval = (torch.as_tensor(num_active, dtype=torch.int32,
-                              device=dev).expand(B)
-              if num_active is not None else
-              torch.full((B,), m_dec, dtype=torch.int32, device=dev))
-    val = torch.randint(0, 2**31 - 1, (2 * mc_samples, T - 1, B),
-                        generator=generator, device=dev, dtype=torch.int32)
-    draws = val % maxval[None, None, :]
-    return draws[:mc_samples], draws[mc_samples:]
-
 
 def _mulhilo(a: int, b):
     """(hi, lo) 32-bit halves of a * b for a 32-bit constant a and an int64
@@ -200,6 +189,22 @@ def energy_mc_bwd_rng_plain(ws, bs, gamma, seed, kmax, mc_samples, ct,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _check_range(what, x, lo, hi):
+    """Raise unless lo <= x <= hi everywhere: a value outside selects no
+    decoder, and that endpoint would silently be 0 in the kernel and in the
+    plain version alike.  Free for host data; for a CUDA tensor it waits for
+    the device once."""
+    x_min, x_max = torch.stack(torch.aminmax(x)).tolist()
+    if x_min < lo or x_max > hi:
+        raise ValueError(f"{what} must lie in [{lo}, {hi}], got "
+                         f"[{x_min:g}, {x_max:g}]")
+
+
+def _check_device(gamma):
+    if gamma.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {gamma.device}")
+
+
 def _check_planes(d1, d2, gamma):
     T, B, _ = gamma.shape
     for d in (d1, d2):
@@ -266,26 +271,34 @@ def _launch(name, backward, ws, bs, gamma, precision, S, d1, d2, kmax, seed,
 
 
 def energy_mc_fwd(ws, bs, gamma, d1, d2, precision):
-    """K5: (T, B, D) curve and (S, T-1, B) planes -> (B,) sampled energies."""
+    """K5: (T, B, D) curve and (S, T-1, B) int32 planes -> (B,) sampled
+    energies.  The plane values must lie in [0, M) (a value outside selects
+    no decoder); :func:`energy_mc_fused` checks that, this wrapper does
+    not."""
+    _check_device(gamma)
+    S = _check_planes(d1, d2, gamma)
     if gamma.device.type == "cpu":
         return energy_mc_fwd_plain(ws, bs, gamma, d1, d2, precision)
-    S = _check_planes(d1, d2, gamma)
     return _launch("energy_mc_fwd", False, ws, bs, gamma, precision, S, d1,
                    d2, None, 0, None)
 
 
 def energy_mc_bwd(ws, bs, gamma, d1, d2, ct, precision):
     """K6: dgamma (T, B, D) of sum_b ct_b E_b on the given planes."""
+    _check_device(gamma)
+    S = _check_planes(d1, d2, gamma)
     if gamma.device.type == "cpu":
         return energy_mc_bwd_plain(ws, bs, gamma, d1, d2, ct, precision)
-    S = _check_planes(d1, d2, gamma)
     return _launch("energy_mc_bwd", True, ws, bs, gamma, precision, S, d1, d2,
                    None, 0, ct)
 
 
 def energy_mc_fwd_rng(ws, bs, gamma, seed, kmax, mc_samples, precision):
     """K7: K5 with the draws made in the kernel from ``seed`` (an int of up
-    to 64 bits) and ``kmax`` ((B,) float32 active decoders per spline)."""
+    to 64 bits) and ``kmax`` ((B,) float32 active decoders per spline, each
+    in [1, M]: :func:`energy_mc_fused_rng` checks that, this wrapper does
+    not)."""
+    _check_device(gamma)
     _check_kmax(kmax, gamma, mc_samples)
     if gamma.device.type == "cpu":
         return energy_mc_fwd_rng_plain(ws, bs, gamma, seed, kmax, mc_samples,
@@ -296,6 +309,7 @@ def energy_mc_fwd_rng(ws, bs, gamma, seed, kmax, mc_samples, precision):
 
 def energy_mc_bwd_rng(ws, bs, gamma, seed, kmax, mc_samples, ct, precision):
     """K8: K6 on the same in-kernel draws as K7."""
+    _check_device(gamma)
     _check_kmax(kmax, gamma, mc_samples)
     if gamma.device.type == "cpu":
         return energy_mc_bwd_rng_plain(ws, bs, gamma, seed, kmax, mc_samples,
@@ -359,33 +373,48 @@ def _weights(decoders):
     return [w.detach() for w in ws], [b.detach().contiguous() for b in bs]
 
 
-def _fused(decoders, gamma, d1, d2, precision, grad_only):
+def _fused(decoders, gamma, d1, d2, precision, grad_only, check_range):
     ws, bs = _weights(decoders)
     d1, d2 = (d.to(torch.int32).contiguous() for d in (d1, d2))
+    if check_range and d1.numel():
+        _check_range("decoder indices", torch.stack([d1, d2]), 0,
+                     ws[0].shape[0] - 1)
     return _EnergyMCFused.apply(gamma.contiguous(), ws, bs, d1, d2, precision,
                                 grad_only)
 
 
 def _fused_rng(decoders, gamma, seed, kmax, mc_samples, precision, grad_only):
     ws, bs = _weights(decoders)
-    kmax = torch.as_tensor(kmax, dtype=torch.float32,
-                           device=gamma.device).reshape(-1).contiguous()
+    # counts given as host data (a number, an array, a CPU tensor) are
+    # checked before they go to the device, so the check costs no wait
+    kmax = torch.as_tensor(kmax)
+    _check_range("kmax (active decoders per spline)", kmax, 1, ws[0].shape[0])
+    if kmax.numel() == 1:
+        kmax = torch.full((gamma.shape[1],), float(kmax),
+                          dtype=torch.float32, device=gamma.device)
+    kmax = kmax.to(device=gamma.device,
+                   dtype=torch.float32).reshape(-1).contiguous()
     return _EnergyMCFusedRng.apply(gamma.contiguous(), ws, bs, int(seed),
                                    kmax, mc_samples, precision, grad_only)
 
 
-def energy_mc_fused(decoders, gamma, d1, d2, precision: str = "float32"):
+def energy_mc_fused(decoders, gamma, d1, d2, precision: str = "float32",
+                    check_range: bool = True):
     """Fused sampled ensemble energy.
 
-    gamma: (T, B, D); d1, d2: (S, T-1, B) decoder indices (from
-    :func:`sample_decoder_indices`).  Returns (B,)."""
-    return _fused(decoders, gamma, d1, d2, precision, False)
+    gamma: (T, B, D); d1, d2: (S, T-1, B) decoder indices in [0, M), else
+    ValueError.  The check waits for the device once when the planes lie
+    there; ``check_range=False`` skips it for planes that come straight
+    from :func:`sample_decoder_indices`, which keeps them in range.
+    Returns (B,)."""
+    return _fused(decoders, gamma, d1, d2, precision, False, check_range)
 
 
-def energy_mc_fused_grad(decoders, gamma, d1, d2, precision: str = "float32"):
+def energy_mc_fused_grad(decoders, gamma, d1, d2, precision: str = "float32",
+                         check_range: bool = True):
     """Gradient-only variant of :func:`energy_mc_fused`: zeros as the value,
     the same backward.  Use only where the energy value is discarded."""
-    return _fused(decoders, gamma, d1, d2, precision, True)
+    return _fused(decoders, gamma, d1, d2, precision, True, check_range)
 
 
 def energy_mc_fused_rng(decoders, gamma, seed, kmax, mc_samples: int = 2,
@@ -393,7 +422,9 @@ def energy_mc_fused_rng(decoders, gamma, seed, kmax, mc_samples: int = 2,
     """Fused sampled ensemble energy with the draws made in the kernel.
 
     seed: an int of up to 64 bits, one per optimization step; kmax: (B,) (or
-    (1, B)) per-spline active-decoder counts.  Returns (B,)."""
+    (1, B), or one number for all splines) per-spline active-decoder counts
+    in [1, M], else ValueError; pass host data where the caller has it, the
+    check is then free.  Returns (B,)."""
     return _fused_rng(decoders, gamma, seed, kmax, mc_samples, precision,
                       False)
 

@@ -95,18 +95,17 @@ def _energy_fn(mode: str, decoders, gamma, seed: int = 0, mc_samples: int = 2,
         if mc_inkernel_rng:
             # the draws are made inside the kernels (on the CPU: the same
             # draws, made by philox_draws): no index planes in device memory
-            kmax = (torch.as_tensor(num_active, device=gamma.device).expand(B)
-                    if num_active is not None
-                    else torch.full((B,), m_dec, device=gamma.device))
+            kmax = m_dec if num_active is None else num_active
             fn = (energy_mc_fused.energy_mc_fused_rng_grad if grad_only
                   else energy_mc_fused.energy_mc_fused_rng)
             return fn(decoders, gamma, seed, kmax, mc_samples, precision)
         gen = torch.Generator(device=gamma.device).manual_seed(seed)
-        d1, d2 = energy_mc_fused.sample_decoder_indices(
+        d1, d2 = energy_lib.sample_decoder_indices(
             gen, T, B, m_dec, mc_samples, num_active)
         fn = (energy_mc_fused.energy_mc_fused_grad if grad_only
               else energy_mc_fused.energy_mc_fused)
-        return fn(decoders, gamma, d1, d2, precision)
+        # the sampler keeps its planes in range: no device read to check
+        return fn(decoders, gamma, d1, d2, precision, check_range=False)
     if mode == "expected":
         return energy_lib.energy_expected(decoders, gamma, num_active)
     if mode in ("expected_fused", "expected_fused_bf16"):
