@@ -12,14 +12,18 @@ Phases, each printing one JSON line; any failure exits nonzero:
              against its plain PyTorch version on the same inputs, every
              precision rung, M=10 and M=1, and once with mixed per-spline
              decoder counts; CUDA-event times of kernel and plain version.
+             The stats kernels (K3/K4) on local shards of 10, 5 and 1
+             decoders with random smooth cotangents, and
+             ``energy_expected_sharded`` on one shard of all ten against
+             K1's energies and K2's gradient.
 3. main    — ``optimize_spline_batch`` (expected_fused, f32x2, 1000 Adam
              steps at lr 1e-3 constant, T=2000) then ``distance_matrix``;
              launch counts of both kernels during that run; lengths against
              the JAX package run on the CPU with the same recipe
              (``tools/jax_reference_lengths.py``) and, loosely, against its
              committed TPU result on the same init blob; then the same run
-             through the unfused plain-PyTorch ``expected`` mode (float32)
-             as the end-to-end yardstick.
+             through the unfused plain-PyTorch ``expected`` mode (float32,
+             200 steps) as the end-to-end yardstick.
 4. rung    — pairs 0, 42, 65, 164 through the same recipe at float32
              against the JAX package on the CPU at float32.
 5. mc_stats — the mean of the in-kernel-draw MC energy (K7) over 64 seeds
@@ -31,14 +35,29 @@ Phases, each printing one JSON line; any failure exits nonzero:
 6. mc_main — ``optimize_spline_batch`` at ``mc_fused`` (f32x2, draws made
              in the kernels, 1000 steps, final energies by
              ``expected_fused``): launch counts, steps/s, lengths against
-             phase ``main``; mc_repeat — the same seed again with the final
-             energies by the MC kernel itself: bit-identical curves.
+             phase ``main``; mc_repeat — 200 steps twice with one seed and
+             the final energies by the MC kernel itself: bit-identical
+             curves.
 7. mc_ext  — 200 steps with the draws shipped as index planes (K5/K6), and
              200 steps of the unfused plain-PyTorch ``mc`` mode as the
              end-to-end yardstick; mc_scan — 20 steps of the chunked unfused
              mode (no kernel) after a 2-step warm-up; mc_coarse_bf16 — a cut turbo plan with its
              coarse phase at ``mc_fused_bf16`` (the CLI's ``--coarse-bf16``).
-8. the ``kernels`` summary line, the card line, and the result line.
+8. init    — ``run_distance_pipeline`` from data to matrix on the seeded
+             surrogate (23,822 x 50, 20 classes, 190 pairs, entropy init on
+             a 200 x 200 grid, 200 ``expected_fused`` steps): representatives
+             and pairs exactly, endpoints, validity and fitted omega against
+             the JAX package run on the CPU (``tools/jax_reference_init.py``),
+             the share of pairs whose Dijkstra path differs, stage timings.
+9. ep      — the decoder-sharded path on a 1 x 1 mesh (``ep_axis`` set, all
+             ten decoders local): 1000 steps through K3/K4, launch counts,
+             lengths against the JAX package on the CPU under ``main``'s
+             limits.
+10. ep2    — two processes on the one card, mesh dp=1 x ep=2 over gloo (5
+             decoders each), 50 float32 steps at full width, against one
+             process's 50 ``expected_fused`` steps; both ranks' curves
+             bit-identical.
+11. the ``kernels`` summary line, the card line, and the result line.
 
 The kernels phase also holds the four MC kernels (K5-K8) against their plain
 versions, and K7/K8 against K5/K6 on the planes of ``philox_draws``.
@@ -144,8 +163,57 @@ MC_CHI2_MAX = 27.9
 MC_LEN_MED = 1e-2
 MC_LEN_MAX = 1e-1
 MC_EXT_STEPS = 200
+MC_REPEAT_STEPS = 200
+PLAIN_STEPS = 200
 MC_SCAN_STEPS = 20
 MC_COARSE_PLAN = ((100, 256, "cosine", 3e-3), (20, 2000, "constant", 1e-3))
+
+
+# Stats kernels (K3/K4) vs their plain versions.  x0 and yb: max error
+# relative to the decoder outputs' scale max|x0| (yb is a deviation of a few
+# units that carries the rounding of outputs of ~60, so its own max is no
+# yardstick); sq: relative to its own max.  Measured on the card at M_loc =
+# 10: 5e-7 / 1.2e-6 at float32, 9e-6 / 2.8e-5 at f32x3 and f32x2 (a one-ulp
+# fp32 difference flips the bf16 rounding of a lo part), 2.0e-3 / 4.5e-3 at
+# bfloat16 (~2e-3 input rounding on every decoded output, and sq doubles a
+# deviation's relative error); the limits leave a factor of five or more
+# for the smaller shards.  dgamma is judged as K2's.  The sharded energy on one
+# shard of all ten decoders is another decomposition of K1's sum: rtol 1e-5.
+STATS_X_RTOL = {"float32": 3e-6, "f32x3": 5e-5, "f32x2": 5e-5,
+                "bfloat16": 1e-2}
+STATS_SQ_RTOL = {"float32": 2e-5, "f32x3": 5e-4, "f32x2": 5e-4,
+                 "bfloat16": 5e-2}
+# Init stages vs the JAX package on the CPU (tools/jax_reference_init.py).
+# Endpoints are grid nodes: the grids differ by float32 rounding of the
+# encoder (a few 1e-7), another node would be a grid spacing (~3e-2) off.
+# omega solves 5 x 5 float32 normal equations of condition ~5e2: each
+# package lies ~2e-4 from the float64 solution on paths they share.  Entropy
+# edge weights differ in their last bits, so a near-tie may break the other
+# way: at most INIT_PATH_SHARE of the paths may differ, and those pairs are
+# held only to valid curves.  Init-curve lengths (float32 expected energy,
+# T=2000) on shared paths: rtol 1e-4.
+INIT_LABELS = 20
+INIT_STEPS = 200
+INIT_AB_ATOL = 1e-4
+INIT_OMEGA_ATOL = 5e-4
+INIT_PATH_SHARE = 0.05
+INIT_LEN_RTOL = 1e-4
+JAX_INIT = os.path.join(ROOT, "tools", "jax_reference_init_seed42")
+# Two ranks against one process.  Energies at the JAX suite's tolerance for
+# its mesh against its single device (tests/test_sharding.py:155-159).  That
+# suite's omega tolerance (rtol 1e-3, atol 1e-5) holds for its 25 steps on
+# narrow decoders, not here: Adam's normalised update moves an element by
+# ~lr per step whatever its gradient's size, so where a gradient element is
+# near zero a rounding-level difference between the two summation orders
+# shows as a different step.  After 50 steps at lr 1e-3 (a curve moves at
+# most 5e-2) omega differed by at most 3.1e-4 on the card while the energies
+# agreed to 2.8e-6; the limit is 2e-3, and the share of elements inside the
+# suite's tolerance is printed.
+EP2_STEPS = 50
+EP2_E_RTOL = 1e-4
+EP2_OMEGA_RTOL, EP2_OMEGA_ATOL = 1e-3, 1e-5
+EP2_OMEGA_MAX = 2e-3
+EP2_JOIN_S = 420.0
 
 
 def emit(obj) -> None:
@@ -196,6 +264,436 @@ def dgamma_stats(g_k, g_p, prefix=""):
 def decode_flops(D, H, X, passes):
     """FLOP of one decoder on one point, tail layers at ``passes``."""
     return 2 * D * H + passes * (2 * H * H + 2 * H * X)
+
+
+def smooth_cotangents(T, B, X, dev, seed):
+    """Random smooth (dx0, dyb, dsq): low-order Fourier series in t with
+    random coefficients per spline and feature."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.linspace(0.0, 1.0, T, device=dev)[:, None, None]
+
+    def series(width):
+        out = torch.zeros((T, B, width), device=dev)
+        for k in range(4):
+            c = torch.randn((2, 1, B, width), generator=gen, device=dev)
+            out = out + c[0] * torch.cos(k * np.pi * t) \
+                + c[1] * torch.sin((k + 1) * np.pi * t)
+        return out.contiguous()
+
+    return series(X), series(X), series(1)[..., 0].contiguous()
+
+
+def stats_phase(ef, ws_all, bs_all, gamma, dev):
+    """K3/K4 against their plain versions on local shards; returns
+    (records by (M_loc, rung), times)."""
+    import torch
+
+    T, B, _ = gamma.shape
+    M, X = ws_all[0].shape[0], ws_all[2].shape[2]
+    dx0, dyb, dsq = smooth_cotangents(T, B, X, dev, seed=11)
+    num_active = torch.as_tensor(
+        np.random.default_rng(3).integers(1, M + 1, size=B), device=dev)
+    cases = [(M, 0, None), (M // 2, 1, None), (1, 3, None),
+             (M // 2, 1, num_active)]
+    recs, times = {}, {}
+    for m_loc, shard, na in cases:
+        lo = shard * m_loc
+        ws = [w[lo:lo + m_loc].contiguous() for w in ws_all]
+        bs = [b[lo:lo + m_loc].contiguous() for b in bs_all]
+        wmb = (ef.uniform_weights_local(M, m_loc, B, dev) if na is None
+               else ef.active_weights_local(na, M, m_loc, B, shard,
+                                            dev)).contiguous()
+        for prec in (ef.PRECISIONS if na is None else ("f32x2",)):
+            out = ef.stats_fwd(ws, bs, gamma, wmb, prec)
+            ref = ef.stats_fwd_plain(ws, bs, gamma, wmb, prec)
+            g_k = ef.stats_bwd(ws, bs, gamma, wmb, dx0, dyb, dsq, prec)
+            g_p = ef.stats_bwd_plain(ws, bs, gamma, wmb, dx0, dyb, dsq, prec)
+            torch.cuda.synchronize()
+            rec = {"phase": "kernels", "kernel": "stats", "M_loc": m_loc,
+                   "shard": shard, "precision": prec,
+                   "weights": "uniform" if na is None else "active, mixed",
+                   **dgamma_stats(g_k, g_p, "stats_"),
+                   "stats_finite": bool(
+                       all(torch.isfinite(o).all() for o in out)
+                       and torch.isfinite(g_k).all())}
+            x_scale = float(ref[0].abs().max())
+            for name, o, r in zip(("x0", "yb", "sq"), out, ref):
+                scale = max(float(r.abs().max()), 1e-30) if name == "sq" \
+                    else x_scale
+                rec[f"{name}_max_abs"] = float((o - r).abs().max())
+                rec[f"{name}_max_rel"] = rec[f"{name}_max_abs"] / scale
+            if m_loc == 1 and (float(out[1].abs().max()) != 0.0
+                               or float(out[2].abs().max()) != 0.0):
+                fail("K3 on a one-decoder shard wrote nonzero moments")
+            if na is None and m_loc > 1 and prec in ("float32", "f32x2"):
+                rec["stats_fwd_ms"] = time_ms(
+                    lambda: ef.stats_fwd(ws, bs, gamma, wmb, prec), 5)
+                rec["stats_fwd_plain_ms"] = time_ms(
+                    lambda: ef.stats_fwd_plain(ws, bs, gamma, wmb, prec), 3)
+                rec["stats_bwd_ms"] = time_ms(
+                    lambda: ef.stats_bwd(ws, bs, gamma, wmb, dx0, dyb, dsq,
+                                         prec), 5)
+                rec["stats_bwd_plain_ms"] = time_ms(
+                    lambda: ef.stats_bwd_plain(ws, bs, gamma, wmb, dx0, dyb,
+                                               dsq, prec), 3)
+                times[(m_loc, prec)] = rec
+            emit(rec)
+            key = (m_loc, prec, "uniform" if na is None else "mixed")
+            recs[key] = rec
+            if not rec["stats_finite"]:
+                fail(f"K3/K4 non-finite output at {key}")
+            for name in ("x0", "yb", "sq"):
+                tol = (STATS_SQ_RTOL if name == "sq" else STATS_X_RTOL)[prec]
+                if rec[f"{name}_max_rel"] > tol:
+                    fail(f"K3 {name} rel err {rec[f'{name}_max_rel']:.3g} > "
+                         f"{tol} at {key}")
+            if (rec["stats_dgamma_share_over_1e-3"] > DG_OVER_SHARE[prec]
+                    or rec["stats_dgamma_rel_median"] > DG_MED
+                    or rec["stats_dgamma_rel_p99"] > DG_P99):
+                fail(f"K4 dgamma median/p99/share "
+                     f"{rec['stats_dgamma_rel_median']:.3g}/"
+                     f"{rec['stats_dgamma_rel_p99']:.3g}/"
+                     f"{rec['stats_dgamma_share_over_1e-3']:.3g} at {key}")
+    return recs, times
+
+
+def sharded_vs_fused(ef, decoders, gamma, dev):
+    """``energy_expected_sharded`` on one shard of all decoders against K1's
+    energies and K2's gradient, float32 and f32x2."""
+    import torch
+
+    B = gamma.shape[1]
+    M = decoders["layers"][0]["w"].shape[0]
+    ct = torch.linspace(0.5, 2.0, B, device=dev)
+    for prec in ("float32", "f32x2"):
+        g1 = gamma.clone().requires_grad_(True)
+        e_sh = ef.energy_expected_sharded(
+            decoders, g1, ef.uniform_weights_local(M, M, B, dev), None, prec)
+        (d_sh,) = torch.autograd.grad((ct * e_sh).sum(), g1)
+        g2 = gamma.clone().requires_grad_(True)
+        e_fu = ef.energy_expected_fused(decoders, g2, None, prec)
+        (d_fu,) = torch.autograd.grad((ct * e_fu).sum(), g2)
+        torch.cuda.synchronize()
+        rec = {"phase": "kernels", "kernel": "sharded_vs_fused",
+               "precision": prec,
+               "energy_max_rel": float(((e_sh - e_fu).abs()
+                                        / e_fu.abs()).max().detach()),
+               **dgamma_stats(d_sh, d_fu)}
+        emit(rec)
+        if rec["energy_max_rel"] > E_RTOL:
+            fail(f"sharded energy on one shard vs K1: rel err "
+                 f"{rec['energy_max_rel']:.3g} at {prec}")
+        if (rec["dgamma_rel_median"] > DG_MED or rec["dgamma_rel_p99"] > DG_P99
+                or rec["dgamma_share_over_1e-3"] > DG_OVER_SHARE[prec]):
+            fail(f"sharded gradient vs K2: median/p99 "
+                 f"{rec['dgamma_rel_median']:.3g}/{rec['dgamma_rel_p99']:.3g} "
+                 f"at {prec}")
+
+
+def port_init_paths(latents, pairs, decoders, init_cfg):
+    """The Dijkstra paths of the port's init stage, by the calls
+    ``initialize_splines`` makes: (padded node lists, lengths)."""
+    from vae_latent_geometry_tpu_torch.graph.grid import (
+        create_latent_grid, entropy_weights, grid_knn_graph,
+        reweight_graph_by_entropy)
+    from vae_latent_geometry_tpu_torch.graph.shortest_path import (
+        dijkstra_multi, extract_paths)
+    from vae_latent_geometry_tpu_torch.pipeline.init_splines import (
+        _nearest_grid_nodes)
+
+    grid, shape = create_latent_grid(latents, init_cfg.grid_points_per_axis,
+                                     init_cfg.grid_margin)
+    graph = reweight_graph_by_entropy(
+        grid_knn_graph(grid, shape, k=init_cfg.knn),
+        entropy_weights(decoders, grid))
+    p = np.asarray(pairs, np.int64)
+    start = _nearest_grid_nodes(grid, shape, latents[p[:, 0]])
+    end = _nearest_grid_nodes(grid, shape, latents[p[:, 1]])
+    uniq, rows = np.unique(start, return_inverse=True)
+    _, pred = dijkstra_multi(graph, uniq)
+    return extract_paths(pred, rows.astype(np.int32), uniq.astype(np.int32),
+                         end, max_len=init_cfg.max_path_len)
+
+
+def init_phase(params, cfg, dev, ef):
+    """Data to matrix through ``run_distance_pipeline`` on the seeded
+    surrogate, against the JAX package's init stage on the CPU."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.config import InitConfig
+    from vae_latent_geometry_tpu_torch.data.tasic import load_tasic
+    from vae_latent_geometry_tpu_torch.geometry.spline import (
+        design_matrix, eval_spline_design, t_grid)
+    from vae_latent_geometry_tpu_torch.models.evae import encode
+    from vae_latent_geometry_tpu_torch.pipeline.full_run import (
+        run_distance_pipeline)
+
+    data = load_tasic()
+    if not data.synthetic:
+        fail("init phase: a data directory was found; the reference is "
+             "defined on the seeded surrogate")
+    ref = np.load(JAX_INIT + ".npz")
+    with open(JAX_INIT + ".json") as f:
+        ref_meta = json.load(f)
+    init_cfg = InitConfig(use_entropy=True)
+    geo_cfg = dataclasses.replace(cfg, steps=INIT_STEPS)
+    torch.cuda.synchronize()
+    ef.reset_launch_counts()
+    res = run_distance_pipeline(
+        params, data.x, data.labels, max_labels=INIT_LABELS,
+        init_cfg=init_cfg, geo_cfg=geo_cfg, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(ef.LAUNCHES)
+    art, mat = res.artifact, res.matrix
+
+    with torch.no_grad():
+        latents = encode(params, torch.as_tensor(
+            data.x, device=dev))[0].cpu().numpy()
+    paths, path_len = port_init_paths(latents, art.pair_indices,
+                                      params.decoders, init_cfg)
+    L = ref["paths"].shape[1]
+    same_path = (path_len == ref["path_len"]) & np.all(
+        paths[:, :L] == ref["paths"], axis=1)
+    d_omega = np.abs(art.omega_init - ref["omega_init"]).max(axis=(1, 2))
+    # float32 expected-energy lengths of the init curves (K1), all pairs
+    B = cfg.batch_size
+    idx = np.concatenate([np.arange(len(art)),
+                          np.full(B - len(art), len(art) - 1)])
+    t = t_grid(cfg.energy.num_t, dev)
+    gamma = eval_spline_design(
+        torch.as_tensor(art.omega_init[idx], device=dev),
+        torch.as_tensor(art.a[idx], device=dev),
+        torch.as_tensor(art.b[idx], device=dev),
+        design_matrix(t, art.basis, art.n_poly), t).contiguous()
+    init_len = torch.sqrt(ef.energy_expected_fused(
+        params.decoders, gamma)).double().cpu().numpy()[:len(art)]
+    rel_len = np.abs(init_len / ref["init_lengths"] - 1)
+    opt_len = np.asarray(art.geodesic_length, np.float64)
+    rec = {"phase": "init", "rows": int(len(data.x)), "pairs": len(art),
+           "graph_backend": res.graph_backend,
+           "jax_graph_backend": ref_meta["graph_backend"],
+           "timings_s": res.timings, "launches": launches,
+           "representatives_equal": bool(
+               art.representatives == ref_meta["representatives"]),
+           "pairs_equal": bool(np.array_equal(art.pair_indices,
+                                              ref["pair_indices"])),
+           "valid_equal": bool(np.array_equal(art.valid, ref["valid"])),
+           "n_valid": int(art.valid.sum()),
+           "a_max_abs": float(np.abs(art.a - ref["a"]).max()),
+           "b_max_abs": float(np.abs(art.b - ref["b"]).max()),
+           "paths_differ_share": float(1.0 - same_path.mean()),
+           "paths_differ_pairs": np.nonzero(~same_path)[0].tolist(),
+           "omega_max_abs_same_path": float(d_omega[same_path].max()),
+           "omega_max_abs_all": float(d_omega.max()),
+           "init_len_rel_max_same_path": float(rel_len[same_path].max()),
+           "init_len_rel_max_all": float(rel_len.max()),
+           "matrix_shape": list(mat.shape),
+           "matrix_finite": bool(np.isfinite(mat).all()),
+           "matrix_symmetric": bool(np.array_equal(mat, mat.T)),
+           "len_mean_init": float(init_len.mean()),
+           "len_mean_optimized": float(opt_len.mean()),
+           "steps": INIT_STEPS,
+           "steps_per_s": INIT_STEPS / res.timings["optimize"]}
+    emit(rec)
+    if not (rec["representatives_equal"] and rec["pairs_equal"]):
+        fail("init: representatives or pairs differ from the JAX package's")
+    if not rec["valid_equal"]:
+        fail("init: validity mask differs from the JAX package's")
+    if max(rec["a_max_abs"], rec["b_max_abs"]) > INIT_AB_ATOL:
+        fail(f"init: endpoints off by {rec['a_max_abs']:.3g} / "
+             f"{rec['b_max_abs']:.3g}")
+    if rec["paths_differ_share"] > INIT_PATH_SHARE:
+        fail(f"init: {rec['paths_differ_share']:.3g} of the Dijkstra paths "
+             "differ")
+    if rec["omega_max_abs_same_path"] > INIT_OMEGA_ATOL:
+        fail(f"init: omega off by {rec['omega_max_abs_same_path']:.3g} on "
+             "shared paths")
+    if rec["init_len_rel_max_same_path"] > INIT_LEN_RTOL:
+        fail(f"init: init-curve lengths off by "
+             f"{rec['init_len_rel_max_same_path']:.3g} on shared paths")
+    if not (mat.shape == (INIT_LABELS, INIT_LABELS) and rec["matrix_finite"]
+            and rec["matrix_symmetric"] and np.isfinite(opt_len).all()
+            and np.isfinite(art.omega_init).all()):
+        fail("init: pipeline output malformed")
+    if rec["len_mean_optimized"] >= rec["len_mean_init"]:
+        fail("init: optimization did not shorten the init curves")
+    want = {"energy_bwd": INIT_STEPS, "energy_fwd": 1}
+    for name, count in launches.items():
+        if count != want.get(name, 0):
+            fail(f"init: {name} launched {count} times, expected "
+                 f"{want.get(name, 0)}")
+    return rec
+
+
+def ep_phase(params, art, cfg, dev, ef, cpu_ref):
+    """The decoder-sharded path with all ten decoders local (1 x 1 mesh):
+    K3 forward and K4 backward every step."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.parallel.mesh import make_mesh
+    from vae_latent_geometry_tpu_torch.pipeline.evaluate import distance_matrix
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch)
+
+    ep_cfg = dataclasses.replace(cfg, energy=dataclasses.replace(
+        cfg.energy, ep_axis="ep"))
+    torch.cuda.synchronize()
+    ef.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = optimize_spline_batch(params, art, cfg=ep_cfg, device=dev,
+                                log_every_chunk=False, mesh=make_mesh(1, 1))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ef.LAUNCHES)
+    mat, labels = distance_matrix(out)
+    lengths = np.asarray(out.geodesic_length, np.float64)
+    sel = np.asarray(cpu_ref["pairs"])
+    rel = np.abs(lengths[sel] / np.asarray(cpu_ref["lengths"]) - 1)
+    rec = {"phase": "ep", "mesh": {"dp": 1, "ep": 1}, "M_loc": 10,
+           "steps": cfg.steps, "optimize_s": secs,
+           "steps_per_s": cfg.steps / secs, "launches": launches,
+           "lengths_finite": bool(np.isfinite(lengths).all()),
+           "matrix_shape": list(mat.shape),
+           "len_rel_median": float(np.median(rel)),
+           "len_rel_p99": float(np.quantile(rel, 0.99)),
+           "len_rel_max": float(rel.max()),
+           "len_rel_argmax_pair": int(sel[np.argmax(rel)]),
+           "len_mean": float(lengths.mean())}
+    emit(rec)
+    n_chunks = -(-len(art) // cfg.batch_size)
+    want = {"stats_fwd": (cfg.steps + 1) * n_chunks,
+            "stats_bwd": cfg.steps * n_chunks}
+    for name, count in launches.items():
+        if count != want.get(name, 0):
+            fail(f"ep: {name} launched {count} times, expected "
+                 f"{want.get(name, 0)}")
+    if not (rec["lengths_finite"] and mat.shape == (len(labels), len(labels))
+            and np.isfinite(mat).all()):
+        fail("ep path output malformed")
+    if rec["len_rel_median"] > LEN_MED or rec["len_rel_max"] > LEN_MAX:
+        fail(f"ep lengths vs the JAX package on the CPU: median "
+             f"{rec['len_rel_median']:.3g}, max {rec['len_rel_max']:.3g}")
+    return rec, lengths
+
+
+def _ep2_rank(rank, world, store, out_dir, device, num_t):
+    """One rank of phase ep2 (its own process): mesh dp=1 x ep=world over
+    gloo on the one card, the chunk through ``optimize_spline_batch``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from vae_latent_geometry_tpu_torch.config import EnergyConfig, GeodesicConfig
+    from vae_latent_geometry_tpu_torch.io.artifacts import load_spline_batch
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.parallel.mesh import make_mesh
+    from vae_latent_geometry_tpu_torch.parallel.multihost import (
+        init_multihost, shutdown_multihost)
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch)
+
+    init_multihost(f"file://{store}", world, rank, backend="gloo")
+    try:
+        dev = torch.device(device)
+        mesh = make_mesh(1, world)
+        cfg = GeodesicConfig(
+            steps=EP2_STEPS, lr=1e-3, lr_schedule="constant", batch_size=200,
+            energy=EnergyConfig(num_t=num_t, mode="expected_fused",
+                                kernel_precision="float32"))
+        t0 = time.perf_counter()
+        out = optimize_spline_batch(load_npz(MODEL, dev),
+                                    load_spline_batch(INIT), cfg=cfg,
+                                    device=dev, log_every_chunk=False,
+                                    mesh=mesh)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        np.savez(os.path.join(out_dir, f"ep2_rank{rank}.npz"),
+                 omega=out.omega_optimized, lengths=out.geodesic_length,
+                 seconds=time.perf_counter() - t0,
+                 stats_fwd=ef.LAUNCHES["stats_fwd"],
+                 stats_bwd=ef.LAUNCHES["stats_bwd"],
+                 other=sum(v for k, v in ef.LAUNCHES.items()
+                           if not k.startswith("stats")))
+    finally:
+        shutdown_multihost()
+
+
+def ep2_phase(params, art, cfg, dev):
+    """Two ranks on the one card (gloo; NCCL takes one rank per device), 5
+    decoders each, against one process on all ten."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch)
+
+    one_cfg = dataclasses.replace(cfg, steps=EP2_STEPS, energy=dataclasses.replace(
+        cfg.energy, kernel_precision="float32"))
+    one = optimize_spline_batch(params, art, cfg=one_cfg, device=dev,
+                                log_every_chunk=False)
+    torch.cuda.synchronize()
+    store = os.path.join(OUT_DIR, f"ep2_store_{os.getpid()}")
+    for name in [store] + [os.path.join(OUT_DIR, f"ep2_rank{r}.npz")
+                           for r in range(2)]:
+        if os.path.exists(name):
+            os.remove(name)
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_ep2_rank,
+                   args=(2, store, OUT_DIR, str(dev), cfg.energy.num_t),
+                   nprocs=2, join=False)
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > EP2_JOIN_S:
+                fail(f"ep2: the two ranks did not finish in {EP2_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+        if os.path.exists(store):
+            os.remove(store)
+    wall = time.perf_counter() - t0
+    ranks = [np.load(os.path.join(OUT_DIR, f"ep2_rank{r}.npz"))
+             for r in range(2)]
+    e_one = np.asarray(one.geodesic_length, np.float64) ** 2
+    e_two = np.asarray(ranks[0]["lengths"], np.float64) ** 2
+    d_omega = np.abs(ranks[0]["omega"] - one.omega_optimized)
+    rec = {"phase": "ep2", "mesh": {"dp": 1, "ep": 2}, "backend": "gloo",
+           "M_loc": 5, "steps": EP2_STEPS, "precision": "float32",
+           "wall_s": wall,
+           "rank_optimize_s": [float(r["seconds"]) for r in ranks],
+           "rank_steps_per_s": [EP2_STEPS / float(r["seconds"])
+                                for r in ranks],
+           "launches": [{"stats_fwd": int(r["stats_fwd"]),
+                         "stats_bwd": int(r["stats_bwd"]),
+                         "other": int(r["other"])} for r in ranks],
+           "ranks_bit_identical": bool(
+               np.array_equal(ranks[0]["omega"], ranks[1]["omega"])
+               and np.array_equal(ranks[0]["lengths"], ranks[1]["lengths"])),
+           "energy_rel_max": float(np.abs(e_two / e_one - 1).max()),
+           "omega_max_abs": float(d_omega.max()),
+           "omega_share_within_rtol_atol": float(np.mean(
+               d_omega <= EP2_OMEGA_ATOL
+               + EP2_OMEGA_RTOL * np.abs(one.omega_optimized))),
+           "moved_from_init": bool(not np.array_equal(ranks[0]["omega"],
+                                                      art.omega_init))}
+    emit(rec)
+    n_chunks = -(-len(art) // cfg.batch_size)
+    for r in rec["launches"]:
+        if r != {"stats_fwd": (EP2_STEPS + 1) * n_chunks,
+                 "stats_bwd": EP2_STEPS * n_chunks, "other": 0}:
+            fail(f"ep2: launches {rec['launches']}")
+    if not rec["ranks_bit_identical"]:
+        fail("ep2: the two ranks' curves differ")
+    if (rec["energy_rel_max"] > EP2_E_RTOL
+            or rec["omega_max_abs"] > EP2_OMEGA_MAX):
+        fail(f"ep2 vs one process: energies {rec['energy_rel_max']:.3g}, "
+             f"omega {rec['omega_max_abs']:.3g}")
+    if not rec["moved_from_init"]:
+        fail("ep2: the curves did not move")
+    return rec
 
 
 def main() -> int:
@@ -379,6 +877,10 @@ def main() -> int:
                       num_active)}
     emit(rec)
     errors[("mixed", "f32x2")] = rec
+    # the stats kernels (K3/K4) on local shards, and the sharded energy on
+    # one shard of all ten decoders against K1/K2
+    stats_recs, stats_times = stats_phase(ef, ws_all, bs_all, gamma, dev)
+    sharded_vs_fused(ef, params.decoders, gamma, dev)
 
     # 3. main path ----------------------------------------------------------
     cfg = GeodesicConfig(
@@ -421,19 +923,20 @@ def main() -> int:
 
     # 3b. the same run through the unfused plain-PyTorch mode ("expected",
     # float32 decode of all decoders, autograd): the end-to-end yardstick
-    plain_cfg = dataclasses.replace(cfg, energy=dataclasses.replace(
-        cfg.energy, mode="expected"))
+    plain_cfg = dataclasses.replace(
+        cfg, steps=PLAIN_STEPS,
+        energy=dataclasses.replace(cfg.energy, mode="expected"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = optimize_spline_batch(params, art, cfg=plain_cfg, device=dev,
                                   log_every_chunk=False)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    rel_plain = np.abs(lengths / np.asarray(plain.geodesic_length) - 1)
-    emit({"phase": "plain_path", "mode": "expected", "optimize_s": plain_s,
-          "steps_per_s": STEPS / plain_s,
-          "vs_main_len_rel_median": float(np.median(rel_plain)),
-          "vs_main_len_rel_max": float(rel_plain.max())})
+    plain_len = np.asarray(plain.geodesic_length, np.float64)
+    emit({"phase": "plain_path", "mode": "expected", "steps": PLAIN_STEPS,
+          "optimize_s": plain_s, "steps_per_s": PLAIN_STEPS / plain_s,
+          "lengths_finite": bool(np.isfinite(plain_len).all()),
+          "len_mean": float(plain_len.mean())})
     np.savez(os.path.join(OUT_DIR, "main_lengths.npz"), port=lengths,
              jax=np.asarray(ref.geodesic_length))
 
@@ -535,20 +1038,22 @@ def main() -> int:
               "len_mean": float(mc_len.mean()),
               "len_mean_main": float(lengths.mean())}
     emit(mc_rec)
-    # the same seed again; the final energies now come from the MC kernel
-    # itself (K7, float32, one more draw), so they carry draw noise
-    rep_out, rep_s, rep_launches = mc_run(mc_energy, STEPS, None)
+    # one seed twice, a shorter run; the final energies now come from the MC
+    # kernel itself (K7, float32, one more draw)
+    first_out, _, _ = mc_run(mc_energy, MC_REPEAT_STEPS, None)
+    rep_out, rep_s, rep_launches = mc_run(mc_energy, MC_REPEAT_STEPS, None)
     rep_len = np.asarray(rep_out.geodesic_length, np.float64)
-    rep_rec = {"phase": "mc_repeat", "optimize_s": rep_s,
-               "steps_per_s": STEPS / rep_s, "launches": rep_launches,
-               "omega_bit_identical": bool(np.array_equal(
-                   rep_out.omega_optimized, mc_out.omega_optimized)),
+    rep_rec = {"phase": "mc_repeat", "steps": MC_REPEAT_STEPS,
+               "optimize_s": rep_s,
+               "steps_per_s": MC_REPEAT_STEPS / rep_s,
+               "launches": rep_launches,
+               "omega_bit_identical": bool(
+                   np.array_equal(rep_out.omega_optimized,
+                                  first_out.omega_optimized)
+                   and np.array_equal(rep_out.geodesic_length,
+                                      first_out.geodesic_length)),
                "moved_from_init": bool(not np.array_equal(
-                   mc_out.omega_optimized, art.omega_init)),
-               "mc_len_vs_expected_len_rel_median": float(
-                   np.median(np.abs(rep_len / mc_len - 1))),
-               "mc_len_vs_expected_len_rel_max": float(
-                   np.abs(rep_len / mc_len - 1).max())}
+                   rep_out.omega_optimized, art.omega_init))}
     emit(rep_rec)
 
     # 7. the draws shipped as index planes (K5/K6), and the unfused mode ----
@@ -610,7 +1115,15 @@ def main() -> int:
                       (coarse_len < init_len).mean())}
     emit(coarse_rec)
 
-    # 8. kernels line -------------------------------------------------------
+    # 8-10. data to matrix; the decoder-sharded path on one rank and on two
+    init_rec = init_phase(params, cfg, dev, ef)
+    ep_rec, ep_lengths = ep_phase(params, art, cfg, dev, ef, cpu_ref)
+    ep_vs_main = np.abs(ep_lengths / lengths - 1)
+    emit({"phase": "ep_vs_main", "len_rel_median": float(np.median(ep_vs_main)),
+          "len_rel_max": float(ep_vs_main.max())})
+    ep2_rec = ep2_phase(params, art, cfg, dev)
+
+    # 11. kernels line ------------------------------------------------------
     P = T * B
     in_bytes = 4 * (gamma.numel() + sum(w.numel() for w in ws_all)
                     + sum(b.numel() for b in bs_all) + M * B)
@@ -641,6 +1154,29 @@ def main() -> int:
                / PEAK_BYTES),
         "k8": (n_rng * k2_per_decode / PEAK_BF16,
                (mc_in + 8 * B + 4 * gamma.numel()) / PEAK_BYTES)}
+
+    # Stats kernels at the production shard (all ten decoders local): K3
+    # decodes as K1 (two-pass at f32x2, on bf16 operands) and writes x0, yb,
+    # sq; K4 does K2's work per decoder and reads dx0, dyb, dsq.
+    stat_bytes = 4 * (2 * P * X + P)
+    k3_bound = (P * M * decode_flops(D, H, X, 2) / PEAK_BF16,
+                (in_bytes + stat_bytes) / PEAK_BYTES)
+    k3_bound_f32 = (k1_flops / PEAK_FP32, (in_bytes + stat_bytes) / PEAK_BYTES)
+    k4_bound = (k2_flops / PEAK_BF16,
+                (in_bytes + stat_bytes + 4 * gamma.numel()) / PEAK_BYTES)
+
+    def stats_kernel(name, line, count, err_key, ms_key, bound):
+        r = stats_times[(M, "f32x2")]
+        return {"name": name, "route": "cuda",
+                "source":
+                    "vae_latent_geometry_tpu_torch/ops/csrc/energy_stats.cu",
+                "replaces":
+                    f"vae_latent_geometry_tpu/ops/energy_pallas.py:{line}",
+                "launches": count, "max_abs_err": r[err_key],
+                "ms": r[ms_key + "_ms"], "plain_ms": r[ms_key + "_plain_ms"],
+                "bound_ms": 1e3 * max(bound),
+                "bound_by": "operations" if bound[0] >= bound[1] else "bytes",
+                "library_ms": None}
 
     def mc_kernel(name, line, launches_, err_key, ms_key, prec, bound):
         return {"name": name, "route": "cuda",
@@ -676,6 +1212,18 @@ def main() -> int:
          "plain_ms": times["f32x2"]["bwd_plain_ms"],
          "bound_ms": 1e3 * k2_bound, "bound_by": "operations",
          "library_ms": None},
+        {**stats_kernel("stats_fwd (K3, f32x2 trajectory steps, M_loc=10)",
+                        472, ep_rec["launches"]["stats_fwd"], "yb_max_abs",
+                        "stats_fwd", k3_bound),
+         "ms_float32": stats_times[(M, "float32")]["stats_fwd_ms"],
+         "bound_ms_float32": 1e3 * max(k3_bound_f32),
+         "ms_M_loc5": stats_times[(M // 2, "f32x2")]["stats_fwd_ms"],
+         "bound_ms_M_loc5": 1e3 * max(k3_bound[0] / 2, k3_bound[1])},
+        {**stats_kernel("stats_bwd (K4, f32x2 trajectory steps, M_loc=10)",
+                        502, ep_rec["launches"]["stats_bwd"],
+                        "stats_dgamma_max_abs", "stats_bwd", k4_bound),
+         "ms_M_loc5": stats_times[(M // 2, "f32x2")]["stats_bwd_ms"],
+         "bound_ms_M_loc5": 1e3 * max(k4_bound[0] / 2, k4_bound[1])},
         mc_kernel("energy_mc_fwd (K5, float32 final evaluation, planes)", 473,
                   ext_launches["energy_mc_fwd"], "mc_energy_max_abs",
                   "mc_fwd", "float32", mc_bounds["k5"]),
@@ -766,7 +1314,7 @@ def main() -> int:
     want = {"mc_main": (mc_launches, {"energy_mc_bwd_rng": STEPS * n_chunks,
                                       "energy_fwd": n_chunks}),
             "mc_repeat": (rep_launches,
-                          {"energy_mc_bwd_rng": STEPS * n_chunks,
+                          {"energy_mc_bwd_rng": MC_REPEAT_STEPS * n_chunks,
                            "energy_mc_fwd_rng": n_chunks}),
             "mc_ext": (ext_launches,
                        {"energy_mc_bwd": MC_EXT_STEPS * n_chunks,

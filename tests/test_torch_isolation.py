@@ -153,7 +153,7 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
     that it includes, so an edited header cannot load a stale library."""
     from vae_latent_geometry_tpu_torch.ops import _build
 
-    for name in ("energy_expected", "energy_mc"):
+    for name in ("energy_expected", "energy_mc", "energy_stats"):
         files = [p.name for p in _build.source_files(name)]
         assert files == [f"{name}.cu", "decode_common.cuh"]
     for f in os.listdir(_build.CSRC):
@@ -180,8 +180,82 @@ def test_console_script_and_package_data_in_pyproject():
     data = cfg["tool"]["setuptools"]["package-data"]
     assert "ops/csrc/*.cu" in data["vae_latent_geometry_tpu_torch"]
     assert "ops/csrc/*.cuh" in data["vae_latent_geometry_tpu_torch"]
-    for src in ("energy_expected.cu", "energy_mc.cu", "decode_common.cuh"):
+    for src in ("energy_expected.cu", "energy_mc.cu", "energy_stats.cu",
+                "decode_common.cuh"):
         assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
+    from setuptools import find_packages
+
+    found = find_packages(REPO, **cfg["tool"]["setuptools"]["packages"]["find"])
+    for sub in ("ops", "parallel", "graph", "pipeline", "optim"):
+        assert f"vae_latent_geometry_tpu_torch.{sub}" in found
+
+
+def test_new_modules_are_scanned_and_stats_kernel_is_registered():
+    """The decoder-sharded path's modules are part of the port (so the
+    no-JAX scans above cover them), and its CUDA source is one of the
+    libraries the build knows."""
+    from vae_latent_geometry_tpu_torch.ops import _build
+
+    rel = {os.path.relpath(p, PKG) for p in _sources() if p.startswith(PKG)}
+    for mod in ("parallel/mesh.py", "parallel/collectives.py",
+                "parallel/multihost.py", "parallel/shard.py",
+                "graph/grid.py", "graph/shortest_path.py",
+                "pipeline/select_pairs.py", "pipeline/init_splines.py",
+                "pipeline/full_run.py"):
+        assert mod in rel, mod
+    assert set(_build.SIGNATURES) == {"energy_expected", "energy_mc",
+                                      "energy_stats"}
+    assert set(_build.SIGNATURES["energy_stats"]) == {"vlg_stats_fwd",
+                                                      "vlg_stats_bwd"}
+
+
+def test_init_and_mesh_entry_points_raise_without_gpu(tmp_path):
+    """Init stages, the full pipeline and the mesh path run on the card
+    unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from vae_latent_geometry_tpu_torch.config import (EnergyConfig,
+                                                      GeodesicConfig,
+                                                      InitConfig)
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.parallel.mesh import make_mesh
+    from vae_latent_geometry_tpu_torch.parallel.shard import (
+        sharded_optimize_splines)
+    from vae_latent_geometry_tpu_torch.pipeline.full_run import (
+        run_distance_pipeline)
+    from vae_latent_geometry_tpu_torch.pipeline.init_splines import (
+        initialize_splines)
+
+    model = os.path.join(REPO, "experiment", "model_seed42.npz")
+    cpu = load_npz(model, "cpu")
+    rng = np.random.default_rng(0)
+    z = rng.normal(size=(40, 2)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_splines(z, [(0, 1)], cfg=InitConfig(grid_points_per_axis=8))
+    init = initialize_splines(z, [(0, 1), (2, 3)], device="cpu",
+                              cfg=InitConfig(grid_points_per_axis=8))
+    assert init.omega.shape == (2, 5, 2) and np.isfinite(init.omega).all()
+    x = rng.normal(size=(40, 50)).astype(np.float32)
+    labels = np.array(["a", "b", "c", "d"] * 10)
+    cfg = GeodesicConfig(steps=1, energy=EnergyConfig(num_t=8,
+                                                      mode="expected_fused"))
+    kw = dict(max_labels=3, init_cfg=InitConfig(grid_points_per_axis=8),
+              geo_cfg=cfg, verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_distance_pipeline(cpu, x, labels, **kw)
+    out = run_distance_pipeline(cpu, x, labels, device="cpu",
+                                mesh=make_mesh(1, 1), **kw)
+    assert out.matrix.shape == (3, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sharded_optimize_splines(cpu.decoders, init.omega, init.a, init.b,
+                                 init.basis, cfg, make_mesh(1, 1))
+    for cmd in (["select-pairs", "--model", model],
+                ["init-splines", "--model", model, "--pairfile", "none.json"]):
+        r = subprocess.run(
+            [sys.executable, "-m", "vae_latent_geometry_tpu_torch", *cmd],
+            cwd=tmp_path, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=300)
+        assert r.returncode != 0 and "no CUDA device" in r.stderr, cmd
 
 
 def test_chip_smoke_refuses_without_gpu():
@@ -268,3 +342,46 @@ def test_mc_kernels_match_plain_versions_on_gpu(precision, mc_samples):
     p1, p2 = (d.contiguous() for d in mc.philox_draws(seed, S, T, B, kmax))
     assert torch.equal(e7, mc.energy_mc_fwd(ws, bs, g, p1, p2, precision))
     assert torch.equal(d8, mc.energy_mc_bwd(ws, bs, g, p1, p2, ct, precision))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m_loc", [1, 3])
+@pytest.mark.parametrize("precision", ["float32", "f32x3", "f32x2",
+                                       "bfloat16"])
+def test_stats_kernels_match_plain_versions_on_gpu(precision, m_loc):
+    """K3 and K4 against their plain versions on the card, small shapes
+    with a ragged tile edge, local weight rows of the second shard."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+
+    p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
+    ws, bs = ef.stack_weights(p.decoders)
+    ws = [w[m_loc:2 * m_loc].contiguous() for w in ws]
+    bs = [b[m_loc:2 * m_loc].contiguous() for b in bs]
+    rng = np.random.default_rng(0)
+    T, B, X = 67, 13, 50
+
+    def dev(x):
+        return torch.as_tensor(x.astype(np.float32), device="cuda")
+
+    g = dev(rng.normal(size=(T, B, 2)) * 2)
+    wmb = ef.active_weights_local(torch.as_tensor(rng.integers(1, 11, B)),
+                                  10, m_loc, B, 1, "cuda").contiguous()
+    cts = [dev(rng.normal(size=s)) for s in ((T, B, X), (T, B, X), (T, B))]
+    out = ef.stats_fwd(ws, bs, g, wmb, precision)
+    ref = ef.stats_fwd_plain(ws, bs, g, wmb, precision)
+    # x0, yb at the decoder outputs' scale, sq at its own (chip_smoke.py's
+    # STATS_X_RTOL / STATS_SQ_RTOL and the reasons there)
+    x_tol, sq_tol = (1e-2, 5e-2) if precision == "bfloat16" else (5e-5, 5e-4)
+    x_scale = float(ref[0].abs().max())
+    assert float((out[0] - ref[0]).abs().max()) <= x_tol * x_scale
+    assert float((out[1] - ref[1]).abs().max()) <= x_tol * x_scale
+    assert float((out[2] - ref[2]).abs().max()) <= sq_tol * max(
+        float(ref[2].abs().max()), 1e-30)
+    d = ef.stats_bwd(ws, bs, g, wmb, *cts, precision)
+    d_p = ef.stats_bwd_plain(ws, bs, g, wmb, *cts, precision)
+    err = ((d - d_p).abs() / d_p.abs().max()).flatten()
+    assert float(err.median()) < 1e-4
+    assert float(torch.quantile(err, 0.99)) < 1e-3

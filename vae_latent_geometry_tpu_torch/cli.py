@@ -1,5 +1,9 @@
-"""Command line of the PyTorch port: ``optimize`` and ``eval --mode matrix``.
+"""Command line of the PyTorch port: ``select-pairs``, ``init-splines``,
+``optimize`` and ``eval --mode matrix``.
 
+  python -m vae_latent_geometry_tpu_torch select-pairs --model experiment/model_seed42.npz --max-labels 20
+  python -m vae_latent_geometry_tpu_torch init-splines --model experiment/model_seed42.npz \\
+      --pairfile experiment/pairs/selected_pairs_20.json --use-entropy
   python -m vae_latent_geometry_tpu_torch optimize --model experiment/model_seed42.npz \\
       --splines <init artifact> --energy-mode mc_fused
   python -m vae_latent_geometry_tpu_torch eval --mode matrix --splines <opt artifact>
@@ -7,6 +11,11 @@
 Flags and defaults follow ``vae_latent_geometry_tpu.cli``; the artifacts are
 the same format.  ``--device`` picks the torch device (default ``cuda``;
 ``--device cpu`` runs the plain PyTorch versions of the kernels).
+
+Several ranks (``optimize --dp N --ep M``): start dp*ep processes with the
+same command, each with ``--coordinator host:port --num-processes N
+--process-id I`` (or ``VLG_COORDINATOR`` / ``VLG_NUM_PROCESSES`` /
+``VLG_PROCESS_ID``); every rank computes, rank 0 writes.
 """
 
 from __future__ import annotations
@@ -52,6 +61,84 @@ def coarse_bf16_plan(energy_mode: str, phase_plan):
     return ((*first[:4], coarse_mode), *rest)
 
 
+def _load_data(args):
+    from vae_latent_geometry_tpu_torch.data.tasic import load_tasic
+
+    data = load_tasic(args.data_dir)
+    if data.synthetic:
+        print("[warn] tasic-pca50.npy not found — using the deterministic "
+              "synthetic surrogate (see data/tasic.py)")
+    return data
+
+
+def _encode(params, x, device) -> np.ndarray:
+    """Latent means of the dataset."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.models.evae import encode
+
+    with torch.no_grad():
+        return encode(params, torch.as_tensor(
+            np.asarray(x, np.float32), device=device))[0].cpu().numpy()
+
+
+def cmd_select_pairs(args):
+    from vae_latent_geometry_tpu_torch.device import resolve_device
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.pipeline.select_pairs import (
+        save_pairs,
+        select_representatives,
+    )
+
+    device = resolve_device(args.device)
+    data = _load_data(args)
+    latents = _encode(load_npz(args.model, device), data.x, device)
+    reps = select_representatives(latents, data.labels, args.max_labels)
+    out = Path(args.output or
+               f"experiment/pairs/selected_pairs_{args.max_labels}.json")
+    save_pairs(reps, out)
+    print(f"[ok] saved {len(reps)} representatives -> {out}")
+
+
+def cmd_init_splines(args):
+    from vae_latent_geometry_tpu_torch.config import InitConfig
+    from vae_latent_geometry_tpu_torch.device import resolve_device
+    from vae_latent_geometry_tpu_torch.graph.shortest_path import backend
+    from vae_latent_geometry_tpu_torch.io.artifacts import save_spline_batch
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.pipeline.init_splines import (
+        initialize_splines,
+        to_artifact,
+    )
+    from vae_latent_geometry_tpu_torch.pipeline.select_pairs import load_pairs
+
+    device = resolve_device(args.device)
+    data = _load_data(args)
+    params = load_npz(args.model, device)
+    latents = _encode(params, data.x, device)
+    reps, pairs = load_pairs(args.pairfile)
+    cfg = InitConfig(grid_points_per_axis=args.grid,
+                     use_entropy=args.use_entropy)
+    init = initialize_splines(latents, pairs, decoders=params.decoders,
+                              cfg=cfg, device=device)
+    art = to_artifact(init, reps, Path(args.pairfile).stem.split("_")[-1])
+    model_name = Path(args.model).stem
+    graph_type = "entropy" if args.use_entropy else "euclidean"
+    pairname = Path(args.pairfile).stem.replace("selected_pairs_", "")
+    out = Path(args.output or
+               f"experiment/splines_init_{model_name}/"
+               f"spline_batch_init_{graph_type}_{pairname}.npz")
+    save_spline_batch(art, str(out))
+    print(f"[ok] saved {int(init.valid.sum())}/{len(init.valid)} initialized "
+          f"splines -> {out} (graph stages: {backend()})")
+
+
+def resolve_batch_size(batch_size, dp) -> int:
+    """Default chunk size: 200 pairs PER data-parallel rank (chunks are
+    sharded over dp); an explicit ``--batch-size`` always wins."""
+    return batch_size if batch_size is not None else 200 * (dp or 1)
+
+
 def _fill_unset(args, values: dict) -> None:
     for k, v in values.items():
         if getattr(args, k) is None:
@@ -62,7 +149,6 @@ def cmd_optimize(args):
     import torch
 
     from vae_latent_geometry_tpu_torch.config import EnergyConfig, GeodesicConfig
-    from vae_latent_geometry_tpu_torch.data.tasic import load_tasic
     from vae_latent_geometry_tpu_torch.device import resolve_device
     from vae_latent_geometry_tpu_torch.io.artifacts import load_spline_batch
     from vae_latent_geometry_tpu_torch.models.evae import load_npz
@@ -77,16 +163,20 @@ def cmd_optimize(args):
         f"experiment/splines_init_{model_name}/"
         f"spline_batch_init_{args.init_type}_{args.pair_count}.npz")
     art = load_spline_batch(spline_path)
-    data = None
-    if not args.no_euclidean:
-        tasic = load_tasic(args.data_dir)
-        if tasic.synthetic:
-            print("[warn] tasic-pca50.npy not found — using the deterministic "
-                  "synthetic surrogate (see data/tasic.py)")
-        data = tasic.x
+    data = None if args.no_euclidean else _load_data(args).x
     if args.fast and not args.turbo:
         _fill_unset(args, FAST_PRESET)
     _fill_unset(args, _FAST_FLAG_DEFAULTS)
+    # the mesh comes before the default batch size: --ep alone derives
+    # dp = world size // ep, and 200 pairs per rank applies to that dp too
+    mesh = None
+    if args.dp or args.ep > 1:
+        from vae_latent_geometry_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(dp=args.dp, ep=args.ep)
+        print(f"[info] mesh {mesh.shape}")
+    args.batch_size = resolve_batch_size(
+        args.batch_size, mesh.size("dp") if mesh is not None else 1)
     phase_plan = TURBO_PHASES if args.turbo else None
     if args.coarse_bf16:
         phase_plan = coarse_bf16_plan(args.energy_mode, phase_plan)
@@ -104,8 +194,12 @@ def cmd_optimize(args):
                f"spline_batch_opt_{args.init_type}_{args.pair_count}.npz")
     optimize_spline_batch(params, art, data=data, cfg=cfg, device=device,
                           output_path=str(out),
-                          generator=torch.Generator().manual_seed(args.seed))
-    print(f"[ok] optimized {len(art)} splines -> {out}")
+                          generator=torch.Generator().manual_seed(args.seed),
+                          mesh=mesh)
+    from vae_latent_geometry_tpu_torch.parallel.multihost import is_primary
+
+    if is_primary():
+        print(f"[ok] optimized {len(art)} splines -> {out}")
 
 
 def cmd_eval(args):
@@ -131,13 +225,39 @@ def cmd_eval(args):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vae_latent_geometry_tpu_torch")
+    # process-group bring-up: every process runs the same command, one per
+    # mesh position; artifact writes happen on process 0 only
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (several ranks; or "
+                        "VLG_COORDINATOR)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def add_common(sp):
+        sp.add_argument("--data-dir", default=None)
+        sp.add_argument("--device", default=None,
+                        help="torch device (default cuda; 'cpu' runs the "
+                             "plain PyTorch versions of the kernels)")
+
+    s = sub.add_parser("select-pairs", help="pick class representatives")
+    add_common(s)
+    s.add_argument("--model", required=True)
+    s.add_argument("--max-labels", type=int, default=10)
+    s.add_argument("--output", default=None)
+    s.set_defaults(fn=cmd_select_pairs)
+
+    i = sub.add_parser("init-splines", help="Dijkstra spline initialization")
+    add_common(i)
+    i.add_argument("--model", required=True)
+    i.add_argument("--pairfile", required=True)
+    i.add_argument("--use-entropy", action="store_true")
+    i.add_argument("--grid", type=int, default=200)
+    i.add_argument("--output", default=None)
+    i.set_defaults(fn=cmd_init_splines)
+
     o = sub.add_parser("optimize", help="batched geodesic optimization")
-    o.add_argument("--data-dir", default=None)
-    o.add_argument("--device", default=None,
-                   help="torch device (default cuda; 'cpu' runs the plain "
-                        "PyTorch versions of the kernels)")
+    add_common(o)
     o.add_argument("--model", required=True,
                    help="path-keyed EVAE checkpoint (.npz)")
     o.add_argument("--splines", default=None)
@@ -165,8 +285,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="turbo ladder: cosine 3e-3 x 1200 steps @ T=256 + "
                         "200 constant 1e-3 steps @ T=2000")
     o.add_argument("--lr", type=float, default=None, help="(default 1e-3)")
-    o.add_argument("--batch-size", type=int, default=200,
-                   help="pairs per optimization chunk")
+    o.add_argument("--batch-size", type=int, default=None,
+                   help="pairs per optimization chunk (default 200 per "
+                        "data-parallel rank, i.e. 200 x --dp)")
     o.add_argument("--num-t", type=int, default=2000)
     o.add_argument("--mc-samples", type=int, default=2)
     o.add_argument("--coarse-bf16", action="store_true",
@@ -192,6 +313,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "exact float32")
     o.add_argument("--no-euclidean", action="store_true",
                    help="skip encoder Euclidean distances (no data needed)")
+    o.add_argument("--dp", type=int, default=None,
+                   help="data-parallel mesh size (default: no mesh)")
+    o.add_argument("--ep", type=int, default=1,
+                   help="expert(ensemble)-parallel mesh size: the "
+                        "expected_fused modes split the decoders over it")
     o.add_argument("--output", default=None)
     o.set_defaults(fn=cmd_optimize)
 
@@ -212,7 +338,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    import os
+
     args = build_parser().parse_args(argv)
+    # a launcher that exports VLG_COORDINATOR gets the process group without
+    # threading a flag through its command template
+    if args.coordinator or os.environ.get("VLG_COORDINATOR"):
+        from vae_latent_geometry_tpu_torch.parallel.multihost import (
+            init_multihost,
+        )
+
+        backend = "gloo" if getattr(args, "device", None) == "cpu" else None
+        pid, n = init_multihost(args.coordinator, args.num_processes,
+                                args.process_id, backend=backend)
+        print(f"[multihost] process {pid}/{n}")
     args.fn(args)
 
 

@@ -2,9 +2,10 @@
 
 A copy of ``vae_latent_geometry_tpu.config`` with the same fields and
 defaults, so a config built for one package means the same run in the
-other.  Fields whose feature is not yet ported (``ep_axis``,
-``target_num_t``, ``early_stop``) keep their defaults here and are refused
-where they would change a result.
+other.  Fields whose feature is not yet ported (``target_num_t``,
+``early_stop``) keep their defaults here and are refused where they would
+change a result.  ``EnergyConfig.ep_axis`` names the axis of a
+``parallel.mesh.Mesh`` that the decoder ensemble is sharded over.
 """
 
 from __future__ import annotations

@@ -40,12 +40,13 @@ def _segment_powers(t: torch.Tensor, n_poly: int):
 
 
 def design_matrix(t: torch.Tensor, basis, n_poly: int = 4) -> torch.Tensor:
-    """Phi(t): (T, K) float32 on ``t``'s device."""
+    """Phi(t): (..., K) float32 on ``t``'s device, for ``t`` of any shape
+    (a (T,) grid, or (B, P) per-path sample points)."""
     basis = torch.as_tensor(basis, dtype=torch.float32, device=t.device)
     K = basis.shape[1]
-    seg_idx, powers = _segment_powers(t, n_poly)
+    seg_idx, powers = _segment_powers(t.reshape(-1), n_poly)
     seg_rows = basis.reshape(n_poly, 4, K)[seg_idx]            # (T, 4, K)
-    return torch.einsum("ti,tik->tk", powers, seg_rows)
+    return torch.einsum("ti,tik->tk", powers, seg_rows).reshape(*t.shape, K)
 
 
 def eval_spline_design(omega, a, b, phi, t):
@@ -54,3 +55,36 @@ def eval_spline_design(omega, a, b, phi, t):
     linear = (1.0 - t) * a[None] + t * b[None]
     offset = torch.einsum("tk,bkd->tbd", phi, omega)
     return linear + offset
+
+
+def fit_spline_lstsq(paths, mask, a, b, phi, t, ridge: float = 0.0):
+    """Closed-form least-squares fit of omega to (padded, masked) target
+    paths, batched: the ridge solution with an unconditional
+    1e-6-of-mean-trace floor on the normal equations, i.e. the exact
+    minimizer up to a ~1e-6 relative perturbation on well-posed systems,
+    and the minimum-norm omega = 0 on degenerate ones (a two-point path,
+    where the Gram matrix is exactly singular) with no data-dependent
+    branching.  Replaces the reference's per-pair LBFGS init fit
+    (``src/init_splines_ensemble.py:183-192``).
+
+    paths: (B, P, D) padded target points;  mask: (B, P) validity
+    a, b: (B, D) endpoints;  phi: (B, P, K) or (P, K);  t: (B, P) or (P,)
+    Returns omega: (B, K, D).
+    """
+    mask = mask.to(paths.dtype)
+    if t.ndim == 1:
+        t = t[None].expand(paths.shape[:2])
+    if phi.ndim == 2:
+        phi = phi[None].expand(*paths.shape[:2], phi.shape[-1])
+    tt = t[..., None]
+    lerp = (1.0 - tt) * a[:, None, :] + tt * b[:, None, :]
+    resid = (paths - lerp) * mask[..., None]                  # (B, P, D)
+    phi_m = phi * mask[..., None]                             # (B, P, K)
+    # normal equations per batch: (K, K) and (K, D); K is tiny (n_poly + 1)
+    gram = torch.einsum("bpk,bpl->bkl", phi_m, phi_m)
+    K = gram.shape[-1]
+    trace = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1)[:, None, None]
+    eps = (ridge + 1e-6) * (trace / K + 1e-6)
+    gram = gram + eps * torch.eye(K, dtype=gram.dtype, device=gram.device)
+    rhs = torch.einsum("bpk,bpd->bkd", phi_m, resid)
+    return torch.linalg.solve(gram, rhs)

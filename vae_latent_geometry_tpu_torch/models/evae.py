@@ -84,6 +84,15 @@ def decode_all(decoders: Params, z):
     return h.reshape(h.shape[0], *lead, h.shape[-1])
 
 
+def decoder_std(decoders: Params, z):
+    """Per-feature std over the ensemble decoders at ``z``, with Bessel's
+    correction (the reference uses ``torch.std``'s unbiased default:
+    ``src/init_splines_ensemble.py:50``); zero for a one-member ensemble."""
+    outs = decode_all(decoders, z)                 # (M, ..., X)
+    m = outs.shape[0]
+    return outs.std(dim=0, correction=0) * float(np.sqrt(m / max(m - 1, 1)))
+
+
 def decoder_member(decoders: Params, m: int) -> Params:
     """Decoder ``m`` of the stacked ensemble as a single-decoder dict."""
     return {"layers": [{"w": l["w"][m], "b": l["b"][m]}

@@ -44,6 +44,12 @@ SIGNATURES = {
         "vlg_mc_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _U, _U, _P, _P, _P, _P],
     },
+    "energy_stats": {
+        "vlg_stats_fwd": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P],
+        "vlg_stats_bwd": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

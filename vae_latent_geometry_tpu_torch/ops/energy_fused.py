@@ -1,6 +1,6 @@
 """Fused expected ensemble energy: the port of ``ops/energy_pallas.py``.
 
-Two kernels, each beside a plain PyTorch version of the same function:
+Four kernels, each beside a plain PyTorch version of the same function:
 
 - :func:`energy_fwd` (K1, replaces ``energy_pallas.py:254 _fwd_kernel``):
   (T, B, D) curve -> (B,) energies
@@ -10,8 +10,14 @@ Two kernels, each beside a plain PyTorch version of the same function:
   dgamma for a per-spline cotangent, through
   dE/dx_{m,t} = 2 w_{m,b} ct_b (c_t x_{m,t} - (xbar_{t-1} + xbar_{t+1}))
   and the ReLU-masked chain of the same decode.
+- :func:`stats_fwd` (K3, replaces ``energy_pallas.py:472
+  _stats_fwd_kernel``) and :func:`stats_bwd` (K4, ``:502
+  _stats_bwd_kernel``): the per-shard sufficient statistics (x0, yb, sq) of
+  a local decoder subset and their gradient, from which
+  :func:`energy_expected_sharded` assembles the decoder-sharded energy.
 
-A CUDA tensor launches the kernel (``csrc/energy_expected.cu``) or raises;
+A CUDA tensor launches the kernel (``csrc/energy_expected.cu``,
+``csrc/energy_stats.cu``) or raises;
 only a CPU tensor takes the plain version.  Both follow the precision-rung
 semantics of ``_split_hi_lo`` / ``_prep_w`` / ``_mp_dot``: bf16 hi/lo
 operands, exact fp32 products, fp32 accumulation.  The plain version
@@ -34,7 +40,7 @@ MAX_D = 4        # widest latent the CUDA kernels support
 
 # Launches of each kernel's wrapper (one per wrapper call that launched the
 # CUDA kernel; the plain CPU version does not count).
-LAUNCHES = {"energy_fwd": 0, "energy_bwd": 0}
+LAUNCHES = {"energy_fwd": 0, "energy_bwd": 0, "stats_fwd": 0, "stats_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -326,3 +332,205 @@ def energy_expected_fused_grad(decoders, gamma, wmb=None,
     ws, bs, wmb = _prepare(decoders, gamma, wmb)
     return _EnergyExpectedFused.apply(gamma.contiguous(), ws, bs, wmb,
                                       precision, True)
+
+
+# ---------------------------------------------------------------------------
+# Ensemble sufficient statistics (the decoder-sharded path).
+#
+# The expected energy is a function of per-(t, b) statistics that are SUMS
+# over decoders, so each shard of the decoder axis computes them over its
+# local subset, centered on its own first decoder:
+#   x0 = x_{m0}(t, b),  yb = sum_{j>=1} w_j (x_j - x0),
+#   sq = sum_{j>=1} w_j ||x_j - x0||^2
+# and the energy is assembled from all-reduced statistics in plain PyTorch
+# (:func:`energy_expected_sharded`).  Centering keeps every communicated
+# quantity at deviation scale, so float32 sums lose nothing.
+# ---------------------------------------------------------------------------
+
+def stats_fwd_plain(ws, bs, gamma, wmb, precision):
+    """Plain version of K3 (same arguments as :func:`stats_fwd`)."""
+    check_precision(precision)
+    ws = ship_weights(ws, precision)
+    T, B, D = gamma.shape
+    M = ws[0].shape[0]
+    g = gamma.reshape(T * B, D)
+    x0 = _decode_plain(g, ws, bs, 0, precision)[0].reshape(T, B, -1)
+    yb = torch.zeros_like(x0)
+    sq = torch.zeros((T, B), dtype=torch.float32, device=gamma.device)
+    for m in range(1, M):
+        y = _decode_plain(g, ws, bs, m, precision)[0].reshape(T, B, -1) - x0
+        yb = yb + wmb[m][None, :, None] * y
+        sq = sq + wmb[m][None, :] * (y * y).sum(-1)
+    return x0, yb, sq
+
+
+def stats_bwd_plain(ws, bs, gamma, wmb, dx0, dyb, dsq, precision):
+    """Plain version of K4 (same arguments as :func:`stats_bwd`)."""
+    check_precision(precision)
+    ws = ship_weights(ws, precision)
+    T, B, D = gamma.shape
+    M = ws[0].shape[0]
+    chain = "bfloat16" if precision in ("f32x3", "f32x2") else precision
+    g = gamma.reshape(T * B, D)
+    dg = torch.zeros((T * B, D), dtype=torch.float32, device=gamma.device)
+
+    def backprop(c, m, masks):
+        dh = c.reshape(T * B, -1)
+        for i in range(len(ws) - 1, 0, -1):
+            dh = _mp_matmul(dh, ws[i][m].T, chain) * masks[i - 1]
+        return dh @ ws[0][m].T
+
+    x0, masks0 = _decode_plain(g, ws, bs, 0, precision)
+    x0 = x0.reshape(T, B, -1)
+    c_sum = torch.zeros_like(x0)
+    for m in range(1, M):
+        x, masks = _decode_plain(g, ws, bs, m, precision)
+        y = x.reshape(T, B, -1) - x0
+        c = wmb[m][None, :, None] * (dyb + 2.0 * y * dsq[:, :, None])
+        c_sum = c_sum + c
+        dg = dg + backprop(c, m, masks)
+    # decoder 0: its direct cotangent minus every y_j's dependency on x0
+    dg = dg + backprop(dx0 - c_sum, 0, masks0)
+    return dg.reshape(T, B, D)
+
+
+def _check_stats_ct(T, B, X, dx0, dyb, dsq):
+    want = {"dx0": (T, B, X), "dyb": (T, B, X), "dsq": (T, B)}
+    for name, x in (("dx0", dx0), ("dyb", dyb), ("dsq", dsq)):
+        if tuple(x.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got "
+                             f"{tuple(x.shape)}")
+
+
+def stats_fwd(ws, bs, gamma, wmb, precision):
+    """K3: (T, B, D) curve, local decoders and local weight rows (M, B) ->
+    (x0 (T, B, X), yb (T, B, X), sq (T, B))."""
+    if gamma.device.type == "cpu":
+        return stats_fwd_plain(ws, bs, gamma, wmb, precision)
+    if gamma.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gamma.device}")
+    from vae_latent_geometry_tpu_torch.ops._build import check, library
+
+    check_precision(precision)
+    ws = [w.contiguous() for w in ship_weights(ws, precision)]
+    T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb)
+    lib = library("energy_stats")
+    x0 = torch.empty((T, B, X), dtype=torch.float32, device=gamma.device)
+    yb = torch.empty((T, B, X), dtype=torch.float32, device=gamma.device)
+    sq = torch.empty((T, B), dtype=torch.float32, device=gamma.device)
+    check(lib.vlg_stats_fwd(_RUNG[precision], gamma.data_ptr(), T, B, D, M, X,
+                            *_ptrs(ws, bs), wmb.data_ptr(), x0.data_ptr(),
+                            yb.data_ptr(), sq.data_ptr(),
+                            _stream(gamma.device)),
+          "stats_fwd")
+    LAUNCHES["stats_fwd"] += 1
+    return x0, yb, sq
+
+
+def stats_bwd(ws, bs, gamma, wmb, dx0, dyb, dsq, precision):
+    """K4: dgamma (T, B, D) for cotangents (dx0, dyb, dsq) of K3's outputs;
+    one launch, every decoder decoded once."""
+    if gamma.device.type == "cpu":
+        _check_stats_ct(*gamma.shape[:2], ws[-1].shape[-1], dx0, dyb, dsq)
+        return stats_bwd_plain(ws, bs, gamma, wmb, dx0, dyb, dsq, precision)
+    if gamma.device.type != "cuda":
+        raise ValueError(f"no kernel for device {gamma.device}")
+    from vae_latent_geometry_tpu_torch.ops._build import check, library
+
+    check_precision(precision)
+    ws = [w.contiguous() for w in ship_weights(ws, precision)]
+    T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb, (dx0, dyb, dsq))
+    _check_stats_ct(T, B, X, dx0, dyb, dsq)
+    lib = library("energy_stats")
+    dgamma = torch.empty((T, B, D), dtype=torch.float32, device=gamma.device)
+    check(lib.vlg_stats_bwd(_RUNG[precision], gamma.data_ptr(), T, B, D, M, X,
+                            *_ptrs(ws, bs), wmb.data_ptr(), dx0.data_ptr(),
+                            dyb.data_ptr(), dsq.data_ptr(), dgamma.data_ptr(),
+                            _stream(gamma.device)),
+          "stats_bwd")
+    LAUNCHES["stats_bwd"] += 1
+    return dgamma
+
+
+class _EnsembleStatsFused(torch.autograd.Function):
+    """K3 forward, K4 backward (it recomputes activations from the inputs)."""
+
+    @staticmethod
+    def forward(ctx, gamma, ws, bs, wmb, precision):
+        ctx.save_for_backward(gamma)
+        ctx.ws, ctx.bs, ctx.wmb, ctx.precision = ws, bs, wmb, precision
+        return stats_fwd(ws, bs, gamma, wmb, precision)
+
+    @staticmethod
+    def backward(ctx, dx0, dyb, dsq):
+        (gamma,) = ctx.saved_tensors
+        dg = stats_bwd(ctx.ws, ctx.bs, gamma, ctx.wmb,
+                       dx0.contiguous().float(), dyb.contiguous().float(),
+                       dsq.contiguous().float(), ctx.precision)
+        return dg, None, None, None, None
+
+
+def ensemble_stats_fused(decoders, gamma, wmb, precision: str = "float32"):
+    """Per-shard ensemble sufficient statistics, fused.
+
+    gamma: (T, B, D) curve; wmb: (M, B) LOCAL decoder weights (the rows of
+    the global weight plane that belong to this shard; they need not sum to
+    1).  Returns (x0, yb, sq): the local reference decoder's output
+    (T, B, X) and the weighted centered moments yb (T, B, X), sq (T, B).
+    Differentiable in ``gamma`` only."""
+    ws, bs, wmb = _prepare(decoders, gamma, wmb)
+    return _EnsembleStatsFused.apply(gamma.contiguous(), ws, bs, wmb,
+                                     precision)
+
+
+def uniform_weights_local(M_total: int, M_local: int, B: int, device=None):
+    """Local rows of the uniform global weight plane (each of ``M_local``
+    decoders carries weight 1/M_total)."""
+    return torch.ones((M_local, B), dtype=torch.float32,
+                      device=device) / M_total
+
+
+def active_weights_local(num_active, M_total: int, M_local: int, B: int,
+                         shard_index: int = 0, device=None):
+    """Local rows of :func:`active_weights` for shard ``shard_index`` of the
+    decoder axis: global decoder index = shard_index * M_local + local
+    index.  (``M_total`` is unused, as in the JAX package: the weight is
+    1/k_b.)"""
+    k = torch.as_tensor(num_active, dtype=torch.int32,
+                        device=device).expand(B)
+    m_global = shard_index * M_local + torch.arange(M_local, device=k.device)
+    mask = (m_global[:, None] < k[None, :]).float()
+    return mask / k.float()[None, :]
+
+
+def energy_expected_sharded(decoders, gamma, wmb, group=None,
+                            precision: str = "float32"):
+    """Expected ensemble energy with the decoder axis sharded over the ranks
+    of process group ``group``: ``decoders`` / ``wmb`` hold this rank's local
+    subset.  Per-shard statistics come from the stats kernels; they meet in
+    two all-reduces, (T, B, X) and (T, B); the segment assembly is plain
+    PyTorch under autograd.  With ``group=None`` (a decoder axis of size 1)
+    this is a single-device decomposition of :func:`energy_expected_fused`.
+
+    Returns (B,) energies, identical on every rank of ``group``.
+
+    Autograd contract: the backward of the all-reduce is an all-reduce of
+    the cotangent (:func:`parallel.collectives.psum`), which makes each
+    rank's cotangent of a summed statistic the SUM of every rank's
+    downstream cotangents.  That is the true total derivative provided the
+    replicated final consumer contributes its cotangent once in total, so
+    the caller scales its per-rank loss by 1/size and all-reduces the
+    resulting gradients (``optim/geodesic`` does both)."""
+    from vae_latent_geometry_tpu_torch.parallel.collectives import psum
+
+    x0, yb, sq = ensemble_stats_fused(decoders, gamma, wmb, precision)
+    w_sum = wmb.detach().float().sum(0)                          # (B,)
+    s1 = w_sum[None, :, None] * x0 + yb                          # (T, B, X)
+    xbar = psum(s1, group)
+    d0 = x0 - xbar                                               # deviation
+    var_p = (sq + 2.0 * (yb * d0).sum(-1)
+             + w_sum[None, :] * (d0 * d0).sum(-1))
+    var = psum(var_p, group)
+    diff = xbar[1:] - xbar[:-1]
+    seg = (diff * diff).sum(-1) + var[1:] + var[:-1]
+    return seg.sum(0)

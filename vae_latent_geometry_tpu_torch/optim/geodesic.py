@@ -33,6 +33,7 @@ from vae_latent_geometry_tpu_torch.geometry.spline import (
     t_grid,
 )
 from vae_latent_geometry_tpu_torch.ops import energy_fused, energy_mc_fused
+from vae_latent_geometry_tpu_torch.parallel.collectives import all_reduce_sum
 
 ENERGY_MODES = ("mc", "mc_scan", "mc_fused", "mc_fused_bf16",
                 "expected", "expected_fused", "expected_fused_bf16",
@@ -67,10 +68,13 @@ class GeodesicResult(NamedTuple):
 
 def _energy_fn(mode: str, decoders, gamma, seed: int = 0, mc_samples: int = 2,
                num_active=None, kernel_precision: str = "f32x3",
-               mc_inkernel_rng: bool = True, grad_only: bool = False):
+               mc_inkernel_rng: bool = True, grad_only: bool = False,
+               ep_axis: Optional[str] = None, mesh=None):
     """Per-spline energies (B,) of curve points gamma (T, B, D).
     ``decoders`` is the stacked ensemble, or one decoder for ``single``.
-    ``seed`` is the step's draw of the MC modes."""
+    ``seed`` is the step's draw of the MC modes.  ``ep_axis`` names the axis
+    of ``mesh`` that the decoder ensemble is sharded over (``decoders`` is
+    then this rank's local subset); only ``expected_fused*`` reads it."""
     if mode == "single":
         return energy_lib.energy_single(decoders, gamma)
     if mode == "single_fused":
@@ -111,8 +115,22 @@ def _energy_fn(mode: str, decoders, gamma, seed: int = 0, mc_samples: int = 2,
     if mode in ("expected_fused", "expected_fused_bf16"):
         precision = "bfloat16" if mode.endswith("bf16") else kernel_precision
         m_dec = decoders["layers"][0]["w"].shape[0]
-        wmb = (energy_fused.active_weights(num_active, m_dec, gamma.shape[1],
-                                           gamma.device)
+        B = gamma.shape[1]
+        if ep_axis is not None:
+            # decoder axis sharded over the mesh: per-shard statistics and
+            # two all-reduces; no grad-only variant (the value path carries
+            # the all-reduces), and a shape the stats kernels do not take
+            # raises in their wrappers: there is no fallback
+            m_total = m_dec * mesh.size(ep_axis)
+            wmb = (energy_fused.active_weights_local(
+                       num_active, m_total, m_dec, B, mesh.index(ep_axis),
+                       gamma.device)
+                   if num_active is not None
+                   else energy_fused.uniform_weights_local(
+                       m_total, m_dec, B, gamma.device))
+            return energy_fused.energy_expected_sharded(
+                decoders, gamma, wmb, mesh.group(ep_axis), precision)
+        wmb = (energy_fused.active_weights(num_active, m_dec, B, gamma.device)
                if num_active is not None else None)
         fn = (energy_fused.energy_expected_fused_grad if grad_only
               else energy_fused.energy_expected_fused)
@@ -122,17 +140,24 @@ def _energy_fn(mode: str, decoders, gamma, seed: int = 0, mc_samples: int = 2,
 
 
 def make_loss_fn(decoders, basis, cfg: GeodesicConfig, device,
-                 grad_only: bool = False) -> Callable:
+                 grad_only: bool = False, mesh=None) -> Callable:
     """loss(omega, a, b, seed=0, num_active=None) -> (scalar_loss,
     per_spline_energy).  ``seed``: the step's draw of the MC modes.
 
     ``grad_only=True``: the fused modes return zeros as energy values while
     their gradient is unchanged (the forward kernel never runs).  The total
-    is linear in the energies, which is what makes that sound."""
+    is linear in the energies, which is what makes that sound.
+
+    With ``cfg.energy.ep_axis`` set (an axis of ``mesh``) the scalar loss is
+    divided by the axis size: the backward of an all-reduce inside the loss
+    is an all-reduce, so a consumer replicated over the axis would contribute
+    its cotangent once PER RANK.  The scaling makes each rank's gradient a
+    true partial; the optimizer all-reduces the gradients over the axis for
+    the exact global gradient.  The reported energies stay unscaled."""
     e_cfg = cfg.energy
-    if e_cfg.ep_axis is not None or e_cfg.target_num_t is not None:
-        raise ValueError("ep_axis / target_num_t are not available in the "
-                         "PyTorch port")
+    if e_cfg.target_num_t is not None:
+        raise ValueError("target_num_t is not available in the PyTorch port")
+    ep_size = _ep_size(e_cfg.ep_axis, mesh)
     t = t_grid(e_cfg.num_t, device)
     phi = design_matrix(t, basis, cfg.spline.n_poly)
     t_end = torch.ones(1, dtype=torch.float32, device=device)
@@ -142,16 +167,29 @@ def make_loss_fn(decoders, basis, cfg: GeodesicConfig, device,
         gamma = eval_spline_design(omega, a, b, phi, t)
         e = _energy_fn(e_cfg.mode, decoders, gamma, seed, e_cfg.mc_samples,
                        num_active, e_cfg.kernel_precision,
-                       e_cfg.mc_inkernel_rng, grad_only)
+                       e_cfg.mc_inkernel_rng, grad_only, e_cfg.ep_axis, mesh)
         # endpoint penalty (reference src/optimize.py:158-160): zero in exact
         # arithmetic (the basis enforces offset(1)=0), kept for faithful
         # gradients under float32
         gamma_end = eval_spline_design(omega, a, b, phi_end, t_end)
         ep = ((gamma_end[0] - b) ** 2).sum(-1)
         per_spline = e + e_cfg.endpoint_weight * ep
-        return per_spline.sum(), e
+        total = per_spline.sum()
+        if e_cfg.ep_axis is not None:
+            total = total / ep_size
+        return total, e
 
     return loss
+
+
+def _ep_size(ep_axis: Optional[str], mesh) -> int:
+    """Size of the mesh axis the decoders are sharded over (1 unsharded)."""
+    if ep_axis is None:
+        return 1
+    if mesh is None:
+        raise ValueError(f"energy.ep_axis={ep_axis!r} names a mesh axis: "
+                         "pass the mesh (parallel.mesh.make_mesh)")
+    return mesh.size(ep_axis)
 
 
 def _phase_cfgs(cfg: GeodesicConfig) -> list:
@@ -267,8 +305,8 @@ def _make_opt(cfg: GeodesicConfig) -> Adam:
 def optimize_splines(decoders, omega0, a, b, basis, cfg: GeodesicConfig,
                      record_history: bool = False, num_active=None,
                      device=None,
-                     generator: Optional[torch.Generator] = None
-                     ) -> GeodesicResult:
+                     generator: Optional[torch.Generator] = None,
+                     mesh=None) -> GeodesicResult:
     """Optimize a batch of splines jointly.
 
     decoders: stacked ensemble dict (one decoder for mode 'single'/
@@ -277,18 +315,23 @@ def optimize_splines(decoders, omega0, a, b, basis, cfg: GeodesicConfig,
     (:func:`root_seed`; default seed 0); the deterministic modes ignore it.
     Returned energies are re-evaluated at the FINAL omega (exact float32,
     full num_t; in an MC mode that is one more draw).
+    ``mesh``: required when ``cfg.energy.ep_axis`` is set; ``decoders`` is
+    then this rank's subset and every rank of that axis calls together
+    (``parallel/shard.sharded_optimize_splines`` arranges both).
     """
     if cfg.early_stop:
         raise ValueError("early stopping is not available in the PyTorch port")
     root = root_seed(generator)
     dev = resolve_device(device)
+    ep_group = (mesh.group(cfg.energy.ep_axis)
+                if _ep_size(cfg.energy.ep_axis, mesh) > 1 else None)
     omega = torch.as_tensor(omega0, dtype=torch.float32, device=dev).clone()
     a = torch.as_tensor(a, dtype=torch.float32, device=dev)
     b = torch.as_tensor(b, dtype=torch.float32, device=dev)
     hists = []
     for i, pcfg in enumerate(_phase_cfgs(cfg)):
         grad_only = cfg.energy.gradonly_traj and not record_history
-        loss_fn = make_loss_fn(decoders, basis, pcfg, dev, grad_only)
+        loss_fn = make_loss_fn(decoders, basis, pcfg, dev, grad_only, mesh)
         opt = _make_opt(pcfg)
         state = opt.init(omega)
         phase_seed = fold_seed(root, 1 + i)
@@ -297,11 +340,15 @@ def optimize_splines(decoders, omega0, a, b, basis, cfg: GeodesicConfig,
             total, e = loss_fn(om, a, b, fold_seed(phase_seed, step),
                                num_active)
             (grad,) = torch.autograd.grad(total, om)
+            # each ep rank's gradient covers only its decoder subset's share
+            # of the energy; the gradient of the replicated omega is the sum
+            grad = all_reduce_sum(grad, ep_group)
             if record_history:
                 hists.append(e.detach())
             opt.step(omega, grad, state)
     with torch.no_grad():
-        exact_loss = make_loss_fn(decoders, basis, _exact_cfg(cfg), dev)
+        exact_loss = make_loss_fn(decoders, basis, _exact_cfg(cfg), dev,
+                                  mesh=mesh)
         _, e_final = exact_loss(omega, a, b, fold_seed(root, 0), num_active)
     return GeodesicResult(
         omega=omega, energy=e_final, lengths=torch.sqrt(e_final),

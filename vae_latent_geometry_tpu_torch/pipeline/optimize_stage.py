@@ -4,7 +4,10 @@ batch (reference ``src/optimize.py:80-218``).
 Pairs are optimized in chunks of ``batch_size``; a trailing partial chunk
 is padded to the canonical size by edge replication, as in the JAX package,
 so every chunk runs the same shapes.  The result carries the same config
-stamp as the JAX package's, and is saved once at the end.
+stamp as the JAX package's, and is saved once at the end.  With a ``mesh``
+every chunk is one collective program over its ranks
+(``parallel/shard.sharded_optimize_splines``): all ranks compute, only the
+primary one prints and saves.
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ from vae_latent_geometry_tpu_torch.optim.geodesic import (
     fold_seed,
     optimize_splines,
     root_seed,
+)
+from vae_latent_geometry_tpu_torch.parallel.multihost import is_primary
+from vae_latent_geometry_tpu_torch.parallel.shard import (
+    sharded_optimize_splines,
 )
 
 # GeodesicConfig fields that cannot change any produced value; left out of
@@ -68,6 +75,7 @@ def optimize_spline_batch(
     output_path: Optional[str] = None,
     log_every_chunk: bool = True,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> SplineBatchArtifact:
     """Optimize all splines in an artifact; returns the completed artifact.
 
@@ -79,8 +87,17 @@ def optimize_spline_batch(
     generator: names the random stream of the MC modes (default seed 0);
     every chunk draws from a stream of its own, derived from it and the
     chunk's first pair, so a chunk's result does not depend on the others.
+    mesh: a ``parallel.mesh.Mesh``; each chunk's pairs are then sharded over
+    its 'dp' axis and, in the ``expected_fused*`` modes, the decoders over
+    'ep'.  Collective: every rank calls with the same arguments.
     """
     dev = resolve_device(device)
+    primary = is_primary()
+    log_every_chunk = log_every_chunk and primary
+    if cfg.early_stop and mesh is not None:
+        raise ValueError(
+            "early_stop is not supported on a sharded (mesh) run: drop "
+            "early_stop or run without a mesh")
     single = cfg.energy.mode in ("single", "single_fused")
     energy_params = (evae_lib.decoder_member(params.decoders, 0) if single
                      else params.decoders)
@@ -107,10 +124,15 @@ def optimize_spline_batch(
         idx = np.arange(start, stop)
         if n_sl < bs:   # canonical chunk shape: edge-replicate the tail
             idx = np.concatenate([idx, np.full(bs - n_sl, stop - 1)])
-        res = optimize_splines(energy_params, art.omega_init[idx], art.a[idx],
-                               art.b[idx], art.basis, cfg, device=dev,
-                               generator=torch.Generator().manual_seed(
-                                   fold_seed(root, start)))
+        gen = torch.Generator().manual_seed(fold_seed(root, start))
+        if mesh is not None:
+            res = sharded_optimize_splines(
+                energy_params, art.omega_init[idx], art.a[idx], art.b[idx],
+                art.basis, cfg, mesh, generator=gen, device=dev)
+        else:
+            res = optimize_splines(energy_params, art.omega_init[idx],
+                                   art.a[idx], art.b[idx], art.basis, cfg,
+                                   device=dev, generator=gen)
         om = res.omega[:n_sl].cpu().numpy()
         e = res.energy[:n_sl].cpu().numpy()
         omega_opt[start:stop] = om
@@ -134,6 +156,6 @@ def optimize_spline_batch(
     out = dataclasses.replace(
         art, omega_optimized=omega_opt, geodesic_length=lengths,
         euclidean_distance=eucl, metadata={**art.metadata, **stamp})
-    if output_path:
+    if output_path and primary:
         save_spline_batch(out, output_path)
     return out
