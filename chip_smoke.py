@@ -57,10 +57,27 @@ Phases, each printing one JSON line; any failure exits nonzero:
              decoders each), 50 float32 steps at full width, against one
              process's 50 ``expected_fused`` steps; both ranks' curves
              bit-identical.
-11. the ``kernels`` summary line, the card line, and the result line.
+11. jvp    — the seed-42 init blob through one-phase plans of
+             ``jvp_ensemble`` at T=128 and ``expected_rescaled`` at T=64
+             (200 steps, ``target_num_t`` 2000), final energies by K1 at
+             float32 and T=2000: steps/s, launch counts, lengths against the
+             JAX package on the CPU (``tools/jax_reference_jvp.py``).
+12. cov    — ``cov_analysis`` on the seeded surrogate (5 classes, 10 pairs
+             x decoder counts 1..10, 300 steps at T=2000, f32x3), the one
+             committed model as two seeds: at ``mc_fused`` (steps/s, K8
+             launches, the estimator's own CoV) and at ``expected_fused``
+             (bit-identical seeds, CoV 0, lengths against
+             ``tools/jax_reference_cov.py``).
+13. the ``kernels`` summary line, the card line, and the result line.
 
 The kernels phase also holds the four MC kernels (K5-K8) against their plain
-versions, and K7/K8 against K5/K6 on the planes of ``philox_draws``.
+versions, and K7/K8 against K5/K6 on the planes of ``philox_draws``; phase
+``transposed`` holds K9/K10 (``ops/csrc/energy_transposed.cu``) against
+their plain versions at every rung, M=10 and M=1, and against K1/K2, runs
+the JAX bench's numerics gate (smooth curves against a float64 host truth)
+through the plain expected energy, K1 and K9, times K9+K10 against K1+K2,
+and drives ``energy_expected_fused_t`` forward and backward with the launch
+counts set to 0.
 
 Imports nothing of JAX or of the JAX package.  Needs one CUDA GPU.
 """
@@ -214,6 +231,25 @@ EP2_E_RTOL = 1e-4
 EP2_OMEGA_RTOL, EP2_OMEGA_ATOL = 1e-3, 1e-5
 EP2_OMEGA_MAX = 2e-3
 EP2_JOIN_S = 420.0
+# Transposed kernels (K9/K10) against their plain versions: the limits of
+# K1/K2 (E_RTOL, E_RTOL_BF16_M1, DG_*).  Against K1/K2 on the same inputs
+# (the same function in another layout): energies within E_RTOL at float32
+# and f32x2, dgamma under K2's own median / p99 limits.  The numerics gate
+# of the JAX package's bench (bench.py:104-168): median relative error of
+# the energy on smooth curves (seed 7, T=2000, B=16) against a float64 host
+# truth, each path <= 1e-3 (bench.py:519-520); a NaN fails.
+GATE_SEED, GATE_T, GATE_B, GATE_MEDREL = 7, 2000, 16, 1e-3
+# JVP modes: the seed-42 init blob through one-phase plans, final energies
+# by K1 at float32 and T=2000; lengths against the JAX package on the CPU
+# (tools/jax_reference_jvp.py) under main's limits.
+JAX_JVP = os.path.join(ROOT, "tools", "jax_reference_jvp_seed42.json")
+# CoV analysis on the seeded surrogate: 5 classes (10 pairs) x counts 1..10
+# = 100 splines, 300 steps at T=2000 and f32x3; at mc_fused (the recipe of
+# experiment/cov_blob_anchor.json) and at expected_fused, the latter's
+# lengths against the JAX package on the CPU (tools/jax_reference_cov.py)
+# under main's limits.  Both "seeds" are the one committed model.
+JAX_COV = os.path.join(ROOT, "tools", "jax_reference_cov_seed42.json")
+COV_LABELS = 5
 
 
 def emit(obj) -> None:
@@ -696,6 +732,235 @@ def ep2_phase(params, art, cfg, dev):
     return rec
 
 
+def numerics_gate(decoders, dev):
+    """The bench's numerics gate (bench.py:104-168): median relative error
+    of the plain expected energy, K1 and K9 (through the public op) at
+    float32 on smooth curves against a float64 host truth."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.geometry import energy as energy_lib
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops._research import (
+        energy_fused_t as eft)
+
+    rng = np.random.default_rng(GATE_SEED)
+    t = np.linspace(0, 1, GATE_T)[:, None, None]
+    a = rng.normal(size=(1, GATE_B, 2))
+    b = rng.normal(size=(1, GATE_B, 2))
+    g64 = (1 - t) * a + t * b + 0.3 * np.sin(np.pi * t * 3) * rng.normal(
+        size=(1, GATE_B, 2))
+    ws = [l["w"].double().cpu().numpy() for l in decoders["layers"]]
+    bs = [l["b"].double().cpu().numpy() for l in decoders["layers"]]
+    xs = []
+    for m in range(ws[0].shape[0]):
+        h = g64.reshape(-1, 2)
+        for i in range(len(ws)):
+            h = h @ ws[i][m] + bs[i][m]
+            if i < len(ws) - 1:
+                h = np.maximum(h, 0)
+        xs.append(h.reshape(GATE_T, GATE_B, -1))
+    xs = np.stack(xs)
+    xbar = xs.mean(0)
+    sq = (xs ** 2).sum(-1).mean(0)
+    truth = (sq[1:] + sq[:-1] - 2 * (xbar[1:] * xbar[:-1]).sum(-1)).sum(0)
+    g = torch.as_tensor(g64, dtype=torch.float32, device=dev)
+
+    def medrel(e):
+        e = e.double().cpu().numpy()
+        return float(np.median(np.abs(e - truth) / np.abs(truth)))
+
+    with torch.no_grad():
+        return {"plain_expected": medrel(energy_lib.energy_expected(decoders,
+                                                                    g)),
+                "k1_fused_expected": medrel(ef.energy_expected_fused(
+                    decoders, g, None, "float32")),
+                "k9_fused_expected_t": medrel(eft.energy_expected_fused_t(
+                    decoders, g, "float32"))}
+
+
+def transposed_phase(params, ws_all, bs_all, gamma, dev):
+    """K9/K10 against their plain versions (M=10 and M=1, every rung) and
+    against K1/K2; the numerics gate; CUDA-event times.  The op's own path
+    (forward and gradient through ``energy_expected_fused_t`` at f32x2, and
+    the gate) runs with the launch counts set to 0.  Returns (records,
+    times, launches)."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops._research import (
+        energy_fused_t as eft)
+
+    T, B, _ = gamma.shape
+    ct = torch.ones(B, dtype=torch.float32, device=dev)
+    recs, times = {}, {}
+    for M in (ws_all[0].shape[0], 1):
+        ws = [w[:M].contiguous() for w in ws_all]
+        bs = [b[:M].contiguous() for b in bs_all]
+        wmb = ef.uniform_weights(M, B, dev)
+        for prec in ef.PRECISIONS:
+            e = eft.energy_t_fwd(ws, bs, gamma, prec)
+            e_p = eft.energy_t_fwd_plain(ws, bs, gamma, prec)
+            d = eft.energy_t_bwd(ws, bs, gamma, ct, prec)
+            d_p = eft.energy_t_bwd_plain(ws, bs, gamma, ct, prec)
+            torch.cuda.synchronize()
+            rec = {"phase": "transposed", "M": M, "precision": prec,
+                   "energy_max_rel": float(((e - e_p).abs() / e_p.abs()).max()),
+                   "energy_max_abs": float((e - e_p).abs().max()),
+                   **dgamma_stats(d, d_p),
+                   "finite": bool(torch.isfinite(e).all()
+                                  and torch.isfinite(d).all())}
+            if M > 1 and prec in ("float32", "f32x2"):
+                e1 = ef.energy_fwd(ws, bs, gamma, wmb, prec)
+                d2 = ef.energy_bwd(ws, bs, gamma, wmb, ct, prec)
+                rec["vs_k1_energy_max_rel"] = float(
+                    ((e - e1).abs() / e1.abs()).max())
+                rec.update(dgamma_stats(d, d2, "vs_k2_"))
+            if M > 1 and prec in ("float32", "f32x2", "f32x3"):
+                tr = {"k9_ms": time_ms(lambda: eft.energy_t_fwd(
+                          ws, bs, gamma, prec), 3),
+                      "k10_ms": time_ms(lambda: eft.energy_t_bwd(
+                          ws, bs, gamma, ct, prec), 3),
+                      "k1_ms": time_ms(lambda: ef.energy_fwd(
+                          ws, bs, gamma, wmb, prec), 3),
+                      "k2_ms": time_ms(lambda: ef.energy_bwd(
+                          ws, bs, gamma, wmb, ct, prec), 3)}
+                tr["k9_k10_ms"] = tr["k9_ms"] + tr["k10_ms"]
+                tr["k1_k2_ms"] = tr["k1_ms"] + tr["k2_ms"]
+                if prec in ("float32", "f32x2"):
+                    tr["k9_plain_ms"] = time_ms(lambda: eft.energy_t_fwd_plain(
+                        ws, bs, gamma, prec), 2)
+                    tr["k10_plain_ms"] = time_ms(
+                        lambda: eft.energy_t_bwd_plain(ws, bs, gamma, ct,
+                                                       prec), 2)
+                rec.update(tr)
+                times[prec] = rec
+            emit(rec)
+            recs[(M, prec)] = rec
+    # the op's own path, as a caller runs it: the gate, then forward and
+    # gradient at the production shape
+    torch.cuda.synchronize()
+    ef.reset_launch_counts()
+    gate = numerics_gate(params.decoders, dev)
+    g = gamma.clone().requires_grad_(True)
+    e = eft.energy_expected_fused_t(params.decoders, g, "f32x2")
+    e.sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(ef.LAUNCHES)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    path = {"phase": "transposed_path", "gate_medrel": gate,
+            "op_energy_finite": bool(torch.isfinite(e).all()),
+            "op_grad_finite": bool(torch.isfinite(g.grad).all()),
+            "spans_fwd": eft.pick_spans(T, B, n_sm, 1),
+            "spans_bwd": eft.pick_spans(T, B, n_sm, 2),
+            "launches": launches}
+    emit(path)
+    return recs, times, path
+
+
+def jvp_phase(params, art, cfg, dev):
+    """The JVP and rescaled modes through ``optimize_spline_batch``: each
+    plan of tools/jax_reference_jvp.py on the whole init blob, final
+    energies by K1 at float32, T=2000; launch counts, steps/s, lengths of
+    the reference's pairs against it."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch)
+
+    with open(JAX_JVP) as f:
+        ref = json.load(f)
+    sel = np.asarray(ref["pairs"])
+    recs = []
+    for name, entry in ref["plans"].items():
+        plan = tuple(entry["plan"])
+        jcfg = dataclasses.replace(
+            cfg, steps=plan[0], phase_plan=(plan,),
+            energy=dataclasses.replace(cfg.energy, mode="expected_fused",
+                                       target_num_t=ref["target_num_t"]))
+        torch.cuda.synchronize()
+        ef.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = optimize_spline_batch(params, art, cfg=jcfg, device=dev,
+                                    log_every_chunk=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lengths = np.asarray(out.geodesic_length, np.float64)
+        rel = np.abs(lengths[sel] / np.asarray(entry["lengths"]) - 1)
+        rec = {"phase": "jvp", "name": name, "plan": list(plan),
+               "target_num_t": ref["target_num_t"], "optimize_s": secs,
+               "steps_per_s": plan[0] / secs, "launches": dict(ef.LAUNCHES),
+               "lengths_finite": bool(np.isfinite(lengths).all()),
+               "moved_from_init": bool(not np.array_equal(
+                   out.omega_optimized, art.omega_init)),
+               "vs_jax_cpu_pairs": int(len(sel)),
+               "len_rel_median": float(np.median(rel)),
+               "len_rel_max": float(rel.max()),
+               "len_rel_argmax_pair": int(sel[np.argmax(rel)]),
+               "len_mean": float(lengths.mean())}
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def cov_phase(params, dev):
+    """``cov_analysis`` on the seeded surrogate, the committed model as both
+    seeds: at mc_fused (steps/s, K8 launches, the estimator's own CoV) and
+    at expected_fused (lengths against tools/jax_reference_cov.py, the two
+    seeds bit-identical, every CoV 0)."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.data.tasic import load_tasic
+    from vae_latent_geometry_tpu_torch.models.evae import encode
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.pipeline.evaluate import cov_analysis
+    from vae_latent_geometry_tpu_torch.pipeline.select_pairs import (
+        make_pairs, select_representatives)
+
+    with open(JAX_COV) as f:
+        ref = json.load(f)
+    data = load_tasic()
+    with torch.no_grad():
+        latents = encode(params, torch.as_tensor(
+            data.x, device=dev))[0].cpu().numpy()
+    pairs = [tuple(p) for p in make_pairs(
+        select_representatives(latents, data.labels, COV_LABELS))]
+    ref_pairs = [tuple(p) for p in ref["pairs"]]
+    steps = ref["recipe"]["steps"]
+    recs = {}
+    for mode in ("mc_fused", "expected_fused"):
+        torch.cuda.synchronize()
+        ef.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cov_analysis([params, params], [42, 42], data.x, ref_pairs,
+                           decoder_counts=tuple(range(1, 11)), steps=steps,
+                           num_t=ref["recipe"]["num_t"], mode=mode,
+                           kernel_precision=ref["recipe"]["kernel_precision"],
+                           device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rec = {"phase": "cov", "mode": mode,
+               "precision": ref["recipe"]["kernel_precision"],
+               "splines": len(ref_pairs) * len(res.decoder_counts),
+               "steps": steps, "seeds": 2, "optimize_s": secs,
+               "steps_per_s": 2 * steps / secs, "launches": dict(ef.LAUNCHES),
+               "pairs_equal_jax": pairs == ref_pairs,
+               "lengths_finite": bool(np.isfinite(res.lengths).all()),
+               "seeds_bit_identical": bool(np.array_equal(res.lengths[0],
+                                                          res.lengths[1])),
+               "avg_cov_geodesic": res.avg_cov_geodesic,
+               "avg_cov_euclidean": res.avg_cov_euclidean}
+        if mode == "expected_fused":
+            rel = np.abs(res.lengths[0] / np.asarray(ref["lengths"]) - 1)
+            rec.update({"len_rel_median": float(np.median(rel)),
+                        "len_rel_max": float(rel.max()),
+                        "len_rel_argmax": [int(i) for i in np.unravel_index(
+                            np.argmax(rel), rel.shape)]})
+        emit(rec)
+        recs[mode] = rec
+    return recs
+
+
 def main() -> int:
     import torch
 
@@ -881,6 +1146,9 @@ def main() -> int:
     # one shard of all ten decoders against K1/K2
     stats_recs, stats_times = stats_phase(ef, ws_all, bs_all, gamma, dev)
     sharded_vs_fused(ef, params.decoders, gamma, dev)
+    # the transposed kernels (K9/K10) and their op's own path
+    t_recs, t_times, t_path = transposed_phase(params, ws_all, bs_all, gamma,
+                                               dev)
 
     # 3. main path ----------------------------------------------------------
     cfg = GeodesicConfig(
@@ -1123,7 +1391,11 @@ def main() -> int:
           "len_rel_max": float(ep_vs_main.max())})
     ep2_rec = ep2_phase(params, art, cfg, dev)
 
-    # 11. kernels line ------------------------------------------------------
+    # 11-12. the JVP and rescaled modes; the CoV analysis
+    jvp_recs = jvp_phase(params, art, cfg, dev)
+    cov_recs = cov_phase(params, dev)
+
+    # 13. kernels line ------------------------------------------------------
     P = T * B
     in_bytes = 4 * (gamma.numel() + sum(w.numel() for w in ws_all)
                     + sum(b.numel() for b in bs_all) + M * B)
@@ -1164,6 +1436,17 @@ def main() -> int:
     k3_bound_f32 = (k1_flops / PEAK_FP32, (in_bytes + stat_bytes) / PEAK_BYTES)
     k4_bound = (k2_flops / PEAK_BF16,
                 (in_bytes + stat_bytes + 4 * gamma.numel()) / PEAK_BYTES)
+
+    # Transposed kernels: K1's and K2's function and FLOP (uniform weights:
+    # no weight plane among the inputs); K10 reads the cotangents and
+    # writes dgamma.
+    t_in = in_bytes - 4 * M * B
+    k9_bound = (k1_flops / PEAK_FP32, (t_in + 4 * B) / PEAK_BYTES)
+    k10_bound = (k2_flops / PEAK_BF16,
+                 (t_in + 4 * B + 4 * gamma.numel()) / PEAK_BYTES)
+
+    def bound_by(bound):
+        return "operations" if bound[0] >= bound[1] else "bytes"
 
     def stats_kernel(name, line, count, err_key, ms_key, bound):
         r = stats_times[(M, "f32x2")]
@@ -1224,6 +1507,34 @@ def main() -> int:
                         "stats_dgamma_max_abs", "stats_bwd", k4_bound),
          "ms_M_loc5": stats_times[(M // 2, "f32x2")]["stats_bwd_ms"],
          "bound_ms_M_loc5": 1e3 * max(k4_bound[0] / 2, k4_bound[1])},
+        {"name": "energy_t_fwd (K9, transposed layout, float32)",
+         "route": "cuda",
+         "source":
+             "vae_latent_geometry_tpu_torch/ops/csrc/energy_transposed.cu",
+         "replaces":
+             "vae_latent_geometry_tpu/ops/_research/energy_pallas_t.py:119",
+         "launches": t_path["launches"]["energy_t_fwd"],
+         "max_abs_err": t_recs[(M, "float32")]["energy_max_abs"],
+         "ms": t_times["float32"]["k9_ms"],
+         "plain_ms": t_times["float32"]["k9_plain_ms"],
+         "bound_ms": 1e3 * max(k9_bound), "bound_by": bound_by(k9_bound),
+         "library_ms": None,
+         "ms_f32x2": t_times["f32x2"]["k9_ms"],
+         "k1_ms_same_call": t_times["float32"]["k1_ms"]},
+        {"name": "energy_t_bwd (K10, transposed layout, f32x2, one decode)",
+         "route": "cuda",
+         "source":
+             "vae_latent_geometry_tpu_torch/ops/csrc/energy_transposed.cu",
+         "replaces":
+             "vae_latent_geometry_tpu/ops/_research/energy_pallas_t.py:193",
+         "launches": t_path["launches"]["energy_t_bwd"],
+         "max_abs_err": t_recs[(M, "f32x2")]["dgamma_max_abs"],
+         "ms": t_times["f32x2"]["k10_ms"],
+         "plain_ms": t_times["f32x2"]["k10_plain_ms"],
+         "bound_ms": 1e3 * max(k10_bound), "bound_by": bound_by(k10_bound),
+         "library_ms": None,
+         "ms_float32": t_times["float32"]["k10_ms"],
+         "k2_ms_same_call": t_times["f32x2"]["k2_ms"]},
         mc_kernel("energy_mc_fwd (K5, float32 final evaluation, planes)", 473,
                   ext_launches["energy_mc_fwd"], "mc_energy_max_abs",
                   "mc_fwd", "float32", mc_bounds["k5"]),
@@ -1346,6 +1657,67 @@ def main() -> int:
         fail(f"MC-optimized lengths vs phase main: median "
              f"{mc_rec['vs_main_len_rel_median']:.3g}, max "
              f"{mc_rec['vs_main_len_rel_max']:.3g}")
+    for (m, prec), r in t_recs.items():
+        e_tol = E_RTOL_BF16_M1 if (prec, m) == ("bfloat16", 1) else E_RTOL
+        if not r["finite"] or not r["energy_max_rel"] <= e_tol:
+            fail(f"K9 energy rel err {r['energy_max_rel']:.3g} > {e_tol} (or "
+                 f"non-finite) at M={m} {prec}")
+        if (not r["dgamma_share_over_1e-3"] <= DG_OVER_SHARE[prec]
+                or not r["dgamma_rel_median"] <= DG_MED
+                or not r["dgamma_rel_p99"] <= DG_P99):
+            fail(f"K10 dgamma median/p99/share {r['dgamma_rel_median']:.3g}/"
+                 f"{r['dgamma_rel_p99']:.3g}/"
+                 f"{r['dgamma_share_over_1e-3']:.3g} at M={m} {prec}")
+        if "vs_k1_energy_max_rel" in r and (
+                not r["vs_k1_energy_max_rel"] <= E_RTOL
+                or not r["vs_k2_dgamma_rel_median"] <= DG_MED
+                or not r["vs_k2_dgamma_rel_p99"] <= DG_P99):
+            fail(f"K9/K10 vs K1/K2 at {prec}: energy "
+                 f"{r['vs_k1_energy_max_rel']:.3g}, dgamma median/p99 "
+                 f"{r['vs_k2_dgamma_rel_median']:.3g}/"
+                 f"{r['vs_k2_dgamma_rel_p99']:.3g}")
+    for path, v in t_path["gate_medrel"].items():
+        if not v <= GATE_MEDREL:
+            fail(f"numerics gate: {path} median rel err {v} > {GATE_MEDREL}")
+    if not (t_path["op_energy_finite"] and t_path["op_grad_finite"]):
+        fail("energy_expected_fused_t: non-finite energy or gradient")
+    for name, count in t_path["launches"].items():
+        want_t = {"energy_t_fwd": 2, "energy_t_bwd": 1, "energy_fwd": 1}
+        if count != want_t.get(name, 0):
+            fail(f"transposed path: {name} launched {count} times, expected "
+                 f"{want_t.get(name, 0)}")
+    for r in jvp_recs:
+        if r["launches"] != {**{k: 0 for k in r["launches"]},
+                             "energy_fwd": n_chunks}:
+            fail(f"jvp {r['name']}: launches {r['launches']}, expected only "
+                 f"{n_chunks} of K1 (the final float32 energies)")
+        if not (r["lengths_finite"] and r["moved_from_init"]):
+            fail(f"jvp {r['name']}: output malformed")
+        if not (r["len_rel_median"] <= LEN_MED and r["len_rel_max"] <= LEN_MAX):
+            fail(f"jvp {r['name']}: lengths vs the JAX package on the CPU: "
+                 f"median {r['len_rel_median']:.3g}, max "
+                 f"{r['len_rel_max']:.3g}")
+    cov_steps = cov_recs["mc_fused"]["steps"]
+    want_cov = {"mc_fused": {"energy_mc_bwd_rng": 2 * cov_steps,
+                             "energy_mc_fwd_rng": 2},
+                "expected_fused": {"energy_bwd": 2 * cov_steps,
+                                   "energy_fwd": 2}}
+    for mode, r in cov_recs.items():
+        for name, count in r["launches"].items():
+            if count != want_cov[mode].get(name, 0):
+                fail(f"cov {mode}: {name} launched {count} times, expected "
+                     f"{want_cov[mode].get(name, 0)}")
+        if not (r["lengths_finite"] and r["pairs_equal_jax"]):
+            fail(f"cov {mode}: non-finite lengths or other pairs than the "
+                 "JAX package's")
+    r = cov_recs["expected_fused"]
+    if not (r["seeds_bit_identical"]
+            and all(v == 0.0 for v in r["avg_cov_geodesic"].values())):
+        fail("cov expected_fused: one model twice did not give bit-identical "
+             "lengths and CoV 0")
+    if not (r["len_rel_median"] <= LEN_MED and r["len_rel_max"] <= LEN_MAX):
+        fail(f"cov expected_fused: lengths vs the JAX package on the CPU: "
+             f"median {r['len_rel_median']:.3g}, max {r['len_rel_max']:.3g}")
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")

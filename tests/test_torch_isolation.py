@@ -181,12 +181,13 @@ def test_console_script_and_package_data_in_pyproject():
     assert "ops/csrc/*.cu" in data["vae_latent_geometry_tpu_torch"]
     assert "ops/csrc/*.cuh" in data["vae_latent_geometry_tpu_torch"]
     for src in ("energy_expected.cu", "energy_mc.cu", "energy_stats.cu",
-                "decode_common.cuh"):
+                "energy_transposed.cu", "decode_common.cuh"):
         assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
     from setuptools import find_packages
 
     found = find_packages(REPO, **cfg["tool"]["setuptools"]["packages"]["find"])
-    for sub in ("ops", "parallel", "graph", "pipeline", "optim"):
+    for sub in ("ops", "ops._research", "parallel", "graph", "pipeline",
+                "optim"):
         assert f"vae_latent_geometry_tpu_torch.{sub}" in found
 
 
@@ -201,10 +202,10 @@ def test_new_modules_are_scanned_and_stats_kernel_is_registered():
                 "parallel/multihost.py", "parallel/shard.py",
                 "graph/grid.py", "graph/shortest_path.py",
                 "pipeline/select_pairs.py", "pipeline/init_splines.py",
-                "pipeline/full_run.py"):
+                "pipeline/full_run.py", "ops/_research/energy_fused_t.py"):
         assert mod in rel, mod
     assert set(_build.SIGNATURES) == {"energy_expected", "energy_mc",
-                                      "energy_stats"}
+                                      "energy_stats", "energy_transposed"}
     assert set(_build.SIGNATURES["energy_stats"]) == {"vlg_stats_fwd",
                                                       "vlg_stats_bwd"}
 
@@ -385,3 +386,38 @@ def test_stats_kernels_match_plain_versions_on_gpu(precision, m_loc):
     err = ((d - d_p).abs() / d_p.abs().max()).flatten()
     assert float(err.median()) < 1e-4
     assert float(torch.quantile(err, 0.99)) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B", [(200, 13), (2000, 13), (2000, 300)])
+@pytest.mark.parametrize("precision", ["float32", "f32x3", "f32x2",
+                                       "bfloat16"])
+def test_transposed_kernels_match_plain_versions_on_gpu(precision, T, B):
+    """K9 and K10 against their plain versions on the card, M = 10, a
+    ragged group of four splines at B = 13; on 132 SMs (200, 13) gives
+    one-chunk spans, (2000, 13) spans of two chunks (a carry), (2000, 300)
+    spans of nine chunks, 525 work items over the blocks in a stride."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops._research import (
+        energy_fused_t as eft)
+
+    p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
+    ws, bs = ef.stack_weights(p.decoders)
+    rng = np.random.default_rng(0)
+    g = torch.as_tensor(rng.normal(size=(T, B, 2)).astype(np.float32) * 2,
+                        device="cuda")
+    ct = torch.as_tensor(rng.uniform(0.5, 2, B).astype(np.float32),
+                         device="cuda")
+    e = eft.energy_t_fwd(ws, bs, g, precision)
+    e_p = eft.energy_t_fwd_plain(ws, bs, g, precision)
+    torch.testing.assert_close(e, e_p, rtol=1e-5, atol=0)
+    d = eft.energy_t_bwd(ws, bs, g, ct, precision)
+    d_p = eft.energy_t_bwd_plain(ws, bs, g, ct, precision)
+    err = ((d - d_p).abs() / d_p.abs().max()).flatten()
+    assert float(err.median()) < 1e-4
+    assert float(torch.quantile(err, 0.99)) < 1e-3
+    assert torch.equal(e, eft.energy_t_fwd(ws, bs, g, precision))
+    assert torch.equal(d, eft.energy_t_bwd(ws, bs, g, ct, precision))

@@ -143,7 +143,8 @@ def test_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(energy=EnergyConfig(num_t=16, mode="jvp")),
+    # expected_rescaled without the target_num_t it rescales to
+    dict(energy=EnergyConfig(num_t=16, mode="expected_rescaled")),
     dict(phase_plan=((5, 32, "cosine"),)),
     dict(lr_schedule="linear"),
 ])

@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: ``select-pairs``, ``init-splines``,
-``optimize`` and ``eval --mode matrix``.
+``optimize`` and ``eval --mode matrix|cov``.
 
   python -m vae_latent_geometry_tpu_torch select-pairs --model experiment/model_seed42.npz --max-labels 20
   python -m vae_latent_geometry_tpu_torch init-splines --model experiment/model_seed42.npz \\
@@ -7,6 +7,8 @@
   python -m vae_latent_geometry_tpu_torch optimize --model experiment/model_seed42.npz \\
       --splines <init artifact> --energy-mode mc_fused
   python -m vae_latent_geometry_tpu_torch eval --mode matrix --splines <opt artifact>
+  python -m vae_latent_geometry_tpu_torch eval --mode cov --seeds 12 123 \\
+      --pairfile experiment/pairs/selected_pairs_20.json --energy-mode mc_fused
 
 Flags and defaults follow ``vae_latent_geometry_tpu.cli``; the artifacts are
 the same format.  ``--device`` picks the torch device (default ``cuda``;
@@ -203,6 +205,8 @@ def cmd_optimize(args):
 
 
 def cmd_eval(args):
+    if args.mode == "cov":
+        return _eval_cov(args)
     from vae_latent_geometry_tpu_torch.io.artifacts import load_spline_batch
     from vae_latent_geometry_tpu_torch.pipeline.evaluate import distance_matrix
 
@@ -221,6 +225,47 @@ def cmd_eval(args):
                             for row in mat],
     }))
     print(f"[ok] wrote {out_json}")
+
+
+def _eval_cov(args):
+    from vae_latent_geometry_tpu_torch.device import resolve_device
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.parallel.multihost import is_primary
+    from vae_latent_geometry_tpu_torch.pipeline.evaluate import cov_analysis
+    from vae_latent_geometry_tpu_torch.pipeline.select_pairs import load_pairs
+
+    device = resolve_device(args.device)
+    data = _load_data(args)
+    pairfile = (args.pairfile or
+                f"experiment/pairs/selected_pairs_{args.pair_count}.json")
+    _, pairs = load_pairs(pairfile)
+    models, seeds = [], []
+    for seed in args.seeds:
+        path = Path(args.model_dir) / f"model_seed{seed}.npz"
+        if path.exists():
+            models.append(load_npz(str(path), device))
+            seeds.append(seed)
+        else:
+            print(f"[warn] no checkpoint {path}; skipping seed {seed}")
+    if not models:
+        raise SystemExit(f"no model_seed<N>.npz for seeds {args.seeds} in "
+                         f"{args.model_dir}")
+    mesh = None
+    if args.dp or args.ep > 1:
+        from vae_latent_geometry_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(dp=args.dp, ep=args.ep)
+        print(f"[info] mesh {mesh.shape}")
+    res = cov_analysis(models, seeds, data.x, pairs,
+                       decoder_counts=list(range(1, 11)), steps=args.steps,
+                       num_t=args.num_t, mode=args.energy_mode,
+                       kernel_precision=args.kernel_precision,
+                       batch_size=args.batch_size, mesh=mesh, device=device)
+    out = (Path(args.output) if args.output else Path("experiment/plots")
+           / f"cov_values_alldec_{args.pair_count}.json")
+    if is_primary():
+        res.save(out)
+        print(f"[ok] wrote {out}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -298,11 +343,14 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--energy-mode", default="mc",
                    choices=["mc", "mc_scan", "mc_fused", "mc_fused_bf16",
                             "expected", "expected_fused",
-                            "expected_fused_bf16", "single", "single_fused"],
+                            "expected_fused_bf16", "single", "single_fused",
+                            "jvp", "jvp_ensemble"],
                    help="energy estimator: the reference's Monte-Carlo "
                         "estimator (mc; mc_scan streams T in chunks; "
-                        "mc_fused runs it in the fused kernels) or its "
-                        "closed-form expectation (expected*)")
+                        "mc_fused runs it in the fused kernels), its "
+                        "closed-form expectation (expected*), or the "
+                        "decoder-JVP quadrature (jvp: decoder 0; "
+                        "jvp_ensemble: mean decoder plus disagreement)")
     o.add_argument("--seed", type=int, default=0,
                    help="seed of the MC modes' decoder draws; a run is "
                         "reproducible per seed")
@@ -321,18 +369,43 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--output", default=None)
     o.set_defaults(fn=cmd_optimize)
 
-    e = sub.add_parser("eval", help="distance matrix")
-    e.add_argument("--mode", required=True, choices=["matrix"])
+    e = sub.add_parser(
+        "eval", help="distance matrix / CoV analysis (JSON only: the port "
+                     "has no plotting, so no companion figures)")
+    add_common(e)
+    e.add_argument("--mode", required=True, choices=["matrix", "cov"])
     e.add_argument("--len-type", default="geodesic",
                    choices=["geodesic", "euclidean"])
     e.add_argument("--init-type", default="euclidean",
                    choices=["entropy", "euclidean"])
     e.add_argument("--pair-count", type=int, default=133)
     e.add_argument("--seed", type=int, default=12)
+    e.add_argument("--seeds", nargs="*", type=int, default=[12, 123],
+                   help="cov: model seeds; each needs "
+                        "<model-dir>/model_seed<N>.npz (no .pt import)")
     e.add_argument("--splines", default=None)
+    e.add_argument("--pairfile", default=None)
+    e.add_argument("--model-dir", default="experiment")
+    e.add_argument("--steps", type=int, default=300)
+    e.add_argument("--num-t", type=int, default=2000)
+    e.add_argument("--energy-mode", default="mc",
+                   choices=["mc", "mc_scan", "mc_fused", "mc_fused_bf16",
+                            "expected", "expected_fused",
+                            "expected_fused_bf16"])
+    e.add_argument("--kernel-precision", default="f32x3",
+                   choices=["float32", "f32x3", "f32x2"],
+                   help="cov: precision rung of the fused kernels on the "
+                        "optimization steps (final energies at float32)")
+    e.add_argument("--batch-size", type=int, default=None)
+    e.add_argument("--dp", type=int, default=None,
+                   help="cov: data-parallel mesh size (default: no mesh)")
+    e.add_argument("--ep", type=int, default=1,
+                   help="cov: ensemble-parallel mesh size")
     e.add_argument("--output", default=None,
-                   help="distance-matrix JSON path (default: the "
-                        "experiment/plots/ naming convention under the cwd)")
+                   help="result JSON path (matrix: the distance matrix; "
+                        "cov: the CoV values, the JAX package's format); "
+                        "default: the experiment/plots/ naming convention "
+                        "under the cwd")
     e.set_defaults(fn=cmd_eval)
     return p
 

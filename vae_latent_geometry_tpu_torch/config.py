@@ -2,9 +2,9 @@
 
 A copy of ``vae_latent_geometry_tpu.config`` with the same fields and
 defaults, so a config built for one package means the same run in the
-other.  Fields whose feature is not yet ported (``target_num_t``,
-``early_stop``) keep their defaults here and are refused where they would
-change a result.  ``EnergyConfig.ep_axis`` names the axis of a
+other.  ``early_stop``, whose feature is not yet ported, keeps its default
+here and is refused where it would change a result; ``target_num_t`` (the
+``jvp_ensemble`` / ``expected_rescaled`` resolution transfer) is ported.  ``EnergyConfig.ep_axis`` names the axis of a
 ``parallel.mesh.Mesh`` that the decoder ensemble is sharded over.
 """
 

@@ -12,13 +12,22 @@
   ``energy_mc_scan`` the same distribution streamed over T in chunks;
   ``sample_decoder_indices`` draws the planes.
 - ``geodesic_lengths``: data-space arc length through one decoder.
+- ``energy_jvp`` / ``energy_jvp_ensemble``: the T -> infinity forms, a
+  trapezoid quadrature of ||J_f(g) g'||^2 (the decoder JVP along the curve
+  velocity) plus, for the ensemble, the decoder-disagreement term;
+  ``target_num_t`` rescales both terms to another resolution;
+  ``energy_expected_rescaled`` is that rescaling with first differences
+  instead of JVPs (the ``jvp*`` / ``expected_rescaled`` modes).
 
 They mirror ``vae_latent_geometry_tpu.geometry.energy`` and are the
-unfused modes ``single`` / ``expected`` / ``mc`` / ``mc_scan``.  Inputs are
+unfused modes ``single`` / ``expected`` / ``mc`` / ``mc_scan`` / ``jvp`` /
+``jvp_ensemble`` / ``expected_rescaled``.  Inputs are
 curve points gamma (T, B, D); outputs are per-spline (B,).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -39,6 +48,13 @@ def geodesic_lengths(decoder_params, gamma):
     return torch.sum(torch.linalg.norm(diffs, dim=2), dim=0)
 
 
+def _mean_weights(num_active, m_dec, B, dtype, device):
+    """(M, B) weights of the mean over each spline's first k_b decoders."""
+    k = torch.as_tensor(num_active, dtype=torch.int64, device=device).expand(B)
+    mask = (torch.arange(m_dec, device=device)[:, None] < k[None, :]).to(dtype)
+    return mask / k.to(dtype)[None, :]
+
+
 def _ensemble_stats(decoded, num_active=None):
     """(M, T, B, X) decode -> (xbar (T, B, X), var (T, B)); ``num_active``
     (B,) restricts the means to the first k_b decoders per spline."""
@@ -48,11 +64,7 @@ def _ensemble_stats(decoded, num_active=None):
         dev = decoded - xbar[None]
         var = (dev * dev).sum(dim=-1).mean(dim=0)
     else:
-        k = torch.as_tensor(num_active, dtype=torch.int64,
-                            device=decoded.device).expand(B)
-        mask = (torch.arange(m_dec, device=decoded.device)[:, None]
-                < k[None, :]).to(decoded.dtype)
-        w = mask / k.to(decoded.dtype)[None, :]
+        w = _mean_weights(num_active, m_dec, B, decoded.dtype, decoded.device)
         xbar = torch.einsum("mb,mtbx->tbx", w, decoded)
         dev = decoded - xbar[None]
         var = torch.einsum("mb,mtb->tb", w, (dev * dev).sum(dim=-1))
@@ -160,3 +172,87 @@ def energy_mc_scan(decoders, gamma, generator, mc_samples: int = 2,
                                preserve_rng_state=False)
         energy = energy + e
     return energy
+
+
+# ---------------------------------------------------------------------------
+# JVP energies.  Tangents are carried through the ReLU MLPs by hand, beside
+# the forward pass: dh_{l+1} = (dh_l W_l) * [pre_l > 0] (the derivative
+# jax.nn.relu uses), so one pass gives the decode and its JVP, and autograd
+# differentiates both as plain tensor code.  (torch.func.jvp would decode a
+# second time for the values the disagreement term needs.)
+# ---------------------------------------------------------------------------
+
+def decode_all_jvp(decoders, z, z_dot):
+    """Every ensemble member: (x, x_dot), both (M, ..., X)."""
+    lead = z.shape[:-1]
+    layers = decoders["layers"]
+    m_dec = layers[0]["w"].shape[0]
+    h = z.reshape(1, -1, z.shape[-1]).expand(m_dec, -1, -1)
+    h_dot = z_dot.reshape(1, -1, z.shape[-1]).expand(m_dec, -1, -1)
+    for i, lyr in enumerate(layers):
+        h = torch.baddbmm(lyr["b"][:, None, :], h, lyr["w"])
+        h_dot = torch.bmm(h_dot, lyr["w"])
+        if i < len(layers) - 1:
+            h_dot = h_dot * (h > 0).to(h.dtype)
+            h = torch.relu(h)
+    return (h.reshape(m_dec, *lead, h.shape[-1]),
+            h_dot.reshape(m_dec, *lead, h.shape[-1]))
+
+
+def _trapezoid_dt2(sq):
+    """sum_i w_i sq_i * dt^2 over the T axis of (T, B) values, trapezoid
+    weights (1/2 at both ends), dt = 1/(T-1)."""
+    T = sq.shape[0]
+    dt = 1.0 / (T - 1)
+    w = torch.ones(T, dtype=sq.dtype, device=sq.device)
+    w[0] = w[-1] = 0.5
+    return (sq * w[:, None]).sum(dim=0) * dt * dt
+
+
+def energy_jvp(decoder_params, gamma, gamma_dot):
+    """Quadrature JVP energy through one decoder:
+    dt^2 sum_i w_i ||J_f(g_i) g'_i||^2, trapezoid weights, dt = 1/(T-1)
+    (the discrete estimators' units as T grows).  (T, B, D) -> (B,)."""
+    stacked = {"layers": [{"w": l["w"][None], "b": l["b"][None]}
+                          for l in decoder_params["layers"]]}
+    tangents = decode_all_jvp(stacked, gamma, gamma_dot)[1][0]
+    return _trapezoid_dt2((tangents * tangents).sum(dim=-1))
+
+
+def energy_jvp_ensemble(decoders, gamma, gamma_dot,
+                        target_num_t: Optional[int] = None, num_active=None):
+    """Expected ensemble energy in the T -> infinity limit: the JVP
+    quadrature of the mean decoder plus the disagreement term
+    sum_i var_{i+1} + var_i.  With ``target_num_t`` the two terms are carried
+    to that resolution, r = (target - 1)/(T - 1): jvp / r + disagreement * r
+    (the smooth term scales as 1/T, the disagreement as T).
+    ``num_active``: (B,) per-spline count of leading decoders (masked
+    means in both terms)."""
+    decoded, decoded_dot = decode_all_jvp(decoders, gamma, gamma_dot)
+    _, var = _ensemble_stats(decoded, num_active)
+    disagreement = (var[1:] + var[:-1]).sum(dim=0)
+    if num_active is None:
+        tangents = decoded_dot.mean(dim=0)
+    else:
+        wm = _mean_weights(num_active, decoded.shape[0], gamma.shape[1],
+                           gamma.dtype, gamma.device)
+        tangents = torch.einsum("mb,mtbx->tbx", wm, decoded_dot)
+    jvp_term = _trapezoid_dt2((tangents * tangents).sum(dim=-1))
+    if target_num_t is None:
+        return jvp_term + disagreement
+    r = (target_num_t - 1) / (gamma.shape[0] - 1)
+    return jvp_term / r + disagreement * r
+
+
+def energy_expected_rescaled(decoders, gamma, target_num_t: int,
+                             num_active=None):
+    """The rescaling of :func:`energy_jvp_ensemble` with the smooth term
+    estimated by first differences on the local grid:
+    smooth / r + disagreement * r, r = (target - 1)/(T - 1)."""
+    decoded = decode_all(decoders, gamma)              # (M, T, B, X)
+    xbar, var = _ensemble_stats(decoded, num_active)
+    step = xbar[1:] - xbar[:-1]
+    smooth = (step * step).sum(dim=-1).sum(dim=0)
+    disagreement = (var[1:] + var[:-1]).sum(dim=0)
+    r = (target_num_t - 1) / (gamma.shape[0] - 1)
+    return smooth / r + disagreement * r

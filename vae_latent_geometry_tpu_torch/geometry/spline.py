@@ -28,25 +28,47 @@ def t_grid(T: int, device=None) -> torch.Tensor:
     return t.to(device)
 
 
-def _segment_powers(t: torch.Tensor, n_poly: int):
+def _segment_powers(t: torch.Tensor, n_poly: int, deriv: int = 0):
     """Segment index (T,) and local monomials [1, u, u^2, u^3] (T, 4) with
-    u = t*n_poly - seg_idx."""
+    u = t*n_poly - seg_idx, or their ``deriv``-th derivative in t (the
+    chain-rule factor n_poly**deriv included)."""
     seg_idx = torch.clamp(torch.floor(t * n_poly).to(torch.int64),
                           0, n_poly - 1)
     u = t * n_poly - seg_idx.to(t.dtype)
-    u2 = u * u
-    powers = torch.stack([torch.ones_like(u), u, u2, u2 * u], dim=1)
+    one, zero = torch.ones_like(u), torch.zeros_like(u)
+    if deriv == 0:
+        u2 = u * u
+        powers = torch.stack([one, u, u2, u2 * u], dim=1)
+    elif deriv == 1:
+        powers = torch.stack([zero, one, 2.0 * u, 3.0 * (u * u)],
+                             dim=1) * n_poly
+    elif deriv == 2:
+        powers = torch.stack([zero, zero, 2.0 * one, 6.0 * u],
+                             dim=1) * n_poly ** 2
+    else:
+        raise ValueError(f"deriv={deriv} not supported")
     return seg_idx, powers
+
+
+def _design(t: torch.Tensor, basis, n_poly: int, deriv: int) -> torch.Tensor:
+    basis = torch.as_tensor(basis, dtype=torch.float32, device=t.device)
+    K = basis.shape[1]
+    seg_idx, powers = _segment_powers(t.reshape(-1), n_poly, deriv)
+    seg_rows = basis.reshape(n_poly, 4, K)[seg_idx]            # (T, 4, K)
+    return torch.einsum("ti,tik->tk", powers, seg_rows).reshape(*t.shape, K)
 
 
 def design_matrix(t: torch.Tensor, basis, n_poly: int = 4) -> torch.Tensor:
     """Phi(t): (..., K) float32 on ``t``'s device, for ``t`` of any shape
     (a (T,) grid, or (B, P) per-path sample points)."""
-    basis = torch.as_tensor(basis, dtype=torch.float32, device=t.device)
-    K = basis.shape[1]
-    seg_idx, powers = _segment_powers(t.reshape(-1), n_poly)
-    seg_rows = basis.reshape(n_poly, 4, K)[seg_idx]            # (T, 4, K)
-    return torch.einsum("ti,tik->tk", powers, seg_rows).reshape(*t.shape, K)
+    return _design(t, basis, n_poly, 0)
+
+
+def design_matrix_derivative(t: torch.Tensor, basis, n_poly: int = 4,
+                             order: int = 1) -> torch.Tensor:
+    """dPhi/dt (``order`` 1) or d2Phi/dt2 (``order`` 2), shaped as
+    :func:`design_matrix`."""
+    return _design(t, basis, n_poly, order)
 
 
 def eval_spline_design(omega, a, b, phi, t):
@@ -55,6 +77,12 @@ def eval_spline_design(omega, a, b, phi, t):
     linear = (1.0 - t) * a[None] + t * b[None]
     offset = torch.einsum("tk,bkd->tbd", phi, omega)
     return linear + offset
+
+
+def eval_spline_velocity(omega, a, b, dphi):
+    """d gamma / dt through the design-matrix derivative: omega (B, K, D),
+    a/b (B, D), dphi (T, K) -> (T, B, D)."""
+    return (b - a)[None] + torch.einsum("tk,bkd->tbd", dphi, omega)
 
 
 def fit_spline_lstsq(paths, mask, a, b, phi, t, ridge: float = 0.0):

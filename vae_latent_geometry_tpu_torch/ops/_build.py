@@ -44,6 +44,13 @@ SIGNATURES = {
         "vlg_mc_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _U, _U, _P, _P, _P, _P],
     },
+    "energy_transposed": {
+        "vlg_t_scratch_words": [_I, _I, _I],
+        "vlg_energy_t_fwd": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P],
+        "vlg_energy_t_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
     "energy_stats": {
         "vlg_stats_fwd": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P, _P],

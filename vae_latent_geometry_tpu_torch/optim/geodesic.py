@@ -29,7 +29,9 @@ from vae_latent_geometry_tpu_torch.device import resolve_device
 from vae_latent_geometry_tpu_torch.geometry import energy as energy_lib
 from vae_latent_geometry_tpu_torch.geometry.spline import (
     design_matrix,
+    design_matrix_derivative,
     eval_spline_design,
+    eval_spline_velocity,
     t_grid,
 )
 from vae_latent_geometry_tpu_torch.ops import energy_fused, energy_mc_fused
@@ -37,7 +39,8 @@ from vae_latent_geometry_tpu_torch.parallel.collectives import all_reduce_sum
 
 ENERGY_MODES = ("mc", "mc_scan", "mc_fused", "mc_fused_bf16",
                 "expected", "expected_fused", "expected_fused_bf16",
-                "single", "single_fused")
+                "single", "single_fused", "jvp", "jvp_ensemble",
+                "expected_rescaled")
 _M64 = (1 << 64) - 1
 
 
@@ -69,14 +72,32 @@ class GeodesicResult(NamedTuple):
 def _energy_fn(mode: str, decoders, gamma, seed: int = 0, mc_samples: int = 2,
                num_active=None, kernel_precision: str = "f32x3",
                mc_inkernel_rng: bool = True, grad_only: bool = False,
-               ep_axis: Optional[str] = None, mesh=None):
+               ep_axis: Optional[str] = None, mesh=None, gamma_dot=None,
+               target_num_t: Optional[int] = None):
     """Per-spline energies (B,) of curve points gamma (T, B, D).
-    ``decoders`` is the stacked ensemble, or one decoder for ``single``.
-    ``seed`` is the step's draw of the MC modes.  ``ep_axis`` names the axis
-    of ``mesh`` that the decoder ensemble is sharded over (``decoders`` is
-    then this rank's local subset); only ``expected_fused*`` reads it."""
+    ``decoders`` is the stacked ensemble, or one decoder for ``single`` and
+    ``jvp``.  ``seed`` is the step's draw of the MC modes.  ``ep_axis``
+    names the axis of ``mesh`` that the decoder ensemble is sharded over
+    (``decoders`` is then this rank's local subset); only
+    ``expected_fused*`` reads it.  ``gamma_dot``: the curve velocity
+    (T, B, D), for the ``jvp*`` modes; ``target_num_t``: the resolution
+    ``jvp_ensemble`` and ``expected_rescaled`` carry their terms to."""
     if mode == "single":
         return energy_lib.energy_single(decoders, gamma)
+    # no fused JVP kernel, as in the JAX package: the exact metric costs
+    # about twice a first-difference point and the rescaling, not the
+    # fusion, is the gain (its experiment/jvp_speed_probe.json)
+    if mode == "jvp":
+        return energy_lib.energy_jvp(decoders, gamma, gamma_dot)
+    if mode == "jvp_ensemble":
+        return energy_lib.energy_jvp_ensemble(decoders, gamma, gamma_dot,
+                                              target_num_t, num_active)
+    if mode == "expected_rescaled":
+        if target_num_t is None:
+            raise ValueError("energy mode 'expected_rescaled' requires "
+                             "energy.target_num_t")
+        return energy_lib.energy_expected_rescaled(decoders, gamma,
+                                                   target_num_t, num_active)
     if mode == "single_fused":
         # the expected kernel with an M=1 ensemble IS the single-decoder
         # energy (its statistics reduce to direct segment differences)
@@ -155,19 +176,23 @@ def make_loss_fn(decoders, basis, cfg: GeodesicConfig, device,
     true partial; the optimizer all-reduces the gradients over the axis for
     the exact global gradient.  The reported energies stay unscaled."""
     e_cfg = cfg.energy
-    if e_cfg.target_num_t is not None:
-        raise ValueError("target_num_t is not available in the PyTorch port")
     ep_size = _ep_size(e_cfg.ep_axis, mesh)
     t = t_grid(e_cfg.num_t, device)
     phi = design_matrix(t, basis, cfg.spline.n_poly)
+    needs_vel = e_cfg.mode.startswith("jvp")
+    dphi = (design_matrix_derivative(t, basis, cfg.spline.n_poly)
+            if needs_vel else None)
     t_end = torch.ones(1, dtype=torch.float32, device=device)
     phi_end = design_matrix(t_end, basis, cfg.spline.n_poly)
 
     def loss(omega, a, b, seed=0, num_active=None):
         gamma = eval_spline_design(omega, a, b, phi, t)
+        gamma_dot = (eval_spline_velocity(omega, a, b, dphi)
+                     if needs_vel else None)
         e = _energy_fn(e_cfg.mode, decoders, gamma, seed, e_cfg.mc_samples,
                        num_active, e_cfg.kernel_precision,
-                       e_cfg.mc_inkernel_rng, grad_only, e_cfg.ep_axis, mesh)
+                       e_cfg.mc_inkernel_rng, grad_only, e_cfg.ep_axis, mesh,
+                       gamma_dot, e_cfg.target_num_t)
         # endpoint penalty (reference src/optimize.py:158-160): zero in exact
         # arithmetic (the basis enforces offset(1)=0), kept for faithful
         # gradients under float32
@@ -232,9 +257,13 @@ def _phase_cfgs(cfg: GeodesicConfig) -> list:
 
 def _exact_cfg(cfg: GeodesicConfig) -> GeodesicConfig:
     """Config of the final re-evaluation: always float32, full
-    ``energy.num_t``, ``final_energy_mode`` when set — reduced rungs and
-    coarse grids only steer the trajectory, never the reported numbers."""
+    ``energy.num_t``, same-T semantics (``target_num_t`` cleared),
+    ``final_energy_mode`` when set — reduced rungs, coarse grids and the
+    rescaled or JVP modes only steer the trajectory, never the reported
+    numbers.  ``expected_rescaled`` with r = 1 IS ``expected``."""
     mode = (cfg.final_energy_mode or cfg.energy.mode).removesuffix("_bf16")
+    if mode == "expected_rescaled":
+        mode = "expected"
     return dataclasses.replace(
         cfg, energy=dataclasses.replace(
             cfg.energy, mode=mode, target_num_t=None,

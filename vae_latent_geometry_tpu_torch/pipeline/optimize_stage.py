@@ -80,7 +80,7 @@ def optimize_spline_batch(
     """Optimize all splines in an artifact; returns the completed artifact.
 
     params: EVAE parameters on ``device``.  For the single-decoder modes
-    (``single``, ``single_fused``) decoder 0 is used and the geodesic length
+    (``single``, ``single_fused``, ``jvp``) decoder 0 is used and the geodesic length
     is the data-space arc length; otherwise it is sqrt(energy).
     data: dataset for the latent Euclidean distances (skipped when None).
     output_path: when set, the result is saved there at the end.
@@ -98,7 +98,7 @@ def optimize_spline_batch(
         raise ValueError(
             "early_stop is not supported on a sharded (mesh) run: drop "
             "early_stop or run without a mesh")
-    single = cfg.energy.mode in ("single", "single_fused")
+    single = cfg.energy.mode in ("single", "single_fused", "jvp")
     energy_params = (evae_lib.decoder_member(params.decoders, 0) if single
                      else params.decoders)
     P = len(art)
