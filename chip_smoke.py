@@ -6,7 +6,9 @@
 Phases, each printing one JSON line; any failure exits nonzero:
 
 1. build   — compile the CUDA kernels from ``vae_latent_geometry_tpu_torch/
-             ops/csrc`` with nvcc (sm_90a); card name, power limit, versions.
+             ops/csrc`` with nvcc (sm_90a); card name, power limit, versions;
+             the tensor-core instructions (HMMA) in K2's SASS: present at
+             the reduced rungs, absent at float32.
 2. kernels — at full width (seed-42 10-decoder EVAE, the 190 seed-42 init
              curves padded to B=200, T=2000, S=2 MC samples): each kernel
              against its plain PyTorch version on the same inputs, every
@@ -23,7 +25,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
              (``tools/jax_reference_lengths.py``) and, loosely, against its
              committed TPU result on the same init blob; then the same run
              through the unfused plain-PyTorch ``expected`` mode (float32,
-             200 steps) as the end-to-end yardstick.
+             200 steps) as the end-to-end yardstick; profile — device time
+             by kernel (torch.profiler): K2's two launches, and 50 steps of
+             the main path with the device's busy share.
 4. rung    — pairs 0, 42, 65, 164 through the same recipe at float32
              against the JAX package on the CPU at float32.
 5. mc_stats — the mean of the in-kernel-draw MC energy (K7) over 64 seeds
@@ -68,12 +72,20 @@ Phases, each printing one JSON line; any failure exits nonzero:
              launches, the estimator's own CoV) and at ``expected_fused``
              (bit-identical seeds, CoV 0, lengths against
              ``tools/jax_reference_cov.py``).
-13. the ``kernels`` summary line, the card line, and the result line.
+13. single_bf16 — the seed-42 init blob through 200 steps of
+             ``single_fused_bf16`` (decoder 0: K2 at M=1 and the bfloat16
+             rung) and of ``single_fused`` at f32x2: steps/s, launches, the
+             lengths' difference.
+14. the ``kernels`` summary line, the card line, and the result line.
 
+At the reduced rungs K2 runs on the tensor cores (``csrc/decode_mma.cuh``):
+the kernels phase also holds it on random decoders at X = 7 and 64 with a
+ragged tile, and every K2 call there is repeated and must be bitwise equal.
 The kernels phase also holds the four MC kernels (K5-K8) against their plain
 versions, and K7/K8 against K5/K6 on the planes of ``philox_draws``; phase
 ``transposed`` holds K9/K10 (``ops/csrc/energy_transposed.cu``) against
-their plain versions at every rung, M=10 and M=1, and against K1/K2, runs
+their plain versions at every rung, M=10 and M=1, and against K1/K2 (K10,
+an FMA kernel, against the tensor-core K2 at f32x3 and f32x2), runs
 the JAX bench's numerics gate (smooth curves against a float64 host truth)
 through the plain expected energy, K1 and K9, times K9+K10 against K1+K2,
 and drives ``energy_expected_fused_t`` forward and backward with the launch
@@ -87,6 +99,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -250,6 +264,20 @@ JAX_JVP = os.path.join(ROOT, "tools", "jax_reference_jvp_seed42.json")
 # under main's limits.  Both "seeds" are the one committed model.
 JAX_COV = os.path.join(ROOT, "tools", "jax_reference_cov_seed42.json")
 COV_LABELS = 5
+# The single-decoder bfloat16 mode: the seed-42 init blob through
+# SINGLE_STEPS steps of single_fused_bf16 (K2 at M=1 and the bfloat16 rung)
+# and of single_fused at f32x2, same recipe; the lengths' difference is
+# reported, not limited (no reading before this phase's first run).
+SINGLE_STEPS = 200
+# K2 on small random decoders at the output widths the tensor-core kernel
+# pads (layer 3's N to 8, the chain's K to 16), T*B not a multiple of the
+# 128-point tile: under K2's own dgamma limits.
+K2_SMALL = {"T": 67, "B": 13, "D": 2, "M": 3, "X": (7, 64)}
+# torch.profiler window: K2 at f32x2 split by launch, and this many steps of
+# the main path (the first chunk, final K1 evaluation included) for the
+# device's busy share.
+PROFILE_K2_CALLS = 3
+PROFILE_STEPS = 50
 
 
 def emit(obj) -> None:
@@ -295,6 +323,30 @@ def dgamma_stats(g_k, g_p, prefix=""):
                 err[::7].double(), 0.99)),
             prefix + "dgamma_share_over_1e-3": float(
                 (err > DG_OVER).double().mean())}
+
+
+def k2_sass_hmma(lib_path):
+    """Tensor-core instructions (HMMA) in the SASS of each K2 kernel of the
+    built library, by ``cuobjdump -sass``: {"k2_xbar_mma<R>": n, ...}, R
+    the rung (0 float32, 1 f32x3, 2 f32x2, 3 bfloat16).  cuobjdump ships
+    with every CUDA toolkit that nvcc comes from: without it the run fails."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        fail("cuobjdump not found: K2's SASS cannot be checked for HMMA")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?(k2_\w+?)ILi(\d)E", line)
+        if m:
+            fn = f"{m.group(1)}<{m.group(2)}>"
+            counts[fn] = 0
+        elif "Function :" in line:
+            fn = None
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def decode_flops(D, H, X, passes):
@@ -809,7 +861,10 @@ def transposed_phase(params, ws_all, bs_all, gamma, dev):
                    **dgamma_stats(d, d_p),
                    "finite": bool(torch.isfinite(e).all()
                                   and torch.isfinite(d).all())}
-            if M > 1 and prec in ("float32", "f32x2"):
+            if M > 1 and prec in ("float32", "f32x3", "f32x2"):
+                # K10 is an FMA kernel of K2's function: at f32x3 and f32x2
+                # it holds the tensor-core K2 against an independent
+                # implementation
                 e1 = ef.energy_fwd(ws, bs, gamma, wmb, prec)
                 d2 = ef.energy_bwd(ws, bs, gamma, wmb, ct, prec)
                 rec["vs_k1_energy_max_rel"] = float(
@@ -961,6 +1016,171 @@ def cov_phase(params, dev):
     return recs
 
 
+def k2_small_shapes(ef, dev):
+    """K2 against its plain version on random decoders at X = 7 and 64,
+    every reduced rung (the tensor-core kernels), and a second call bitwise
+    equal to the first."""
+    import torch
+
+    rng = np.random.default_rng(17)
+    T, B, D, M = (K2_SMALL[k] for k in ("T", "B", "D", "M"))
+
+    def on_dev(x):
+        return torch.as_tensor(x.astype(np.float32), device=dev)
+
+    recs = []
+    for X in K2_SMALL["X"]:
+        ws = [on_dev(rng.normal(size=(M, D, 128)) / np.sqrt(D)),
+              on_dev(rng.normal(size=(M, 128, 128)) * np.sqrt(2 / 128)),
+              on_dev(rng.normal(size=(M, 128, X)) * np.sqrt(2 / 128))]
+        bs = [on_dev(rng.normal(size=(M, n)) * 0.1) for n in (128, 128, X)]
+        g = on_dev(rng.normal(size=(T, B, D)) * 2)
+        wmb = ef.active_weights(torch.as_tensor(rng.integers(1, M + 1, B)),
+                                M, B, dev)
+        ct = on_dev(rng.uniform(0.5, 2, B))
+        for prec in ("f32x3", "f32x2", "bfloat16"):
+            d = ef.energy_bwd(ws, bs, g, wmb, ct, prec)
+            d_p = ef.energy_bwd_plain(ws, bs, g, wmb, ct, prec)
+            again = ef.energy_bwd(ws, bs, g, wmb, ct, prec)
+            torch.cuda.synchronize()
+            rec = {"phase": "kernels", "kernel": "k2_small", "T": T, "B": B,
+                   "D": D, "M": M, "X": X, "precision": prec,
+                   **dgamma_stats(d, d_p),
+                   "repeat_bitwise": bool(torch.equal(d, again)),
+                   "finite": bool(torch.isfinite(d).all())}
+            emit(rec)
+            recs.append(rec)
+            if not (rec["finite"] and rec["repeat_bitwise"]):
+                fail(f"K2 at X={X} {prec}: non-finite or not repeatable")
+            if (rec["dgamma_rel_median"] > DG_MED
+                    or rec["dgamma_rel_p99"] > DG_P99
+                    or rec["dgamma_share_over_1e-3"] > DG_OVER_SHARE[prec]):
+                fail(f"K2 at X={X} {prec}: dgamma median/p99/share "
+                     f"{rec['dgamma_rel_median']:.3g}/"
+                     f"{rec['dgamma_rel_p99']:.3g}/"
+                     f"{rec['dgamma_share_over_1e-3']:.3g}")
+    return recs
+
+
+def device_kernel_times(prof):
+    """({kernel name: device microseconds}, microseconds from the first
+    kernel's start to the last one's end) of a torch.profiler trace."""
+    import torch
+
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    by = {}
+    for e in evs:
+        by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+    span = (max(e.time_range.end for e in evs)
+            - min(e.time_range.start for e in evs)) if evs else 0.0
+    return by, span
+
+
+def profile_phase(ef, params, art, cfg, dev, ws, bs, gamma, wmb, ct):
+    """Device time by kernel from torch.profiler: K2 at f32x2 split into its
+    two launches, and PROFILE_STEPS steps of the main path (the device's
+    busy share between its first and last kernel).  A trace without device
+    events is reported as not measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_latent_geometry_tpu_torch.optim.geodesic import optimize_splines
+
+    ef.energy_bwd(ws, bs, gamma, wmb, ct, "f32x2")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_K2_CALLS):
+            ef.energy_bwd(ws, bs, gamma, wmb, ct, "f32x2")
+        torch.cuda.synchronize()
+    k2, _ = device_kernel_times(prof)
+    B = gamma.shape[1]
+    idx = np.concatenate([np.arange(len(art)),
+                          np.full(B - len(art), len(art) - 1)])[:B]
+    pcfg = dataclasses.replace(cfg, steps=PROFILE_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        optimize_splines(params.decoders, art.omega_init[idx], art.a[idx],
+                         art.b[idx], art.basis, pcfg, device=dev)
+        torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - t0)
+    steps, span = device_kernel_times(prof)
+    rec = {"phase": "profile", "measured": bool(k2 and steps)}
+    if rec["measured"]:
+        def per_call(key):
+            return sum(v for k, v in k2.items() if key in k) \
+                / PROFILE_K2_CALLS / 1e3
+
+        busy = sum(steps.values())
+        top = sorted(steps.items(), key=lambda kv: -kv[1])[:6]
+        rec.update({
+            "k2_f32x2_ms_per_call": sum(k2.values()) / PROFILE_K2_CALLS / 1e3,
+            "k2_xbar_mma_ms": per_call("k2_xbar_mma"),
+            "k2_chain_mma_ms": per_call("k2_chain_mma"),
+            "steps": PROFILE_STEPS, "wall_ms": wall_us / 1e3,
+            "device_span_ms": span / 1e3,
+            "device_busy_share_of_span": busy / span,
+            "device_idle_share_of_span": 1.0 - busy / span,
+            "k2_share_of_span": sum(v for k, v in steps.items()
+                                    if "k2_" in k) / span,
+            "kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+            "n_kernel_launches": sum(1 for e in prof.events()
+                                     if e.device_type
+                                     == torch.autograd.DeviceType.CUDA)})
+    emit(rec)
+    return rec
+
+
+def single_bf16_phase(params, art, cfg, dev, ef):
+    """``single_fused_bf16`` through ``optimize_spline_batch`` (decoder 0,
+    K2 at M=1 and bfloat16 every step), and the same recipe at
+    ``single_fused`` f32x2: steps/s, launches, the lengths' difference."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch)
+
+    runs = {}
+    for mode in ("single_fused_bf16", "single_fused"):
+        scfg = dataclasses.replace(cfg, steps=SINGLE_STEPS,
+                                   energy=dataclasses.replace(cfg.energy,
+                                                              mode=mode))
+        torch.cuda.synchronize()
+        ef.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = optimize_spline_batch(params, art, cfg=scfg, device=dev,
+                                    log_every_chunk=False)
+        torch.cuda.synchronize()
+        runs[mode] = (out, time.perf_counter() - t0, dict(ef.LAUNCHES))
+    (bf, bf_s, bf_l), (f2, f2_s, f2_l) = runs.values()
+    len_bf = np.asarray(bf.geodesic_length, np.float64)
+    rel = np.abs(len_bf / np.asarray(f2.geodesic_length, np.float64) - 1)
+    rec = {"phase": "single_bf16", "mode": "single_fused_bf16",
+           "steps": SINGLE_STEPS, "optimize_s": bf_s,
+           "steps_per_s": SINGLE_STEPS / bf_s, "launches": bf_l,
+           "f32x2_optimize_s": f2_s, "f32x2_steps_per_s": SINGLE_STEPS / f2_s,
+           "f32x2_launches": f2_l,
+           "lengths_finite": bool(np.isfinite(len_bf).all()),
+           "moved_from_init": bool(not np.array_equal(bf.omega_optimized,
+                                                      art.omega_init)),
+           "vs_f32x2_len_rel_median": float(np.median(rel)),
+           "vs_f32x2_len_rel_max": float(rel.max()),
+           "vs_f32x2_len_rel_argmax_pair": int(np.argmax(rel)),
+           "len_mean": float(len_bf.mean())}
+    emit(rec)
+    n_chunks = -(-len(art) // cfg.batch_size)
+    if not (rec["lengths_finite"] and rec["moved_from_init"]
+            and np.isfinite(bf.omega_optimized).all()):
+        fail("single_bf16: non-finite output or the curves did not move")
+    for name, launches in (("single_fused_bf16", bf_l),
+                           ("single_fused", f2_l)):
+        if launches["energy_bwd"] < SINGLE_STEPS * n_chunks:
+            fail(f"single_bf16: K2 launched {launches['energy_bwd']} times in "
+                 f"{SINGLE_STEPS * n_chunks} steps of {name}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -994,9 +1214,17 @@ def main() -> int:
         f.write("\n".join(_build.BUILD_LOG.values()))
     ptxas = [l.strip() for log in _build.BUILD_LOG.values()
              for l in log.splitlines() if "registers" in l or "spill" in l]
+    hmma = k2_sass_hmma(_build._target("energy_expected"))
     emit({"phase": "build", "seconds": build_s, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "k2_sass_hmma": hmma})
+    # K2's reduced rungs run on the tensor cores, its float32 rung does not
+    # (TF32 is barred)
+    for rung in (0, 1, 2, 3):
+        for name in ("k2_xbar", "k2_chain"):
+            key = f"{name}{'_mma' if rung else ''}<{rung}>"
+            if key not in hmma or (hmma[key] > 0) != (rung > 0):
+                fail(f"SASS of {key}: {hmma.get(key)} HMMA instructions")
 
     # 2. kernels vs plain versions at full width ----------------------------
     params = load_npz(MODEL, dev)
@@ -1115,7 +1343,9 @@ def main() -> int:
                    "energy_max_abs": float((e_k - e_p).abs().max()),
                    **dgamma_stats(g_k, g_p),
                    "finite": bool(torch.isfinite(e_k).all()
-                                  and torch.isfinite(g_k).all())}
+                                  and torch.isfinite(g_k).all()),
+                   "k2_repeat_bitwise": bool(torch.equal(
+                       g_k, ef.energy_bwd(ws, bs, gamma, wmb, ct, prec)))}
             rec.update(mc_check(ws, bs, M, prec, None))
             if M > 1 and prec in ("float32", "f32x2"):
                 reps = 5
@@ -1131,6 +1361,9 @@ def main() -> int:
                                                 prec), 3)
                 rec.update(mc_times(ws, bs, M, prec))
                 times[prec] = rec
+            else:
+                rec["bwd_ms"] = time_ms(
+                    lambda: ef.energy_bwd(ws, bs, gamma, wmb, ct, prec), 5)
             emit(rec)
             errors[(M, prec)] = rec
     # the MC kernels once more with mixed per-spline decoder counts
@@ -1142,6 +1375,8 @@ def main() -> int:
                       num_active)}
     emit(rec)
     errors[("mixed", "f32x2")] = rec
+    # K2's tensor-core kernels at the padded output widths, ragged tile
+    k2_small_shapes(ef, dev)
     # the stats kernels (K3/K4) on local shards, and the sharded energy on
     # one shard of all ten decoders against K1/K2
     stats_recs, stats_times = stats_phase(ef, ws_all, bs_all, gamma, dev)
@@ -1201,12 +1436,20 @@ def main() -> int:
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     plain_len = np.asarray(plain.geodesic_length, np.float64)
-    emit({"phase": "plain_path", "mode": "expected", "steps": PLAIN_STEPS,
-          "optimize_s": plain_s, "steps_per_s": PLAIN_STEPS / plain_s,
-          "lengths_finite": bool(np.isfinite(plain_len).all()),
-          "len_mean": float(plain_len.mean())})
+    plain_rec = {"phase": "plain_path", "mode": "expected",
+                 "steps": PLAIN_STEPS, "optimize_s": plain_s,
+                 "steps_per_s": PLAIN_STEPS / plain_s,
+                 "main_steps_per_s": main_rec["steps_per_s"],
+                 "main_over_plain": main_rec["steps_per_s"]
+                 / (PLAIN_STEPS / plain_s),
+                 "lengths_finite": bool(np.isfinite(plain_len).all()),
+                 "len_mean": float(plain_len.mean())}
+    emit(plain_rec)
     np.savez(os.path.join(OUT_DIR, "main_lengths.npz"), port=lengths,
              jax=np.asarray(ref.geodesic_length))
+    # where the time of K2 and of a main-path step goes on the device
+    profile_phase(ef, params, art, cfg, dev, ws_all, bs_all, gamma,
+                  ef.uniform_weights(ws_all[0].shape[0], B, dev), ct)
 
     # 3c. the float32 rung on a few pairs (the sensitive 65 and 164 among
     # them), padded to B, against the JAX package on the CPU at float32
@@ -1391,9 +1634,11 @@ def main() -> int:
           "len_rel_max": float(ep_vs_main.max())})
     ep2_rec = ep2_phase(params, art, cfg, dev)
 
-    # 11-12. the JVP and rescaled modes; the CoV analysis
+    # 11-13. the JVP and rescaled modes; the CoV analysis; the
+    # single-decoder bfloat16 mode
     jvp_recs = jvp_phase(params, art, cfg, dev)
     cov_recs = cov_phase(params, dev)
+    single_rec = single_bf16_phase(params, art, cfg, dev, ef)
 
     # 13. kernels line ------------------------------------------------------
     P = T * B
@@ -1494,7 +1739,13 @@ def main() -> int:
          "ms": times["f32x2"]["bwd_ms"],
          "plain_ms": times["f32x2"]["bwd_plain_ms"],
          "bound_ms": 1e3 * k2_bound, "bound_by": "operations",
-         "library_ms": None},
+         "library_ms": None,
+         "design": "mma.sync bf16 (reduced rungs)",
+         "ms_f32x3": errors[(M, "f32x3")]["bwd_ms"],
+         "ms_bfloat16": errors[(M, "bfloat16")]["bwd_ms"],
+         "ms_float32": times["float32"]["bwd_ms"],
+         "ms_M1_bfloat16": errors[(1, "bfloat16")]["bwd_ms"],
+         "launches_single_bf16": single_rec["launches"]["energy_bwd"]},
         {**stats_kernel("stats_fwd (K3, f32x2 trajectory steps, M_loc=10)",
                         472, ep_rec["launches"]["stats_fwd"], "yb_max_abs",
                         "stats_fwd", k3_bound),
@@ -1589,6 +1840,9 @@ def main() -> int:
         if r["dgamma_rel_median"] > DG_MED or r["dgamma_rel_p99"] > DG_P99:
             fail(f"K2 dgamma median/p99 err {r['dgamma_rel_median']:.3g}/"
                  f"{r['dgamma_rel_p99']:.3g} at M={m} {prec}")
+        if not r["k2_repeat_bitwise"]:
+            fail(f"K2: a second call on the same input differs at M={m} "
+                 f"{prec}")
     n_chunks = -(-len(art) // B)
     if launches["energy_bwd"] < STEPS * n_chunks:
         fail(f"K2 launched {launches['energy_bwd']} times in "

@@ -155,7 +155,9 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
 
     for name in ("energy_expected", "energy_mc", "energy_stats"):
         files = [p.name for p in _build.source_files(name)]
-        assert files == [f"{name}.cu", "decode_common.cuh"]
+        assert files == [f"{name}.cu"] + (["decode_mma.cuh"] if name ==
+                                          "energy_expected" else []) + [
+            "decode_common.cuh"]
     for f in os.listdir(_build.CSRC):
         (tmp_path / f).write_bytes((_build.CSRC / f).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -181,7 +183,8 @@ def test_console_script_and_package_data_in_pyproject():
     assert "ops/csrc/*.cu" in data["vae_latent_geometry_tpu_torch"]
     assert "ops/csrc/*.cuh" in data["vae_latent_geometry_tpu_torch"]
     for src in ("energy_expected.cu", "energy_mc.cu", "energy_stats.cu",
-                "energy_transposed.cu", "decode_common.cuh"):
+                "energy_transposed.cu", "decode_common.cuh",
+                "decode_mma.cuh"):
         assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
     from setuptools import find_packages
 
@@ -267,24 +270,77 @@ def test_chip_smoke_refuses_without_gpu():
     assert r.returncode != 0 and '"ok"' not in r.stdout
 
 
+def _random_decoders(rng, M, D, X, device):
+    """(ws, bs) of M random ReLU MLPs D -> 128 -> 128 -> X, scaled so that
+    the hidden units stay near half active."""
+    def dev(x):
+        return torch.as_tensor(x.astype(np.float32), device=device)
+
+    ws = [dev(rng.normal(size=(M, D, 128)) / np.sqrt(D)),
+          dev(rng.normal(size=(M, 128, 128)) * np.sqrt(2 / 128)),
+          dev(rng.normal(size=(M, 128, X)) * np.sqrt(2 / 128))]
+    bs = [dev(rng.normal(size=(M, n)) * 0.1) for n in (128, 128, X)]
+    return ws, bs
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("trans", [0, 1])
+def test_mma_warp_gemm_matches_fp32_product_on_gpu(trans):
+    """The tensor-core warp product of ``csrc/decode_mma.cuh`` alone (the
+    forward operand through ldmatrix.trans, the chain's W^T without it) on
+    bf16-exact inputs, against their product in float64: the products are
+    exact in fp32, so only the fp32 accumulation differs (a ragged last
+    block of rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.ops import _build
+    from vae_latent_geometry_tpu_torch.ops.energy_fused import _stream
+
+    rng = np.random.default_rng(trans)
+    n = 300
+
+    def bf16_exact(shape):
+        x = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+        return x.to(torch.bfloat16).float().cuda().contiguous()
+
+    h, w = bf16_exact((n, 128)), bf16_exact((128, 128))
+    out = torch.empty((n, 128), device="cuda")
+    _build.check(_build.library("energy_expected").vlg_mma_selftest(
+        trans, h.data_ptr(), w.data_ptr(), out.data_ptr(), n,
+        _stream(h.device)), "mma_selftest")
+    torch.cuda.synchronize()
+    wt = w.T if trans else w
+    ref = h.double() @ wt.double()
+    scale = h.abs().double() @ wt.abs().double()
+    assert float(((out.double() - ref).abs() / scale).max()) < 2e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("X,D,M", [(50, 2, 10)] + [
+    (x, d, m) for x in (7, 50, 64) for d in (1, 2, 4) for m in (1, 3)])
 @pytest.mark.parametrize("precision", ["float32", "f32x3", "f32x2",
                                        "bfloat16"])
-def test_kernels_match_plain_versions_on_gpu(precision):
+def test_kernels_match_plain_versions_on_gpu(precision, X, D, M):
     """K1 and K2 against their plain versions on the card, small shapes
-    with a ragged tile edge (T*B not a multiple of the tile)."""
+    with a ragged tile edge (T*B not a multiple of the tile): the committed
+    model (X, D, M = 50, 2, 10) and random decoders at the widths the
+    kernels take (K2's tensor-core layer 3 pads X to 8, its chain to 16).
+    Two K2 calls on the same input are bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from vae_latent_geometry_tpu_torch.models.evae import load_npz
     from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
 
-    p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
-    ws, bs = ef.stack_weights(p.decoders)
     rng = np.random.default_rng(0)
+    if (X, D, M) == (50, 2, 10):
+        p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
+        ws, bs = ef.stack_weights(p.decoders)
+    else:
+        ws, bs = _random_decoders(rng, M, D, X, "cuda")
     T, B = 67, 13
-    g = torch.as_tensor(rng.normal(size=(T, B, 2)).astype(np.float32) * 2,
+    g = torch.as_tensor(rng.normal(size=(T, B, D)).astype(np.float32) * 2,
                         device="cuda")
-    wmb = ef.active_weights(torch.as_tensor(rng.integers(1, 11, B)), 10, B,
+    wmb = ef.active_weights(torch.as_tensor(rng.integers(1, M + 1, B)), M, B,
                             "cuda")
     ct = torch.as_tensor(rng.uniform(0.5, 2, B).astype(np.float32),
                          device="cuda")
@@ -296,6 +352,52 @@ def test_kernels_match_plain_versions_on_gpu(precision):
     err = ((d - d_p).abs() / d_p.abs().max()).flatten()
     assert float(err.median()) < 1e-4
     assert float(torch.quantile(err, 0.99)) < 1e-3
+    assert torch.equal(d, ef.energy_bwd(ws, bs, g, wmb, ct, precision))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,ep", [
+    ("expected_fused", False), ("expected_fused_bf16", False),
+    ("mc_fused", False), ("single_fused", False),
+    ("single_fused_bf16", False), ("expected_fused", True)])
+def test_fused_modes_raise_on_a_narrow_model_on_gpu(mode, ep):
+    """A (64, 64)-hidden ensemble on the card: the kernels take hidden
+    width 128 only, so every fused mode, sharded (``ep_axis``) or not,
+    raises in the kernels' wrappers before any launch and names the plain
+    modes; nothing runs a plain path in its place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.config import (EnergyConfig,
+                                                      GeodesicConfig)
+    from vae_latent_geometry_tpu_torch.geometry.basis import nullspace_basis
+    from vae_latent_geometry_tpu_torch.models.evae import decoder_member
+    from vae_latent_geometry_tpu_torch.ops import energy_fused
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused  # noqa: F401
+    from vae_latent_geometry_tpu_torch.optim import geodesic as tgeo
+    from vae_latent_geometry_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(1)
+
+    def dev(x):
+        return torch.as_tensor(x.astype(np.float32), device="cuda")
+
+    dims = (2, 64, 64, 10)
+    dec = {"layers": [{"w": dev(rng.normal(size=(3, i, o)) / np.sqrt(i)),
+                       "b": dev(rng.normal(size=(3, o)) * 0.1)}
+                      for i, o in zip(dims[:-1], dims[1:])]}
+    if mode.startswith("single"):
+        dec = decoder_member(dec, 0)
+    basis, _ = nullspace_basis(4)
+    om, a, b = (dev(rng.normal(size=s)) for s in
+                ((4, basis.shape[1], 2), (4, 2), (4, 2)))
+    cfg = GeodesicConfig(energy=EnergyConfig(
+        num_t=32, mode=mode, ep_axis="ep" if ep else None))
+    loss = tgeo.make_loss_fn(dec, basis, cfg, "cuda",
+                             mesh=make_mesh(1, 1) if ep else None)
+    energy_fused.reset_launch_counts()    # the MC kernels' counts too
+    with pytest.raises(ValueError, match="unsupported.*plain mode"):
+        loss(om, a, b)
+    assert not any(energy_fused.LAUNCHES.values())
 
 
 @pytest.mark.gpu

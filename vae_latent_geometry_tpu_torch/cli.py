@@ -344,7 +344,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["mc", "mc_scan", "mc_fused", "mc_fused_bf16",
                             "expected", "expected_fused",
                             "expected_fused_bf16", "single", "single_fused",
-                            "jvp", "jvp_ensemble"],
+                            "single_fused_bf16", "jvp", "jvp_ensemble"],
                    help="energy estimator: the reference's Monte-Carlo "
                         "estimator (mc; mc_scan streams T in chunks; "
                         "mc_fused runs it in the fused kernels), its "

@@ -36,6 +36,7 @@ SIGNATURES = {
                            _P, _P, _P, _P],
         "vlg_energy_bwd": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P],
+        "vlg_mma_selftest": [_I, _P, _P, _P, _I, _P],
     },
     "energy_mc": {
         "vlg_mc_fwd_tiles": [_I],

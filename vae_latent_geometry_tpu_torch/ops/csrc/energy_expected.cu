@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernels of vae_latent_geometry_tpu/ops/energy_pallas.py:
 //   K1  _fwd_kernel (:254)  -> k1_energy_tiles + k1_sum_tiles
-//   K2  _bwd_kernel (:325)  -> k2_xbar + k2_chain
+//   K2  _bwd_kernel (:325)  -> k2_xbar_mma + k2_chain_mma (f32x3, f32x2,
+//       bfloat16), k2_xbar + k2_chain (float32)
 //       (with _backprop_chain_masked :406 and _center_masks :426)
 //
 // Function.  The decoder ensemble is M ReLU MLPs D -> 128 -> 128 -> X applied
@@ -16,30 +17,41 @@
 //       (uncentered xbar = sum_m w_m x_m, c_t = has_left + has_right),
 //       back-propagated through the ReLU masks of the SAME decode.
 //
-// The decode, the cotangent chain and the precision rungs are shared with the
-// Monte-Carlo kernels: decode_common.cuh.
+// The FMA decode, the cotangent chain and the precision rungs are shared
+// with the Monte-Carlo kernels (decode_common.cuh); the tensor-core decode
+// and chain of K2's reduced rungs are in decode_mma.cuh.
 //
 // Work (counted from the code, per point per decoder): the float32 decode is
 // 2*D*128 + 2*128*128 + 2*128*X = 46 kFLOP at D=2, X=50, i.e. 1.8e11 FLOP
-// per K1 call at T=2000, B=200, M=10.  K2 at f32x2 is a two-pass decode plus
-// a single-pass chain, about 138 kFLOP, i.e. 5.5e11 FLOP per step.  Both move
-// a few MB of inputs and outputs (K2's 80 MB xbar scratch aside), so both
-// are bound by operations, not bytes, on this card.
+// per K1 call at T=2000, B=200, M=10.  K2's function at f32x2 is a two-pass
+// decode plus a single-pass chain, about 138 kFLOP, i.e. 5.5e11 FLOP per
+// step: at the 989 TFLOP/s of the bf16 tensor cores its bound is 0.557 ms.
+// As built (two launches, two decodes) it does ~9.1e11.  Both kernels move a
+// few MB of inputs and outputs (K2's 80 MB xbar scratch aside), so both are
+// bound by operations, not bytes, on this card.
 //
 // Design for Hopper.  The TPU kernel keeps all M decoders' weights resident
-// in VMEM; here a block loops over decoders and stages one at a time
-// (decode_common.cuh).  Running statistics live in registers (K1 ybar, sqy)
-// and shared memory (K1 x0, K2 neighbour sums and dgamma).  Blocks run in no
-// order, so K1's tile of 32 t-rows x 4 splines recomputes its halo row
-// instead of carrying it (31 owned segments per 32 decoded rows), writes
-// per-tile partial energies to an (n_tiles, B) buffer, and a second launch
-// sums them in a fixed order: no float atomics, so repeated runs are bitwise
-// identical.  K2 is two launches: k2_xbar writes xbar (T, B, X), then
-// k2_chain re-decodes each decoder per tile, forms dx and runs the masked
-// chain.  This decodes twice where the TPU kernel decodes once; restoring
-// the single decode is later work.
+// in VMEM; here a block loops over decoders and stages one at a time.
+// Running statistics live in registers (K1 ybar, sqy) and shared memory (K1
+// x0, K2 neighbour sums and dgamma).  Blocks run in no order, so K1's tile
+// of 32 t-rows x 4 splines recomputes its halo row instead of carrying it
+// (31 owned segments per 32 decoded rows), writes per-tile partial energies
+// to an (n_tiles, B) buffer, and a second launch sums them in a fixed order:
+// no float atomics, so repeated runs are bitwise identical.  K2 is two
+// launches: the xbar pass writes xbar (T, B, X), then the chain pass
+// re-decodes each decoder per tile, forms dx and runs the masked chain.
+// At the reduced rungs both run their products on the tensor cores
+// (mma.sync m16n8k16 bf16, decode_mma.cuh): a warp owns 16 points x 128
+// units, activations, cotangents and ReLU masks stay in registers, and each
+// dgamma row is summed by the four lanes that hold it, in a fixed order.
+// The float32 rung keeps the CUDA-core FMAs (TF32 would round the inputs
+// at 2^-11: barred).  What still holds K2 back: it decodes twice where the
+// TPU kernel decodes once; mma.sync rather than Hopper's wgmma; and each
+// block stages every decoder's weights (converted to bf16 planes) itself,
+// without cp.async, while its tensor cores wait.
 
 #include "decode_common.cuh"
+#include "decode_mma.cuh"
 
 namespace {
 
@@ -52,6 +64,10 @@ struct Smem : DecodeSmem {
   float xs[TP * S_X];       // K1: x0 then xbar; K2: xbar_{t-1} + xbar_{t+1}
   float red[TP];            // K1: var per point
   float red2[TP];           // K1: segment energies
+};
+
+struct SmemMma : MmaSmem {
+  float xs[TP * S_X];       // xbar_{t-1} + xbar_{t+1}
 };
 
 // K1, pass 1: partial energies of tile (blockIdx.y: t-rows t0..t0+31,
@@ -237,6 +253,152 @@ k2_chain(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Wei
   store_dgamma(s, dgamma, N, D, p0);
 }
 
+// K2 at a reduced rung, pass 1, on the tensor cores: xbar as k2_xbar.
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k2_xbar_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Weights w,
+            const float* __restrict__ wmb, float* __restrict__ xbar) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemMma& s = *reinterpret_cast<SmemMma*>(smem_raw);
+  const int lane = threadIdx.x & 31, q = lane & 3;
+  const int N = T * B, p0 = blockIdx.x * TP;
+  const int p = (threadIdx.x >> 5) * 16 + (lane >> 2);  // rows p, p + 8
+  zero_w3_planes(s);
+  load_points_mma(s, gamma, N, D, p0);
+  float xb[NJ3][4];
+#pragma unroll
+  for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) xb[j][c] = 0.f;
+  for (int m = 0; m < M; ++m) {
+    __syncthreads();
+    stage_weights_mma<R>(s, m, D, X, w);
+    __syncthreads();
+    float x[NJ3][4];
+    uint32_t m1[2], m2[2];
+    decode_mma<R>(s, D, X, x, m1, m2);
+    float wm[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) wm[r] = wmb[(size_t)m * B + min(p0 + p + 8 * r, N - 1) % B];
+#pragma unroll
+    for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) xb[j][c] = xb[j][c] + wm[c >> 1] * x[j][c];
+  }
+#pragma unroll
+  for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int pg = p0 + p + 8 * (c >> 1), n = 8 * j + 2 * q + (c & 1);
+      if (pg < N && n < X) xbar[(size_t)pg * X + n] = xb[j][c];
+    }
+}
+
+// K2 at a reduced rung, pass 2, on the tensor cores: per decoder, re-decode
+// the tile, form dx in registers and run the masked chain (k2_chain).
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k2_chain_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Weights w,
+             const float* __restrict__ wmb, const float* __restrict__ ct,
+             const float* __restrict__ xbar, float* __restrict__ dgamma) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemMma& s = *reinterpret_cast<SmemMma*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, q = lane & 3;
+  const int N = T * B, p0 = blockIdx.x * TP;
+  const int p = (tid >> 5) * 16 + (lane >> 2);  // rows p, p + 8
+  zero_w3_planes(s);
+  load_points_mma(s, gamma, N, D, p0);
+  for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
+  for (int e = tid; e < TP * XMAX; e += NT) {
+    const int pp = e / XMAX, n = e % XMAX;
+    const int pg = min(p0 + pp, N - 1), t = pg / B;
+    const float left = (n < X && t > 0) ? xbar[(size_t)(pg - B) * X + n] : 0.f;
+    const float right = (n < X && t < T - 1) ? xbar[(size_t)(pg + B) * X + n] : 0.f;
+    s.xs[pp * S_X + n] = left + right;
+  }
+  // per row: c_t, and whether the point lies past the end (sc = 0 there)
+  float cc[2];
+  int b_of[2];
+  bool live[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pg = p0 + p + 8 * r, pc = min(pg, N - 1), t = pc / B;
+    cc[r] = (float)((t > 0) + (t < T - 1));
+    b_of[r] = pc % B;
+    live[r] = pg < N;
+  }
+  for (int m = 0; m < M; ++m) {
+    __syncthreads();
+    stage_weights_mma<R>(s, m, D, X, w);
+    __syncthreads();
+    float x[NJ3][4];
+    uint32_t m1[2], m2[2];
+    decode_mma<R>(s, D, X, x, m1, m2);
+    // dx = 2 w_{m,b} ct_b (c_t x - xbar_{t-1} - xbar_{t+1}), in place
+    float sc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      sc[r] = live[r] ? __fmul_rn(2.f, __fmul_rn(wmb[(size_t)m * B + b_of[r]], ct[b_of[r]]))
+                      : 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = c >> 1, n = 8 * j + 2 * q + (c & 1);
+        x[j][c] = n < X ? __fmul_rn(sc[r], __fsub_rn(__fmul_rn(cc[r], x[j][c]),
+                                                     s.xs[(p + 8 * r) * S_X + n]))
+                        : 0.f;
+      }
+    uint32_t dx[NK3][4];
+    to_a<false>(x, dx);
+    chain_mma(s, D, X, dx, m1, m2);
+  }
+  __syncthreads();
+  for (int e = tid; e < TP * D; e += NT) {
+    const int pp = e / D, d = e % D, pg = p0 + pp;
+    if (pg < N) dgamma[(size_t)pg * D + d] = s.dg[pp * DMAX + d];
+  }
+}
+
+// The warp product of decode_mma.cuh alone, for its test: out (n, 128) =
+// h (n, 128) @ w (128, 128) (trans = 0, the forward operand) or h @ w^T
+// (trans = 1, the chain's), inputs rounded to bf16 (exact if they are bf16
+// values), fp32 accumulation.
+__global__ void __launch_bounds__(NT, 1)
+k_mma_selftest(int trans, const float* __restrict__ h, const float* __restrict__ w,
+               float* __restrict__ out, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  MmaSmem& s = *reinterpret_cast<MmaSmem*>(smem_raw);
+  const int lane = threadIdx.x & 31, q = lane & 3;
+  const int p = blockIdx.x * TP + (threadIdx.x >> 5) * 16 + (lane >> 2);
+  for (int e = threadIdx.x; e < H * H; e += NT)
+    s.w2h[(e / H) * SW2 + e % H] = __float2bfloat16_rn(w[e]);
+  __syncthreads();
+  float a[NJ2][4];
+#pragma unroll
+  for (int j = 0; j < NJ2; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      a[j][c] = h[(size_t)min(p + 8 * (c >> 1), n - 1) * H + 8 * j + 2 * q + (c & 1)];
+  uint32_t ah[NK2][4];
+  to_a<false>(a, ah);
+#pragma unroll
+  for (int j = 0; j < NJ2; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[j][c] = 0.f;
+  if (trans)
+    gemm_wt<NK2>(a, ah, s.w2h, SW2, NK2);
+  else
+    gemm_fwd<BF16, NJ2>(a, ah, ah, s.w2h, s.w2h, SW2, NJ2);
+#pragma unroll
+  for (int j = 0; j < NJ2; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int pg = p + 8 * (c >> 1);
+      if (pg < n) out[(size_t)pg * H + 8 * j + 2 * q + (c & 1)] = a[j][c];
+    }
+}
+
 template <int R>
 cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, Weights w,
                        const float* wmb, float* partial, float* out, cudaStream_t st) {
@@ -255,15 +417,28 @@ template <int R>
 cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, Weights w,
                        const float* wmb, const float* ct, float* xbar, float* dgamma,
                        cudaStream_t st) {
-  cudaError_t err = prepare<Smem>(k2_xbar<R>);
-  if (err == cudaSuccess) err = prepare<Smem>(k2_chain<R>);
-  if (err != cudaSuccess) return err;
   const int n_blocks = (T * B + TP - 1) / TP;
-  k2_xbar<R><<<n_blocks, NT, sizeof(Smem), st>>>(gamma, T, B, D, M, X, w, wmb, xbar);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  k2_chain<R><<<n_blocks, NT, sizeof(Smem), st>>>(gamma, T, B, D, M, X, w, wmb, ct, xbar,
-                                                   dgamma);
+  cudaError_t err;
+  if constexpr (R == F32) {  // CUDA-core FMAs
+    err = prepare<Smem>(k2_xbar<R>);
+    if (err == cudaSuccess) err = prepare<Smem>(k2_chain<R>);
+    if (err != cudaSuccess) return err;
+    k2_xbar<R><<<n_blocks, NT, sizeof(Smem), st>>>(gamma, T, B, D, M, X, w, wmb, xbar);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    k2_chain<R><<<n_blocks, NT, sizeof(Smem), st>>>(gamma, T, B, D, M, X, w, wmb, ct, xbar,
+                                                     dgamma);
+  } else {  // tensor cores
+    err = prepare<SmemMma>(k2_xbar_mma<R>);
+    if (err == cudaSuccess) err = prepare<SmemMma>(k2_chain_mma<R>);
+    if (err != cudaSuccess) return err;
+    k2_xbar_mma<R><<<n_blocks, NT, sizeof(SmemMma), st>>>(gamma, T, B, D, M, X, w, wmb,
+                                                          xbar);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    k2_chain_mma<R><<<n_blocks, NT, sizeof(SmemMma), st>>>(gamma, T, B, D, M, X, w, wmb, ct,
+                                                           xbar, dgamma);
+  }
   return cudaGetLastError();
 }
 
@@ -302,6 +477,15 @@ int vlg_energy_bwd(int rung, const float* gamma, int T, int B, int D, int M, int
     case BF16: return launch_bwd<BF16>(gamma, T, B, D, M, X, w, wmb, ct, xbar, dgamma, st);
   }
   return cudaErrorInvalidValue;
+}
+
+int vlg_mma_selftest(int trans, const float* h, const float* w, float* out, int n,
+                     void* stream) {
+  cudaError_t err = prepare<MmaSmem>(k_mma_selftest);
+  if (err != cudaSuccess) return err;
+  k_mma_selftest<<<(n + TP - 1) / TP, NT, sizeof(MmaSmem), static_cast<cudaStream_t>(stream)>>>(
+      trans, h, w, out, n);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -181,6 +181,12 @@ def energy_bwd_plain(ws, bs, gamma, wmb, ct, precision):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+# what a shape refusal says: the fused modes run these kernels and nothing
+# else on the card, the plain modes take any decoder
+_PLAIN_MODES = ("; on the card the fused modes need the kernels' shapes: run "
+                "the plain mode instead (expected, mc or single)")
+
+
 def _check_cuda(ws, bs, gamma, wmb=None, extra=()):
     """Raise on what the kernels do not take; returns (T, B, D, M, X).
     ``wmb``: the (M, B) weight plane of K1/K2 (the MC kernels have none)."""
@@ -195,16 +201,19 @@ def _check_cuda(ws, bs, gamma, wmb=None, extra=()):
             raise ValueError("kernel inputs must be contiguous")
     T, B, D = gamma.shape
     if len(ws) != 3 or len(bs) != 3:
-        raise ValueError(f"the kernels take 3-layer decoders, got {len(ws)}")
+        raise ValueError(f"the kernels take 3-layer decoders, got {len(ws)}"
+                         + _PLAIN_MODES)
     M = ws[0].shape[0]
     X = ws[2].shape[-1]
     if not 1 <= D <= MAX_D:
-        raise ValueError(f"latent width D={D} outside 1..{MAX_D}")
+        raise ValueError(f"latent width D={D} outside 1..{MAX_D}"
+                         + _PLAIN_MODES)
     if ws[0].shape != (M, D, HIDDEN) or ws[1].shape != (M, HIDDEN, HIDDEN) \
             or ws[2].shape != (M, HIDDEN, X) or not 1 <= X <= MAX_X:
         raise ValueError(
             f"decoder shapes {[tuple(w.shape) for w in ws]} unsupported: the "
-            f"kernels take D -> {HIDDEN} -> {HIDDEN} -> X with X <= {MAX_X}")
+            f"kernels take D -> {HIDDEN} -> {HIDDEN} -> X with X <= {MAX_X}"
+            + _PLAIN_MODES)
     if [tuple(b.shape) for b in bs] != [(M, HIDDEN), (M, HIDDEN), (M, X)]:
         raise ValueError(f"bias shapes {[tuple(b.shape) for b in bs]} "
                          "do not match the weights")
@@ -212,7 +221,8 @@ def _check_cuda(ws, bs, gamma, wmb=None, extra=()):
         raise ValueError(f"wmb must be (M, B) = ({M}, {B}), got "
                          f"{tuple(wmb.shape)}")
     if T * B * HIDDEN >= 2**31:
-        raise ValueError(f"T*B={T * B} too large for the kernels' indexing")
+        raise ValueError(f"T*B={T * B} too large for the kernels' indexing"
+                         + _PLAIN_MODES)
     return T, B, D, M, X
 
 

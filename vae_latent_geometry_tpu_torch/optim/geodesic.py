@@ -39,8 +39,8 @@ from vae_latent_geometry_tpu_torch.parallel.collectives import all_reduce_sum
 
 ENERGY_MODES = ("mc", "mc_scan", "mc_fused", "mc_fused_bf16",
                 "expected", "expected_fused", "expected_fused_bf16",
-                "single", "single_fused", "jvp", "jvp_ensemble",
-                "expected_rescaled")
+                "single", "single_fused", "single_fused_bf16", "jvp",
+                "jvp_ensemble", "expected_rescaled")
 _M64 = (1 << 64) - 1
 
 
@@ -98,14 +98,15 @@ def _energy_fn(mode: str, decoders, gamma, seed: int = 0, mc_samples: int = 2,
                              "energy.target_num_t")
         return energy_lib.energy_expected_rescaled(decoders, gamma,
                                                    target_num_t, num_active)
-    if mode == "single_fused":
+    if mode in ("single_fused", "single_fused_bf16"):
         # the expected kernel with an M=1 ensemble IS the single-decoder
         # energy (its statistics reduce to direct segment differences)
         stacked = {"layers": [{"w": l["w"][None], "b": l["b"][None]}
                               for l in decoders["layers"]]}
+        precision = "bfloat16" if mode.endswith("bf16") else kernel_precision
         fn = (energy_fused.energy_expected_fused_grad if grad_only
               else energy_fused.energy_expected_fused)
-        return fn(stacked, gamma, None, kernel_precision)
+        return fn(stacked, gamma, None, precision)
     if mode in ("mc", "mc_scan"):
         gen = torch.Generator(device=gamma.device).manual_seed(seed)
         fn = (energy_lib.energy_mc if mode == "mc"

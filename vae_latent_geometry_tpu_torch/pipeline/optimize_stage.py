@@ -80,8 +80,9 @@ def optimize_spline_batch(
     """Optimize all splines in an artifact; returns the completed artifact.
 
     params: EVAE parameters on ``device``.  For the single-decoder modes
-    (``single``, ``single_fused``, ``jvp``) decoder 0 is used and the geodesic length
-    is the data-space arc length; otherwise it is sqrt(energy).
+    (``single``, ``single_fused[_bf16]``, ``jvp``) decoder 0 is used and the
+    geodesic length is the data-space arc length; otherwise it is
+    sqrt(energy).
     data: dataset for the latent Euclidean distances (skipped when None).
     output_path: when set, the result is saved there at the end.
     generator: names the random stream of the MC modes (default seed 0);
@@ -98,7 +99,8 @@ def optimize_spline_batch(
         raise ValueError(
             "early_stop is not supported on a sharded (mesh) run: drop "
             "early_stop or run without a mesh")
-    single = cfg.energy.mode in ("single", "single_fused", "jvp")
+    single = cfg.energy.mode in ("single", "single_fused",
+                                 "single_fused_bf16", "jvp")
     energy_params = (evae_lib.decoder_member(params.decoders, 0) if single
                      else params.decoders)
     P = len(art)
