@@ -7,8 +7,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
 1. build   — compile the CUDA kernels from ``vae_latent_geometry_tpu_torch/
              ops/csrc`` with nvcc (sm_90a); card name, power limit, versions;
-             the tensor-core instructions (HMMA) in K2's SASS: present at
-             the reduced rungs, absent at float32.
+             the tensor-core instructions (HMMA) in K2's SASS: present in
+             the production shape's mma kernels at the reduced rungs, absent
+             at float32 and in the generic decode's kernels.
 2. kernels — at full width (seed-42 10-decoder EVAE, the 190 seed-42 init
              curves padded to B=200, T=2000, S=2 MC samples): each kernel
              against its plain PyTorch version on the same inputs, every
@@ -76,7 +77,22 @@ Phases, each printing one JSON line; any failure exits nonzero:
              ``single_fused_bf16`` (decoder 0: K2 at M=1 and the bfloat16
              rung) and of ``single_fused`` at f32x2: steps/s, launches, the
              lengths' difference.
-14. the ``kernels`` summary line, the card line, and the result line.
+14. shapes — decoders of other depths and widths than the production
+             model's (``SHAPES``, seeded: 2-16-10, 2-64-64-50, 2-256-128-128,
+             2-96-160-48-100 and the width cap's edge 2-512-512-50), on the
+             generic decode (``csrc/decode_any.cuh``): every kernel K1-K10
+             (K9/K10 at the 3-layer shapes) at every rung against its plain
+             version under its limits above, each call repeated bitwise, ms
+             and bound at the kernel's summary rung; on S3 and S4 the
+             kernels of their optimizer runs, at those runs' rungs and M, on
+             the init curves at the production chunk (T=2000, B=200), with
+             ms and bound; the fused modes at T=32, B=4 against the JAX
+             package's kernels (``tools/jax_reference_shapes.py``); 100
+             steps at the production chunk (f32x2) on S3 and S4 of
+             ``expected_fused``, ``mc_fused``, ``single_fused`` and the
+             decoder-sharded path, beside the unfused ``expected`` mode.
+15. the ``kernels`` summary line (each kernel with its records on those
+    shapes), the card line, and the result line.
 
 At the reduced rungs K2 runs on the tensor cores (``csrc/decode_mma.cuh``):
 the kernels phase also holds it on random decoders at X = 7 and 64 with a
@@ -278,6 +294,75 @@ K2_SMALL = {"T": 67, "B": 13, "D": 2, "M": 3, "X": (7, 64)}
 # device's busy share.
 PROFILE_K2_CALLS = 3
 PROFILE_STEPS = 50
+# Phase shapes: decoders of other depths and widths than the production
+# model's, seeded (a copy of tools/jax_reference_shapes.py's seed code; the
+# CPU tests check that the copies agree): every kernel against its plain
+# version at every rung at SHAPES_T x SHAPES_B (seeded random points) under
+# its own limits above, each call repeated bitwise; on the optimized shapes
+# (SHAPES_OPT) the same at the production chunk on the init curves, for the
+# kernels, rungs and M of their optimizer runs; the fused modes at T = 32,
+# B = 4 against the JAX package (tools/jax_reference_shapes_seed42.json)
+# under the CPU tests' limits (tests/test_torch_shapes.py); SHAPES_STEPS
+# optimizer steps of the fused modes at the production chunk on S3 and S4
+# beside the unfused mode.
+SHAPES = {"S1": ((2, 16, 10), 3),
+          "S2": ((2, 64, 64, 50), 10),
+          "S3": ((2, 256, 128, 128), 10),
+          "S4": ((2, 96, 160, 48, 100), 10),
+          "S5": ((2, 512, 512, 50), 4)}
+SHAPES_T, SHAPES_B = 400, 100
+SHAPES_STEPS = 100
+SHAPES_OPT = ("S3", "S4")
+# (kernel, rung, M = all decoders or 1) that the optimizer runs of SHAPES_OPT
+# launch: K2 every step and K1 at the end of expected_fused (M) and
+# single_fused (1), K8 / K7 of mc_fused, K3 / K4 of the sharded path (K3
+# also for its float32 final energies).
+SHAPES_OPT_CALLS = (("K1", "float32", "M"), ("K2", "f32x2", "M"),
+                    ("K1", "float32", 1), ("K2", "f32x2", 1),
+                    ("K3", "f32x2", "M"), ("K3", "float32", "M"),
+                    ("K4", "f32x2", "M"), ("K7", "float32", "M"),
+                    ("K8", "f32x2", "M"))
+# K2 at M=1 (single_fused) at a reduced rung on the smooth production-chunk
+# curves: dgamma is a second difference of the decode, and the rung keeps 16
+# bits of each activation, so a 1-ulp difference upstream (another
+# summation order) flips the low half's rounding; the kernel and its plain
+# version then differ by more than K2's limits while each is as far from
+# the function as the other (S4, f32x2, H100: 1.7e-3 apart at p99, each
+# 7.9e-3 from the float64 function; tools/k2_rounding.py).  There the
+# kernel is held to the float64 function: each dgamma statistic within this
+# factor of the plain version's (the kernel's read within 0.5% of it at S3,
+# S4 and the production shape).
+K2_M1_FLOAT64 = 1.1
+JAX_SHAPES = os.path.join(ROOT, "tools", "jax_reference_shapes_seed42.json")
+
+
+def shape_layers(name, seed=42):
+    """[(w (M, in, out), b (M, out)), ...] float32 of decoder ``name``: He
+    scaled, each member its base plus 0.3 of its scale in noise."""
+    dims, M = SHAPES[name]
+    rng = np.random.default_rng([seed, int(name[1:])])
+    out = []
+    for i, o in zip(dims[:-1], dims[1:]):
+        scale = np.sqrt(2.0 / i)
+        w = scale * (rng.normal(size=(1, i, o))
+                     + 0.3 * rng.normal(size=(M, i, o)))
+        b = 0.1 * rng.normal(size=(1, o)) + 0.05 * rng.normal(size=(M, o))
+        out.append((w.astype(np.float32), b.astype(np.float32)))
+    return out
+
+
+def shape_curves(T, B, seed=42, D=2):
+    """(T, B, D) float32 smooth curves between random endpoints."""
+    rng = np.random.default_rng([seed, T, B])
+    t = np.linspace(0.0, 1.0, T)[:, None, None]
+    a, b = 1.5 * rng.normal(size=(2, 1, B, D))
+    ph = rng.uniform(0, 2 * np.pi, size=(1, B, D))
+    return ((1 - t) * a + t * b + 0.3 * np.sin(3.0 * t + ph)).astype(
+        np.float32)
+
+
+def cotangent(B):
+    return np.linspace(0.5, 2.0, B).astype(np.float32)
 
 
 def emit(obj) -> None:
@@ -1181,6 +1266,399 @@ def single_bf16_phase(params, art, cfg, dev, ef):
     return rec
 
 
+def width_flops(widths, passes):
+    """FLOP of one decoder D -> ... -> X on one point: the first layer in
+    fp32 once, the others at ``passes`` (decode_flops for a width list)."""
+    return 2 * widths[0] * widths[1] + passes * sum(
+        2 * i * o for i, o in zip(widths[1:-1], widths[2:]))
+
+
+RUNG_PASSES = {"float32": 1, "f32x3": 3, "f32x2": 2, "bfloat16": 1}
+
+
+def rung_bound(widths, n_decodes, prec, backward, n_bytes):
+    """(operations s, bytes s): n_decodes decodes at the rung's passes
+    (float32 on the FP32 peak, the reduced rungs on the bf16 tensor-core
+    peak), plus one single-pass chain each for a backward kernel."""
+    flops = n_decodes * (width_flops(widths, RUNG_PASSES[prec])
+                         + (width_flops(widths, 1) if backward else 0))
+    peak = PEAK_FP32 if prec == "float32" else PEAK_BF16
+    return flops / peak, n_bytes / PEAK_BYTES
+
+
+def shape_kernel_check(kind, got, again, ref, prec):
+    """(ok, fields): a kernel's output on another decoder shape against its
+    plain version under the kernel's limits above, the repeat bitwise and
+    finite."""
+    import torch
+
+    gots = got if isinstance(got, tuple) else (got,)
+    agains = again if isinstance(again, tuple) else (again,)
+    f = {"repeat_bitwise": all(torch.equal(a, b)
+                               for a, b in zip(gots, agains))}
+    if kind == "stats":
+        x_scale = float(ref[0].abs().max())
+        errs = [float((got[0] - ref[0]).abs().max()) / x_scale,
+                float((got[1] - ref[1]).abs().max()) / x_scale,
+                float((got[2] - ref[2]).abs().max()) / max(
+                    float(ref[2].abs().max()), 1e-30)]
+        f["x0_yb_sq_rel"] = errs
+        f["max_abs_err"] = float((got[1] - ref[1]).abs().max())
+        ok = (max(errs[:2]) <= STATS_X_RTOL[prec]
+              and errs[2] <= STATS_SQ_RTOL[prec])
+    elif kind == "dgamma":
+        f["dgamma"] = dgamma_stats(got, ref)
+        f["max_abs_err"] = f["dgamma"]["dgamma_max_abs"]
+        ok = (f["dgamma"]["dgamma_rel_median"] <= DG_MED
+              and f["dgamma"]["dgamma_rel_p99"] <= DG_P99
+              and f["dgamma"]["dgamma_share_over_1e-3"]
+              <= DG_OVER_SHARE[prec])
+    else:
+        f["energy_max_rel"] = float(((got - ref).abs() / ref.abs()).max())
+        f["max_abs_err"] = float((got - ref).abs().max())
+        tol = (E_RTOL_MC_BF16 if kind == "mc_energy" and prec == "bfloat16"
+               else E_RTOL)
+        ok = f["energy_max_rel"] <= tol
+    finite = all(bool(torch.isfinite(x).all()) for x in gots)
+    return ok and finite and f["repeat_bitwise"], f
+
+
+def timed_call(fn):
+    """(fn(), ms of that one call by CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def shape_kernel_table(ef, mc, eft, name, M, g, dev, with_t):
+    """({kernel: (kind, call, plain call, decodes, backward, bytes, summary
+    rung)}, {"K2": K2's function in float64}) of decoder ``name`` (its first
+    M members) on the points g (T, B, 2); K9/K10 when ``with_t``."""
+    import torch
+
+    T, B = g.shape[:2]
+    P = T * B
+    layers = shape_layers(name)
+    ws = [torch.as_tensor(w[:M], device=dev) for w, _ in layers]
+    bs = [torch.as_tensor(b[:M], device=dev) for _, b in layers]
+    dims = SHAPES[name][0]
+    X = dims[-1]
+    ct = torch.as_tensor(cotangent(B), device=dev)
+    rng = np.random.default_rng(int(name[1:]))
+    counts = torch.as_tensor(rng.integers(1, M + 1, B), device=dev)
+    wmb = ef.active_weights(counts, M, B, dev).contiguous()
+    d1, d2 = mc.sample_decoder_indices(
+        torch.Generator(device=dev).manual_seed(7), T, B, M, MC_SAMPLES,
+        counts)
+    kmax = counts.float()
+    seed = (1 << 40) + int(name[1:])
+    p1, p2 = mc.philox_draws(seed, MC_SAMPLES, T, B, kmax)
+    cts = smooth_cotangents(T, B, X, dev, 11)
+    mc_ct = torch.linspace(0.5, 2.0, B, device=dev)
+    need = {}
+    for tag, (a, b) in (("planes", (d1, d2)), ("rng", (p1, p2))):
+        n = torch.zeros((T, B, M), dtype=torch.bool, device=dev)
+        for s in range(MC_SAMPLES):
+            n[:-1].scatter_(2, a[s].long()[..., None], True)
+            n[1:].scatter_(2, b[s].long()[..., None], True)
+        need[tag] = int(n.sum())
+    w_bytes = 4 * (sum(w.numel() for w in ws) + sum(b.numel() for b in bs))
+    g_bytes = 4 * g.numel()
+    plane_bytes = 2 * MC_SAMPLES * (T - 1) * B * 4
+    stat_bytes = 4 * (2 * P * X + P)
+    kernels = {
+        "K1": ("energy", lambda p: ef.energy_fwd(ws, bs, g, wmb, p),
+               lambda p: ef.energy_fwd_plain(ws, bs, g, wmb, p),
+               P * M, False, w_bytes + g_bytes + 4 * M * B + 4 * B,
+               "float32"),
+        "K2": ("dgamma", lambda p: ef.energy_bwd(ws, bs, g, wmb, ct, p),
+               lambda p: ef.energy_bwd_plain(ws, bs, g, wmb, ct, p),
+               P * M, True, w_bytes + 2 * g_bytes + 4 * M * B + 4 * B,
+               "f32x2"),
+        "K3": ("stats", lambda p: ef.stats_fwd(ws, bs, g, wmb, p),
+               lambda p: ef.stats_fwd_plain(ws, bs, g, wmb, p),
+               P * M, False, w_bytes + g_bytes + 4 * M * B + stat_bytes,
+               "f32x2"),
+        "K4": ("dgamma", lambda p: ef.stats_bwd(ws, bs, g, wmb, *cts, p),
+               lambda p: ef.stats_bwd_plain(ws, bs, g, wmb, *cts, p),
+               P * M, True,
+               w_bytes + 2 * g_bytes + 4 * M * B + stat_bytes, "f32x2"),
+        "K5": ("mc_energy",
+               lambda p: mc.energy_mc_fwd(ws, bs, g, d1, d2, p),
+               lambda p: mc.energy_mc_fwd_plain(ws, bs, g, d1, d2, p),
+               need["planes"], False,
+               w_bytes + g_bytes + plane_bytes + 4 * B, "float32"),
+        "K6": ("dgamma",
+               lambda p: mc.energy_mc_bwd(ws, bs, g, d1, d2, mc_ct, p),
+               lambda p: mc.energy_mc_bwd_plain(ws, bs, g, d1, d2, mc_ct, p),
+               need["planes"], True,
+               w_bytes + 2 * g_bytes + plane_bytes + 4 * B, "f32x2"),
+        "K7": ("mc_energy",
+               lambda p: mc.energy_mc_fwd_rng(ws, bs, g, seed, kmax,
+                                              MC_SAMPLES, p),
+               lambda p: mc.energy_mc_fwd_rng_plain(
+                   ws, bs, g, seed, kmax, MC_SAMPLES, p),
+               need["rng"], False, w_bytes + g_bytes + 8 * B, "float32"),
+        "K8": ("dgamma",
+               lambda p: mc.energy_mc_bwd_rng(ws, bs, g, seed, kmax,
+                                              MC_SAMPLES, mc_ct, p),
+               lambda p: mc.energy_mc_bwd_rng_plain(
+                   ws, bs, g, seed, kmax, MC_SAMPLES, mc_ct, p),
+               need["rng"], True, w_bytes + 2 * g_bytes + 8 * B, "f32x2")}
+
+    def k2_float64():
+        """The float32 plain version in float64 (its weight shipping, a
+        cast to float32, bypassed): K2's function without rounding."""
+        d = torch.float64
+        ship, ef.ship_weights = ef.ship_weights, lambda w, _: w
+        try:
+            return ef.energy_bwd_plain(
+                [w.to(d) for w in ws], [b.to(d) for b in bs], g.to(d),
+                wmb.to(d), ct.to(d), "float32")
+        finally:
+            ef.ship_weights = ship
+
+    if with_t:
+        kernels["K9"] = (
+            "energy", lambda p: eft.energy_t_fwd(ws, bs, g, p),
+            lambda p: eft.energy_t_fwd_plain(ws, bs, g, p),
+            P * M, False, w_bytes + g_bytes + 4 * B, "float32")
+        kernels["K10"] = (
+            "dgamma", lambda p: eft.energy_t_bwd(ws, bs, g, ct, p),
+            lambda p: eft.energy_t_bwd_plain(ws, bs, g, ct, p),
+            P * M, True, w_bytes + 2 * g_bytes + 4 * B, "f32x2")
+    return kernels, {"K2": k2_float64}
+
+
+def run_shape_kernel(rec, kname, entry, rungs, timed_rung, dims,
+                     truth=None):
+    """Each rung of ``rungs``: the kernel twice (bitwise) against its plain
+    version; at ``timed_rung`` (run last) ms per call, the plain call's ms
+    and the bound.  With ``truth`` (the function in float64; a dgamma
+    kernel) the kernel is held instead to be no farther from it than its
+    plain version is (K2_M1_FLOAT64).  Fails on the first disagreement."""
+    kind, fn, fn_p, n_dec, bwd, n_bytes, _ = entry
+    order = [p for p in rungs if p != timed_rung] + [timed_rung]
+    for prec in order:
+        got, again = fn(prec), fn(prec)
+        if prec == timed_rung:
+            ref, rec["plain_ms"] = timed_call(lambda: fn_p(prec))
+        else:
+            ref = fn_p(prec)
+        ok, f = shape_kernel_check(kind, got, again, ref, prec)
+        if truth is not None:
+            t = truth()
+            f["vs_float64"] = dgamma_stats(got.double(), t)
+            f["plain_vs_float64"] = dgamma_stats(ref.double(), t)
+            ok = f["repeat_bitwise"] and all(
+                f["vs_float64"][k] <= K2_M1_FLOAT64 * f["plain_vs_float64"][k]
+                for k in f["vs_float64"])
+            del t
+        for k, v in f.items():
+            rec.setdefault(k, {})[prec] = v
+        if not ok:
+            emit(rec)
+            fail(f"shapes: {kname} at {rec['shape']} {prec} (T={rec['T']}, "
+                 f"B={rec['B']}, M={rec['M']}) disagrees with its plain "
+                 "version or is not repeated bitwise")
+    del got, again, ref
+    rec["rung"] = timed_rung
+    rec["ms"] = time_ms(lambda: fn(timed_rung), 2)
+    bound = rung_bound(list(dims), n_dec, timed_rung, bwd, n_bytes)
+    rec["bound_ms"] = 1e3 * max(bound)
+    rec["bound_by"] = "operations" if bound[0] >= bound[1] else "bytes"
+
+
+def shapes_kernels(ef, mc, eft, dev):
+    """Phase shapes (a): K1-K10 (K9/K10 at the 3-layer shapes) at S1-S5 and
+    every rung against their plain versions, each call repeated bitwise;
+    at each kernel's summary rung ms per call, the bound and the plain
+    version's ms.  Returns {kernel: {shape: record}}."""
+    import torch
+
+    T, B = SHAPES_T, SHAPES_B
+    # seeded random points, not smooth curves: on smooth curves at T = 400
+    # a decoder output's bf16 rounding is the size of the adjacent-sample
+    # differences, so at the bfloat16 rung either summation order's
+    # rounding flips would hide the kernels' own arithmetic (the reason of
+    # E_RTOL_BF16_M1: K1 at S1 read 8.1e-4 against its plain version on
+    # smooth curves on an H100)
+    g = torch.as_tensor((1.5 * np.random.default_rng(SHAPES_T).normal(
+        size=(T, B, 2))).astype(np.float32), device=dev)
+    out = {}
+    for name, (dims, M) in SHAPES.items():
+        table, _ = shape_kernel_table(ef, mc, eft, name, M, g, dev,
+                                      len(dims) == 4)
+        for kname, entry in table.items():
+            rec = {"phase": "shapes", "part": "kernels", "kernel": kname,
+                   "shape": name, "dims": list(dims), "M": M, "T": T, "B": B}
+            run_shape_kernel(rec, kname, entry, ef.PRECISIONS, entry[-1],
+                             dims)
+            emit(rec)
+            out.setdefault(kname, {})[name] = rec
+    return out
+
+
+def shapes_kernels_chunk(ef, mc, eft, dev, gamma):
+    """Phase shapes (a), the optimized shapes: on SHAPES_OPT, every (kernel,
+    rung, M) of SHAPES_OPT_CALLS on the init curves at the production chunk
+    (``gamma``, T=2000, B=200), the inputs of their optimizer runs but for
+    the per-spline decoder counts, against the plain versions under the
+    same limits (K2 at M=1 at a reduced rung: K2_M1_FLOAT64), bitwise
+    repeats, ms, plain ms and bound.  Returns {kernel: {shape: record of
+    its M=all call at its optimizer rung}}."""
+    T, B = gamma.shape[:2]
+    out = {}
+    for name in SHAPES_OPT:
+        dims, M_all = SHAPES[name]
+        tables = {}
+        for kname, prec, m in SHAPES_OPT_CALLS:
+            M = M_all if m == "M" else m
+            if M not in tables:
+                tables[M] = shape_kernel_table(ef, mc, eft, name, M, gamma,
+                                               dev, False)
+            rec = {"phase": "shapes", "part": "kernels_chunk",
+                   "kernel": kname, "shape": name, "dims": list(dims),
+                   "M": M, "T": T, "B": B}
+            table, truths = tables[M]
+            run_shape_kernel(rec, kname, table[kname], (prec,), prec, dims,
+                             truths[kname] if (kname, M) == ("K2", 1)
+                             and prec != "float32" else None)
+            emit(rec)
+            if m == "M" and (name not in out.get(kname, {})
+                             or prec != "float32"):
+                out.setdefault(kname, {})[name] = rec
+    return out
+
+
+def shapes_vs_jax(ef, mc, dev):
+    """Phase shapes (b): the fused modes on S1-S4 at T = 32, B = 4 on the
+    card against the JAX package's kernels (tools/jax_reference_shapes.py),
+    under the CPU tests' limits."""
+    import torch
+
+    with open(JAX_SHAPES) as f:
+        ref = json.load(f)
+    T, B, S = ref["T"], ref["B"], ref["mc_samples"]
+    ct = torch.as_tensor(cotangent(B), device=dev)
+    zeros = torch.zeros((S, T - 1, B), dtype=torch.int32, device=dev)
+    worst = {}
+    for name, sref in ref["shapes"].items():
+        layers = shape_layers(name, ref["seed"])
+        dec = {"layers": [{"w": torch.as_tensor(w, device=dev),
+                           "b": torch.as_tensor(b, device=dev)}
+                          for w, b in layers]}
+        single = {"layers": [{"w": l["w"][:1], "b": l["b"][:1]}
+                             for l in dec["layers"]]}
+        for key, r in sref["modes"].items():
+            mode, prec = key.split("/")
+            g = torch.as_tensor(shape_curves(T, B, ref["seed"]),
+                                device=dev).requires_grad_(True)
+            if mode.startswith("expected"):
+                e = ef.energy_expected_fused(dec, g, None, prec)
+            elif mode.startswith("single"):
+                e = ef.energy_expected_fused(single, g, None, prec)
+            else:
+                e = mc.energy_mc_fused(dec, g, zeros, zeros, prec)
+            (d,) = torch.autograd.grad((ct * e).sum(), g)
+            e_j = np.asarray(r["energy"])
+            d_j = np.asarray(r["dgamma"]).reshape(T, B, -1)
+            e_t = e.detach().double().cpu().numpy()
+            d_t = d.double().cpu().numpy()
+            e_rel = float(np.max(np.abs(e_t - e_j) / np.abs(e_j)))
+            scale = np.abs(d_j).max()
+            err = np.abs(d_t - d_j) / scale
+            if prec == "bfloat16":
+                ok = e_rel <= 1e-4 and err.max() <= 2e-3
+            elif prec == "f32x3":
+                ok = (e_rel <= 1e-5 and np.median(err) <= 1e-4
+                      and np.quantile(err, 0.99) <= 1e-3)
+            else:
+                ok = e_rel <= 1e-5 and bool(np.all(
+                    np.abs(d_t - d_j) <= 1e-4 * np.abs(d_j) + 1e-4 * scale))
+            rec = {"shape": name, "mode": mode, "precision": prec,
+                   "energy_max_rel": e_rel,
+                   "dgamma_rel_median": float(np.median(err)),
+                   "dgamma_rel_p99": float(np.quantile(err, 0.99)),
+                   "dgamma_rel_max": float(err.max())}
+            worst[f"{name}/{key}"] = rec
+            if not ok:
+                emit({"phase": "shapes", "part": "vs_jax", **rec})
+                fail(f"shapes: {mode} at {prec} on {name} against the JAX "
+                     "package")
+    emit({"phase": "shapes", "part": "vs_jax", "cases": len(worst),
+          "energy_max_rel": max(r["energy_max_rel"] for r in worst.values()),
+          "dgamma_rel_max": max(r["dgamma_rel_max"] for r in worst.values())})
+    return worst
+
+
+def shapes_optimize(params, art, cfg, dev, ef):
+    """Phase shapes (c): SHAPES_STEPS steps at the production chunk (f32x2)
+    on S3 and S4 through expected_fused, mc_fused, single_fused and the
+    decoder-sharded path (one rank: K3/K4), beside the unfused ``expected``
+    mode; steps/s and launch counts."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.parallel.mesh import make_mesh
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch)
+
+    n_chunks = -(-len(art) // cfg.batch_size)
+    steps = SHAPES_STEPS
+    # final energies at float32 in each run's own mode: K1, K7 (in-kernel
+    # draws), K1 at M=1, K3, and the unfused mode's plain decode
+    want = {"expected_fused": {"energy_bwd": steps, "energy_fwd": 1},
+            "mc_fused": {"energy_mc_bwd_rng": steps, "energy_mc_fwd_rng": 1},
+            "single_fused": {"energy_bwd": steps, "energy_fwd": 1},
+            "ep": {"stats_fwd": steps + 1, "stats_bwd": steps},
+            "expected": {}}
+    recs = {}
+    for name in ("S3", "S4"):
+        dec = {"layers": [{"w": torch.as_tensor(w, device=dev),
+                           "b": torch.as_tensor(b, device=dev)}
+                          for w, b in shape_layers(name)]}
+        sp = dataclasses.replace(params, decoders=dec)
+        rec = {"phase": "shapes", "part": "optimize", "shape": name,
+               "dims": list(SHAPES[name][0]), "M": SHAPES[name][1],
+               "steps": steps, "precision": "f32x2", "steps_per_s": {},
+               "launches": {}}
+        for run in want:
+            mode = "expected_fused" if run == "ep" else run
+            rcfg = dataclasses.replace(cfg, steps=steps, energy=dataclasses.replace(
+                cfg.energy, mode=mode, ep_axis="ep" if run == "ep" else None,
+                mc_samples=MC_SAMPLES, mc_inkernel_rng=True))
+            torch.cuda.synchronize()
+            ef.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = optimize_spline_batch(
+                sp, art, cfg=rcfg, device=dev, log_every_chunk=False,
+                generator=torch.Generator().manual_seed(0),
+                mesh=make_mesh(1, 1) if run == "ep" else None)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rec["steps_per_s"][run] = steps / secs
+            launches = dict(ef.LAUNCHES)
+            rec["launches"][run] = {k: v for k, v in launches.items() if v}
+            lengths = np.asarray(out.geodesic_length, np.float64)
+            if not (np.isfinite(lengths).all() and not np.array_equal(
+                    out.omega_optimized, art.omega_init)):
+                fail(f"shapes: {run} on {name}: non-finite lengths or the "
+                     "curves did not move")
+            for k, v in launches.items():
+                if v != want[run].get(k, 0) * n_chunks:
+                    fail(f"shapes: {run} on {name}: {k} launched {v} times, "
+                         f"expected {want[run].get(k, 0) * n_chunks}")
+        emit(rec)
+        recs[name] = rec
+    return recs
+
+
 def main() -> int:
     import torch
 
@@ -1215,16 +1693,23 @@ def main() -> int:
     ptxas = [l.strip() for log in _build.BUILD_LOG.values()
              for l in log.splitlines() if "registers" in l or "spill" in l]
     hmma = k2_sass_hmma(_build._target("energy_expected"))
-    emit({"phase": "build", "seconds": build_s, "card": card,
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[-1]
+    emit({"phase": "build", "seconds": build_s,
+          "seconds_by_source": _build.BUILD_SECONDS, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "ptxas": ptxas, "k2_sass_hmma": hmma})
-    # K2's reduced rungs run on the tensor cores, its float32 rung does not
-    # (TF32 is barred)
+          "nvcc": nvcc, "ptxas": ptxas, "k2_sass_hmma": hmma})
+    # K2's reduced rungs run on the tensor cores in the mma kernels of the
+    # production shape, its float32 rung does not (TF32 is barred), nor does
+    # the generic decode (k2_*_any) at any rung
     for rung in (0, 1, 2, 3):
         for name in ("k2_xbar", "k2_chain"):
             key = f"{name}{'_mma' if rung else ''}<{rung}>"
             if key not in hmma or (hmma[key] > 0) != (rung > 0):
                 fail(f"SASS of {key}: {hmma.get(key)} HMMA instructions")
+            if hmma.get(f"{name}_any<{rung}>", 1) != 0:
+                fail(f"SASS of {name}_any<{rung}>: "
+                     f"{hmma.get(f'{name}_any<{rung}>')} HMMA instructions")
 
     # 2. kernels vs plain versions at full width ----------------------------
     params = load_npz(MODEL, dev)
@@ -1640,7 +2125,17 @@ def main() -> int:
     cov_recs = cov_phase(params, dev)
     single_rec = single_bf16_phase(params, art, cfg, dev, ef)
 
-    # 13. kernels line ------------------------------------------------------
+    # 14. decoders of other depths and widths: every kernel on the generic
+    # decode, the fused modes against the JAX package, the optimizer
+    from vae_latent_geometry_tpu_torch.ops._research import (
+        energy_fused_t as eft)
+
+    shape_kernels = shapes_kernels(ef, mc, eft, dev)
+    shape_chunk = shapes_kernels_chunk(ef, mc, eft, dev, gamma)
+    shapes_vs_jax(ef, mc, dev)
+    shape_runs = shapes_optimize(params, art, cfg, dev, ef)
+
+    # 15. kernels line ------------------------------------------------------
     P = T * B
     in_bytes = 4 * (gamma.numel() + sum(w.numel() for w in ws_all)
                     + sum(b.numel() for b in bs_all) + M * B)
@@ -1801,6 +2296,24 @@ def main() -> int:
                   "mc_rng_dgamma_max_abs", "mc_rng_bwd", "f32x2",
                   mc_bounds["k8"]),
     ]
+
+    # each kernel's records on the other decoder shapes (on the optimized
+    # shapes those at the production chunk, where their runs launch it), and
+    # its launches on their optimizer runs
+    counter = {"K1": "energy_fwd", "K2": "energy_bwd", "K3": "stats_fwd",
+               "K4": "stats_bwd", "K9": "energy_t_fwd", "K10": "energy_t_bwd",
+               "K5": "energy_mc_fwd", "K6": "energy_mc_bwd",
+               "K7": "energy_mc_fwd_rng", "K8": "energy_mc_bwd_rng"}
+    keep = ("dims", "M", "T", "B", "rung", "ms", "bound_ms", "bound_by",
+            "plain_ms", "max_abs_err")
+    for k, tag in zip(kernels, counter):
+        recs = {**shape_kernels[tag], **shape_chunk.get(tag, {})}
+        k["shapes"] = {name: {f: r[f] for f in keep}
+                       for name, r in recs.items()}
+        k["launches_shapes"] = {
+            name: sum(run.get(counter[tag], 0)
+                      for run in r["launches"].values())
+            for name, r in shape_runs.items()}
 
     # checks ----------------------------------------------------------------
     for (m, prec), r in errors.items():

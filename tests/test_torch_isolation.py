@@ -153,19 +153,22 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
     that it includes, so an edited header cannot load a stale library."""
     from vae_latent_geometry_tpu_torch.ops import _build
 
-    for name in ("energy_expected", "energy_mc", "energy_stats"):
+    for name in ("energy_expected", "energy_mc", "energy_stats",
+                 "energy_transposed"):
         files = [p.name for p in _build.source_files(name)]
         assert files == [f"{name}.cu"] + (["decode_mma.cuh"] if name ==
                                           "energy_expected" else []) + [
-            "decode_common.cuh"]
+            "decode_common.cuh", "decode_any.cuh"]
     for f in os.listdir(_build.CSRC):
         (tmp_path / f).write_bytes((_build.CSRC / f).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = {n: _build._target(n).name for n in _build.SIGNATURES}
-    with open(tmp_path / "decode_common.cuh", "a") as f:
-        f.write("// edited\n")
-    after = {n: _build._target(n).name for n in _build.SIGNATURES}
-    assert all(before[n] != after[n] for n in before)
+    for header in ("decode_common.cuh", "decode_any.cuh"):
+        with open(tmp_path / header, "a") as f:
+            f.write("// edited\n")
+        after = {n: _build._target(n).name for n in _build.SIGNATURES}
+        assert all(before[n] != after[n] for n in before)
+        before = after
     with open(tmp_path / "energy_mc.cu", "a") as f:
         f.write("// edited\n")
     assert _build._target("energy_mc").name != after["energy_mc"]
@@ -184,7 +187,7 @@ def test_console_script_and_package_data_in_pyproject():
     assert "ops/csrc/*.cuh" in data["vae_latent_geometry_tpu_torch"]
     for src in ("energy_expected.cu", "energy_mc.cu", "energy_stats.cu",
                 "energy_transposed.cu", "decode_common.cuh",
-                "decode_mma.cuh"):
+                "decode_mma.cuh", "decode_any.cuh"):
         assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
     from setuptools import find_packages
 
@@ -355,16 +358,36 @@ def test_kernels_match_plain_versions_on_gpu(precision, X, D, M):
     assert torch.equal(d, ef.energy_bwd(ws, bs, g, wmb, ct, precision))
 
 
+def _shape_decoders(name, device):
+    """Decoder ``name`` of tools/jax_reference_shapes.py (seeded S1-S5) as
+    (ws, bs); the generator imports no JAX at module level."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "jax_reference_shapes",
+        os.path.join(REPO, "tools", "jax_reference_shapes.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    layers = ref.shape_layers(name)
+    return ([torch.as_tensor(w, device=device) for w, _ in layers],
+            [torch.as_tensor(b, device=device) for _, b in layers])
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["S2", "S4"])
 @pytest.mark.parametrize("mode,ep", [
     ("expected_fused", False), ("expected_fused_bf16", False),
     ("mc_fused", False), ("single_fused", False),
     ("single_fused_bf16", False), ("expected_fused", True)])
-def test_fused_modes_raise_on_a_narrow_model_on_gpu(mode, ep):
-    """A (64, 64)-hidden ensemble on the card: the kernels take hidden
-    width 128 only, so every fused mode, sharded (``ep_axis``) or not,
-    raises in the kernels' wrappers before any launch and names the plain
-    modes; nothing runs a plain path in its place."""
+def test_fused_modes_run_on_other_decoder_shapes_on_gpu(mode, ep, shape):
+    """Decoders of other depths and widths than the production model's
+    (2 -> 64 -> 64 -> 50 and 2 -> 96 -> 160 -> 48 -> 100, ten members) on the
+    card: every fused mode, sharded (``ep_axis``) or not, runs its kernels
+    (their launch counters move) and matches the plain mode's energies on
+    the same model: ``expected`` (``mc_fused`` with one active decoder, so
+    every draw names decoder 0, against ``expected`` with one) and
+    ``single``.  rtol 1e-5 at float32; the ``_bf16`` modes round every
+    operand to bf16 (2^-9 relative), rtol 1e-2 on these random curves."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from vae_latent_geometry_tpu_torch.config import (EnergyConfig,
@@ -381,23 +404,122 @@ def test_fused_modes_raise_on_a_narrow_model_on_gpu(mode, ep):
     def dev(x):
         return torch.as_tensor(x.astype(np.float32), device="cuda")
 
-    dims = (2, 64, 64, 10)
-    dec = {"layers": [{"w": dev(rng.normal(size=(3, i, o)) / np.sqrt(i)),
-                       "b": dev(rng.normal(size=(3, o)) * 0.1)}
-                      for i, o in zip(dims[:-1], dims[1:])]}
+    ws, bs = _shape_decoders(shape, "cuda")
+    dec = {"layers": [{"w": w, "b": b} for w, b in zip(ws, bs)]}
+    plain = "expected"
     if mode.startswith("single"):
-        dec = decoder_member(dec, 0)
+        dec, plain = decoder_member(dec, 0), "single"
+    num_active = (torch.ones(4, dtype=torch.int32, device="cuda")
+                  if mode == "mc_fused" else None)
     basis, _ = nullspace_basis(4)
     om, a, b = (dev(rng.normal(size=s)) for s in
                 ((4, basis.shape[1], 2), (4, 2), (4, 2)))
-    cfg = GeodesicConfig(energy=EnergyConfig(
-        num_t=32, mode=mode, ep_axis="ep" if ep else None))
-    loss = tgeo.make_loss_fn(dec, basis, cfg, "cuda",
-                             mesh=make_mesh(1, 1) if ep else None)
+
+    def energies(m, **kw):
+        cfg = GeodesicConfig(energy=EnergyConfig(
+            num_t=32, mode=m, kernel_precision="float32", **kw))
+        loss = tgeo.make_loss_fn(dec, basis, cfg, "cuda",
+                                 mesh=make_mesh(1, 1) if ep else None)
+        return loss(om, a, b, 0, num_active)[1]
+
     energy_fused.reset_launch_counts()    # the MC kernels' counts too
-    with pytest.raises(ValueError, match="unsupported.*plain mode"):
-        loss(om, a, b)
-    assert not any(energy_fused.LAUNCHES.values())
+    e = energies(mode, ep_axis="ep" if ep else None)
+    torch.cuda.synchronize()
+    assert any(energy_fused.LAUNCHES.values())
+    e_plain = energies(plain)
+    rtol = 1e-2 if mode.endswith("bf16") else 1e-5
+    torch.testing.assert_close(e, e_plain, rtol=rtol, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["S1", "S2", "S3", "S4", "S5"])
+@pytest.mark.parametrize("precision", ["float32", "f32x3", "f32x2",
+                                       "bfloat16"])
+def test_every_kernel_matches_its_plain_version_on_other_shapes_on_gpu(
+        precision, shape):
+    """K1-K10 (K9/K10 at the 3-layer shapes) on the generic decode
+    (``csrc/decode_any.cuh``) against their plain versions on the card,
+    T = 64 and B = 13 (a ragged tile edge), mixed per-spline decoder
+    counts, under chip_smoke.py's kernel limits: energies rtol 1e-5, and
+    5e-5 at bfloat16 (E_RTOL_MC_BF16: a one-ulp difference of the two
+    summation orders flips a decoder output's bf16 rounding, and with S1's
+    three decoders, as with one MC endpoint, the flips are not averaged
+    over ten: K1 read 1.07e-5 there on an H100), dgamma median 1e-4 and
+    99th percentile 1e-3 of its largest element, the statistics at
+    STATS_X_RTOL / STATS_SQ_RTOL; every call repeated bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+    from vae_latent_geometry_tpu_torch.ops._research import (
+        energy_fused_t as eft)
+
+    ws, bs = _shape_decoders(shape, "cuda")
+    M, X = ws[0].shape[0], ws[-1].shape[-1]
+    rng = np.random.default_rng(2)
+    T, B = 64, 13
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device="cuda")
+
+    g = dev(rng.normal(size=(T, B, 2)) * 1.5)
+    ct = dev(rng.uniform(0.5, 2, B))
+    wmb = ef.active_weights(torch.as_tensor(rng.integers(1, M + 1, B)), M, B,
+                            "cuda").contiguous()
+    e_tol = 5e-5 if precision == "bfloat16" else 1e-5
+
+    def same(fn):
+        out = fn()
+        again = fn()
+        outs = out if isinstance(out, tuple) else (out,)
+        agains = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(o, a) for o, a in zip(outs, agains))
+        return out
+
+    def energy(fn, fn_p, rtol=1e-5):
+        torch.testing.assert_close(same(fn), fn_p(), rtol=rtol, atol=0)
+
+    def dgamma(fn, fn_p):
+        d, d_p = same(fn), fn_p()
+        err = ((d - d_p).abs() / d_p.abs().max()).flatten()
+        assert float(err.median()) < 1e-4
+        assert float(torch.quantile(err, 0.99)) < 1e-3
+
+    energy(lambda: ef.energy_fwd(ws, bs, g, wmb, precision),
+           lambda: ef.energy_fwd_plain(ws, bs, g, wmb, precision), e_tol)
+    dgamma(lambda: ef.energy_bwd(ws, bs, g, wmb, ct, precision),
+           lambda: ef.energy_bwd_plain(ws, bs, g, wmb, ct, precision))
+    out = same(lambda: ef.stats_fwd(ws, bs, g, wmb, precision))
+    ref = ef.stats_fwd_plain(ws, bs, g, wmb, precision)
+    x_tol, sq_tol = (1e-2, 5e-2) if precision == "bfloat16" else (5e-5, 5e-4)
+    x_scale = float(ref[0].abs().max())
+    assert float((out[0] - ref[0]).abs().max()) <= x_tol * x_scale
+    assert float((out[1] - ref[1]).abs().max()) <= x_tol * x_scale
+    assert float((out[2] - ref[2]).abs().max()) <= sq_tol * max(
+        float(ref[2].abs().max()), 1e-30)
+    cts = [dev(rng.normal(size=s)) for s in ((T, B, X), (T, B, X), (T, B))]
+    dgamma(lambda: ef.stats_bwd(ws, bs, g, wmb, *cts, precision),
+           lambda: ef.stats_bwd_plain(ws, bs, g, wmb, *cts, precision))
+    d1, d2 = mc.sample_decoder_indices(
+        torch.Generator(device="cuda").manual_seed(5), T, B, M, 2,
+        torch.as_tensor(rng.integers(1, M + 1, B), device="cuda"))
+    energy(lambda: mc.energy_mc_fwd(ws, bs, g, d1, d2, precision),
+           lambda: mc.energy_mc_fwd_plain(ws, bs, g, d1, d2, precision), e_tol)
+    dgamma(lambda: mc.energy_mc_bwd(ws, bs, g, d1, d2, ct, precision),
+           lambda: mc.energy_mc_bwd_plain(ws, bs, g, d1, d2, ct, precision))
+    seed, kmax = (1 << 40) + 3, torch.full((B,), float(M), device="cuda")
+    energy(lambda: mc.energy_mc_fwd_rng(ws, bs, g, seed, kmax, 2, precision),
+           lambda: mc.energy_mc_fwd_rng_plain(ws, bs, g, seed, kmax, 2,
+                                              precision), e_tol)
+    dgamma(lambda: mc.energy_mc_bwd_rng(ws, bs, g, seed, kmax, 2, ct,
+                                        precision),
+           lambda: mc.energy_mc_bwd_rng_plain(ws, bs, g, seed, kmax, 2, ct,
+                                              precision))
+    if len(ws) == 3:
+        energy(lambda: eft.energy_t_fwd(ws, bs, g, precision),
+               lambda: eft.energy_t_fwd_plain(ws, bs, g, precision), e_tol)
+        dgamma(lambda: eft.energy_t_bwd(ws, bs, g, ct, precision),
+               lambda: eft.energy_t_bwd_plain(ws, bs, g, ct, precision))
 
 
 @pytest.mark.gpu

@@ -22,46 +22,54 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
+# --split-compile=0: cicc and ptxas work on parts of a source (ptxas on its
+# kernels) in parallel threads, one per core; the four sources build in
+# about a quarter of the time (tools/build_times.py).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
-# C signatures of the entry points, per source
+# C signatures of the entry points, per source.  A decoder is passed as L,
+# widths[0..L] and the per-layer weight and bias pointer arrays.
+_DEC = [_I, _P, _P, _P]
 SIGNATURES = {
     "energy_expected": {
         "vlg_energy_fwd_tiles": [_I],
-        "vlg_energy_fwd": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _P],
-        "vlg_energy_bwd": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _P, _P],
+        "vlg_energy_fwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _I, _P],
+        "vlg_energy_bwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _P, _I,
+                           _P],
         "vlg_mma_selftest": [_I, _P, _P, _P, _I, _P],
     },
     "energy_mc": {
         "vlg_mc_fwd_tiles": [_I],
-        "vlg_mc_fwd": [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _U, _U, _P, _P, _P],
-        "vlg_mc_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _U, _U, _P, _P, _P, _P],
+        "vlg_mc_fwd": [_I, _P, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U, _U, _P,
+                       _P, _P, _I, _P],
+        "vlg_mc_bwd": [_I, _P, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U, _U, _P,
+                       _P, _P, _P, _I, _P],
     },
     "energy_transposed": {
         "vlg_t_scratch_words": [_I, _I, _I],
-        "vlg_energy_t_fwd": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                             _P, _P, _P, _P, _P, _P, _P],
-        "vlg_energy_t_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "vlg_energy_t_fwd": [_I, _P, _I, _I, _I, _I, _I, _I, *_DEC, _P, _P,
+                             _P, _P],
+        "vlg_energy_t_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, *_DEC, _P, _P,
+                             _P, _P, _P, _P, _P, _P],
     },
     "energy_stats": {
-        "vlg_stats_fwd": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P],
-        "vlg_stats_bwd": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _P, _P],
+        "vlg_stats_fwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _P, _I,
+                          _P],
+        "vlg_stats_bwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _P, _P,
+                          _I, _P],
     },
 }
+# exported by every library (csrc/decode_any.cuh)
+COMMON = {"vlg_any_scratch_words": [_I, _P, _I]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}   # nvcc output (register / spill report)
+BUILD_SECONDS: Dict[str, float] = {}   # wall seconds of each nvcc
 
 
 def _nvcc() -> str:
@@ -110,15 +118,22 @@ def build_all(names: List[str] = None) -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        log = open(tmp.with_suffix(".log"), "w+")
         procs[name] = (subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, out)
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[name] = log
+            stdout=log, stderr=subprocess.STDOUT, text=True), tmp, out, log)
+    while len(BUILD_SECONDS.keys() & procs.keys()) < len(procs):
+        for name, (proc, *_) in procs.items():
+            if name not in BUILD_SECONDS and proc.poll() is not None:
+                BUILD_SECONDS[name] = time.perf_counter() - t0
+        time.sleep(0.1)
+    for name, (proc, tmp, out, log) in procs.items():
+        log.seek(0)
+        BUILD_LOG[name] = log.read()
+        log.close()
+        os.remove(log.name)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{BUILD_LOG[name]}")
         os.replace(tmp, out)
     return time.perf_counter() - t0
 
@@ -129,7 +144,7 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in SIGNATURES[name].items():
+        for fn, argtypes in {**SIGNATURES[name], **COMMON}.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib

@@ -35,10 +35,13 @@ import torch
 from vae_latent_geometry_tpu_torch.ops.energy_fused import (
     _RUNG,
     LAUNCHES,
+    _any_scratch,
     _check_cuda,
     _decode_plain,
+    _decoder_args,
     _mp_matmul,
-    _ptrs,
+    _n_sm,
+    _ptr,
     _stream,
     check_precision,
     energy_fwd_plain,
@@ -51,7 +54,6 @@ LAUNCHES.update({"energy_t_fwd": 0, "energy_t_bwd": 0})
 
 SPAN_SPLINES = 4       # splines per chunk of the kernels
 SPAN_ROWS = 32         # curve rows per chunk
-MAX_XP = 64            # widest padded output the kernels take
 _BB = 256              # the JAX op's lane block: only its shape rule reads it
 
 
@@ -73,7 +75,7 @@ def fused_t_fits(T, B, D, X, M, num_active=None, wmb=None,
     """The op's shape rule, the same booleans as the JAX package's: uniform
     weights only, the 3-layer reference decoder, D <= 2, X <= 128, M <= 16,
     and T must split into 8-aligned chunks of at most 40 rows (``_pick_tc``).
-    The CUDA kernels take X <= 64 besides (they raise beyond)."""
+    The CUDA kernels take hidden widths up to ``MAX_WIDTH`` besides."""
     if num_active is not None or wmb is not None or n_layers != 3:
         return False
     if D > 2 or X > 128 or M > 16:
@@ -162,17 +164,11 @@ def pick_spans(T: int, B: int, n_sm: int, halo: int):
     return best[1], best[2]
 
 
-def _n_sm(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def _prepare_cuda(ws, bs, gamma, precision, extra=()):
     check_precision(precision)
     _check_fits(ws, gamma)
     shipped = [w.contiguous() for w in ship_weights(ws, precision)]
     T, B, D, M, X = _check_cuda(shipped, bs, gamma, None, extra)
-    if -(-X // 8) * 8 > MAX_XP:
-        raise ValueError(f"the transposed kernels take X <= {MAX_XP}, got {X}")
     return shipped, T, B, D, M, X
 
 
@@ -189,13 +185,16 @@ def energy_t_fwd(ws, bs, gamma, precision):
     n_sm = _n_sm(gamma.device)
     span, G = pick_spans(T, B, n_sm, 1)
     n_items = G * -(-B // SPAN_SPLINES)
+    n_blocks = min(n_items, n_sm)
     lib = library("energy_transposed")
+    widths, dec = _decoder_args(shipped, bs)
+    scratch, _ = _any_scratch(lib, widths, 1, gamma.device, n_blocks)
     partial = torch.empty((G, B), dtype=torch.float32, device=gamma.device)
     out = torch.empty((B,), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_energy_t_fwd(_RUNG[precision], gamma.data_ptr(), T, B, D, M,
-                               X, span, G, min(n_items, n_sm),
-                               *_ptrs(shipped, bs), partial.data_ptr(),
-                               out.data_ptr(), _stream(gamma.device)),
+    check(lib.vlg_energy_t_fwd(_RUNG[precision], gamma.data_ptr(), T, B, M,
+                               span, G, n_blocks, *dec, partial.data_ptr(),
+                               out.data_ptr(), _ptr(scratch),
+                               _stream(gamma.device)),
           "energy_t_fwd")
     LAUNCHES["energy_t_fwd"] += 1
     return out
@@ -223,12 +222,14 @@ def energy_t_bwd(ws, bs, gamma, ct, precision):
     scratch = [torch.empty((n_blocks * lib.vlg_t_scratch_words(M, X, k),),
                            dtype=torch.float32 if k != 1 else torch.int32,
                            device=gamma.device) for k in range(3)]
+    widths, dec = _decoder_args(shipped, bs)
+    any_scratch, _ = _any_scratch(lib, widths, 2 * M, gamma.device, n_blocks)
     dgamma = torch.empty((T, B, D), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_energy_t_bwd(_RUNG[precision], gamma.data_ptr(), T, B, D, M,
-                               X, span, G, n_blocks, *_ptrs(shipped, bs),
-                               w1.data_ptr(), ct.data_ptr(),
-                               *(x.data_ptr() for x in scratch),
-                               dgamma.data_ptr(), _stream(gamma.device)),
+    check(lib.vlg_energy_t_bwd(_RUNG[precision], gamma.data_ptr(), T, B, M,
+                               span, G, n_blocks, *dec, w1.data_ptr(),
+                               ct.data_ptr(), *(x.data_ptr() for x in scratch),
+                               _ptr(any_scratch), dgamma.data_ptr(),
+                               _stream(gamma.device)),
           "energy_t_bwd")
     LAUNCHES["energy_t_bwd"] += 1
     return dgamma

@@ -29,6 +29,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int H = 128;          // hidden width of both hidden layers
@@ -82,11 +84,12 @@ __device__ __forceinline__ float lo_of(uint32_t w) { return __uint_as_float(w <<
 // acc[i][j] += sum_k act[k][p_i] * W(k, n_j) at rung R, p_i = ty*8 + i,
 // n_j = tx + 16 j.  W(k, n) = w[k*ws + n], or w[n*ws + k] when TRANS (the
 // chain's products with W^T).
-template <int R, int NJ, bool TRANS>
+// U: the k loop's unroll factor.
+template <int R, int NJ, bool TRANS, int U = 2>
 __device__ __forceinline__ void gemm(const uint32_t* act, const uint32_t* w, int ws,
                                      int kdim, float (&acc)[8][NJ]) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 2
+#pragma unroll U
   for (int kk = 0; kk < kdim; ++kk) {
     const uint4 a0 = *reinterpret_cast<const uint4*>(act + kk * S_ACT + ty * 8);
     const uint4 a1 = *reinterpret_cast<const uint4*>(act + kk * S_ACT + ty * 8 + 4);
@@ -251,8 +254,8 @@ __device__ void chain_tile(DecodeSmem& s, int D, int X, const uint32_t (&m1)[2],
 }
 
 // Load the tile's points p0..p0+127 of the flattened (T*B) curve.
-__device__ void load_points(DecodeSmem& s, const float* __restrict__ gamma, int N, int D,
-                            int p0) {
+template <class S>
+__device__ void load_points(S& s, const float* __restrict__ gamma, int N, int D, int p0) {
   for (int e = threadIdx.x; e < TP * DMAX; e += NT) {
     const int p = e / DMAX, d = e % DMAX;
     s.g[e] = d < D ? gamma[(size_t)min(p0 + p, N - 1) * D + d] : 0.f;
@@ -260,12 +263,64 @@ __device__ void load_points(DecodeSmem& s, const float* __restrict__ gamma, int 
 }
 
 // Write the chain's dgamma accumulators of the tile's points to (T*B, D).
-__device__ void store_dgamma(const DecodeSmem& s, float* __restrict__ dgamma, int N, int D,
-                             int p0) {
+template <class S>
+__device__ void store_dgamma(const S& s, float* __restrict__ dgamma, int N, int D, int p0) {
   for (int e = threadIdx.x; e < TP * D; e += NT) {
     const int p = e / D, d = e % D, pg = p0 + p;
     if (pg < N) dgamma[(size_t)pg * D + d] = s.dg[p * DMAX + d];
   }
+}
+
+// The fixed decoder D -> 128 -> 128 -> X <= 64 as a decode policy of the
+// kernel bodies (AnyDecode in decode_any.cuh is the other): weights staged
+// per decoder, 4 output columns a thread, masks in registers.
+struct FixedDecode {
+  static constexpr int NJX = 4;      // output columns a thread: tx + 16 j
+  static constexpr int XM = XMAX;
+  static constexpr int SLOTS = 2;    // MC samples per decode sweep
+  using Smem = DecodeSmem;
+  struct Ctx {
+    Weights w;
+  };
+  struct Masks {
+    uint32_t m1[2], m2[2];
+  };
+  __device__ static void use_area(Masks&, int) {}
+  template <int R>
+  __device__ static void decode(Smem& s, const Ctx& c, int m, int D, int X, float (&x)[8][NJX],
+                                Masks& mk) {
+    __syncthreads();
+    stage_weights<R>(s, m, D, X, c.w);
+    __syncthreads();
+    decode_tile<R>(s, D, x, mk.m1, mk.m2);
+  }
+  template <int C>
+  __device__ static void chain(Smem& s, const Ctx&, int, int D, int X, const Masks& mk) {
+    chain_tile<C>(s, D, X, mk.m1, mk.m2);
+  }
+  // stage decoder m again for a chain that follows other decoders' decodes
+  template <int R>
+  __device__ static void restage(Smem& s, const Ctx& c, int m, int D, int X) {
+    __syncthreads();
+    stage_weights<R>(s, m, D, X, c.w);
+  }
+  // element (i, j) of a running tile: in registers
+  template <int NJ>
+  __device__ static float& tile(float (&r)[8][NJ], const Ctx&, int i, int j) {
+    return r[i][j];
+  }
+};
+
+// f(std::integral_constant<int, R>) for the rung R named at run time.
+template <class F>
+cudaError_t by_rung(int rung, F&& f) {
+  switch (rung) {
+    case F32: return f(std::integral_constant<int, F32>{});
+    case F32X3: return f(std::integral_constant<int, F32X3>{});
+    case F32X2: return f(std::integral_constant<int, F32X2>{});
+    case BF16: return f(std::integral_constant<int, BF16>{});
+  }
+  return cudaErrorInvalidValue;
 }
 
 // Allow a kernel its struct's worth of dynamic shared memory.

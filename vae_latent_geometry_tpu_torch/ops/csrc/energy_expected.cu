@@ -49,7 +49,17 @@
 // TPU kernel decodes once; mma.sync rather than Hopper's wgmma; and each
 // block stages every decoder's weights (converted to bf16 planes) itself,
 // without cp.async, while its tensor cores wait.
+//
+// Any decoder.  The kernels above take the production shape D <= 4 -> 128 ->
+// 128 -> X <= 64.  Every other decoder (2 to 6 layers, hidden widths up to
+// 512, X <= 128) takes k1_energy_tiles_any and k2_xbar_any + k2_chain_any:
+// the bodies of the production kernels (k1_body, k2_xbar_body,
+// k2_chain_body) over the generic decode of decode_any.cuh, on the CUDA
+// cores at every rung, in persistent blocks (one per SM) that walk the
+// tiles in a fixed stride, so that the activation scratch is one per
+// resident block.
 
+#include "decode_any.cuh"
 #include "decode_common.cuh"
 #include "decode_mma.cuh"
 
@@ -60,57 +70,60 @@ constexpr int K1_COLS = 4;      // K1 tile: 32 t-rows x 4 splines
 constexpr int K1_ROWS = TP / K1_COLS;
 constexpr int K1_SEGS = K1_ROWS - 1;
 
-struct Smem : DecodeSmem {
-  float xs[TP * S_X];       // K1: x0 then xbar; K2: xbar_{t-1} + xbar_{t+1}
+// Shared memory of K1 and the FMA K2 over a decode policy's own (Base) and
+// its widest output XM.
+template <class Base, int XM>
+struct K12Smem : Base {
+  float xs[TP * (XM + 1)];  // K1: x0 then xbar; K2: xbar_{t-1} + xbar_{t+1}
   float red[TP];            // K1: var per point
   float red2[TP];           // K1: segment energies
 };
+using Smem = K12Smem<DecodeSmem, XMAX>;
+using SmemAny = K12Smem<AnySmem, XMAX_ANY>;
 
 struct SmemMma : MmaSmem {
   float xs[TP * S_X];       // xbar_{t-1} + xbar_{t+1}
 };
 
-// K1, pass 1: partial energies of tile (blockIdx.y: t-rows t0..t0+31,
-// blockIdx.x: splines b0..b0+3) -> partial[blockIdx.y * B + b].
-template <int R>
-__global__ void __launch_bounds__(NT, 1)
-k1_energy_tiles(const float* __restrict__ gamma, int T, int B, int D, int M, int X,
-                Weights w, const float* __restrict__ wmb, float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+// K1, pass 1: partial energies of tile (by: t-rows t0..t0+31, bx: splines
+// b0..b0+3) -> partial[by * B + b], over decode policy P.
+template <int R, class P>
+__device__ __forceinline__ void k1_body(K12Smem<typename P::Smem, P::XM>& s,
+                                        const typename P::Ctx& c, int bx, int by,
+                                        const float* __restrict__ gamma, int T, int B, int D,
+                                        int M, int X, const float* __restrict__ wmb,
+                                        float* __restrict__ partial) {
+  constexpr int SX = P::XM + 1, NJ = P::NJX;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int t0 = blockIdx.y * K1_SEGS, b0 = blockIdx.x * K1_COLS;
+  const int t0 = by * K1_SEGS, b0 = bx * K1_COLS;
   for (int e = tid; e < TP * DMAX; e += NT) {
     const int p = e / DMAX, d = e % DMAX;
     const int t = min(t0 + p / K1_COLS, T - 1), b = min(b0 + p % K1_COLS, B - 1);
     s.g[e] = d < D ? gamma[((size_t)t * B + b) * D + d] : 0.f;
   }
-  float ybar[8][4], sqy[8];
+  float ybar[8][NJ], sqy[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     sqy[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) ybar[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) ybar[i][j] = 0.f;
   }
   for (int m = 0; m < M; ++m) {
-    __syncthreads();
-    stage_weights<R>(s, m, D, X, w);
-    __syncthreads();
-    float x[8][4];
-    uint32_t m1[2], m2[2];
-    decode_tile<R>(s, D, x, m1, m2);
+    float x[8][NJ];
+    typename P::Masks mk;
+    P::template decode<R>(s, c, m, D, X, x, mk);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int p = ty * 8 + i;
       if (m == 0) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s.xs[p * S_X + tx + 16 * j] = x[i][j];
+        for (int j = 0; j < NJ; ++j) s.xs[p * SX + tx + 16 * j] = x[i][j];
       } else {
         const float wm = wmb[(size_t)m * B + min(b0 + p % K1_COLS, B - 1)];
         float q = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float y = x[i][j] - s.xs[p * S_X + tx + 16 * j];
+        for (int j = 0; j < NJ; ++j) {
+          const float y = x[i][j] - s.xs[p * SX + tx + 16 * j];
           ybar[i][j] = ybar[i][j] + wm * y;
           q += y * y;
         }
@@ -124,8 +137,8 @@ k1_energy_tiles(const float* __restrict__ gamma, int T, int B, int D, int M, int
     const int p = ty * 8 + i;
     float v = sqy[i];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s.xs[p * S_X + tx + 16 * j] += ybar[i][j];
+    for (int j = 0; j < NJ; ++j) {
+      s.xs[p * SX + tx + 16 * j] += ybar[i][j];
       v -= ybar[i][j] * ybar[i][j];
     }
     v = sum16(v);
@@ -133,21 +146,47 @@ k1_energy_tiles(const float* __restrict__ gamma, int T, int B, int D, int M, int
   }
   __syncthreads();
   if (tid < K1_SEGS * K1_COLS) {
-    const int r = tid / K1_COLS, c = tid % K1_COLS;
-    const int pa = r * K1_COLS + c, pb = pa + K1_COLS;
+    const int r = tid / K1_COLS, cc = tid % K1_COLS;
+    const int pa = r * K1_COLS + cc, pb = pa + K1_COLS;
     float sd = 0.f;
     for (int n = 0; n < X; ++n) {
-      const float d = s.xs[pb * S_X + n] - s.xs[pa * S_X + n];
+      const float d = s.xs[pb * SX + n] - s.xs[pa * SX + n];
       sd += d * d;
     }
-    const bool valid = (t0 + r + 1 < T) && (b0 + c < B);
+    const bool valid = (t0 + r + 1 < T) && (b0 + cc < B);
     s.red2[tid] = valid ? (sd + s.red[pb]) + s.red[pa] : 0.f;
   }
   __syncthreads();
   if (tid < K1_COLS && b0 + tid < B) {
     float e = 0.f;
     for (int r = 0; r < K1_SEGS; ++r) e += s.red2[r * K1_COLS + tid];
-    partial[(size_t)blockIdx.y * B + b0 + tid] = e;
+    partial[(size_t)by * B + b0 + tid] = e;
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k1_energy_tiles(const float* __restrict__ gamma, int T, int B, int D, int M, int X,
+                Weights w, const float* __restrict__ wmb, float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  k1_body<R, FixedDecode>(*reinterpret_cast<Smem*>(smem_raw), FixedDecode::Ctx{w}, blockIdx.x,
+                          blockIdx.y, gamma, T, B, D, M, X, wmb, partial);
+}
+
+// K1, pass 1, any decoder: persistent blocks take the (gx x gy) tiles in a
+// fixed stride.
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k1_energy_tiles_any(const float* __restrict__ gamma, int T, int B, int M, AnyArgs a,
+                    const float* __restrict__ wmb, float* __restrict__ partial, int gx,
+                    int n_items) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemAny& s = *reinterpret_cast<SmemAny*>(smem_raw);
+  const AnyCtx c = any_begin(s, a);
+  const int D = s.dec.width[0], X = s.dec.width[s.dec.L];
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    k1_body<R, AnyDecode>(s, c, item % gx, item / gx, gamma, T, B, D, M, X, wmb, partial);
+    __syncthreads();
   }
 }
 
@@ -161,33 +200,32 @@ __global__ void k1_sum_tiles(const float* __restrict__ partial, int n_tiles, int
   out[b] = e;
 }
 
-// K2, pass 1: uncentered xbar = sum_m w_m x_m for every point -> (T*B, X).
-template <int R>
-__global__ void __launch_bounds__(NT, 1)
-k2_xbar(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Weights w,
-        const float* __restrict__ wmb, float* __restrict__ xbar) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+// K2, pass 1: uncentered xbar = sum_m w_m x_m for every point of tile bx ->
+// (T*B, X).
+template <int R, class P>
+__device__ __forceinline__ void k2_xbar_body(K12Smem<typename P::Smem, P::XM>& s,
+                                             const typename P::Ctx& c, int bx,
+                                             const float* __restrict__ gamma, int T, int B,
+                                             int D, int M, int X, const float* __restrict__ wmb,
+                                             float* __restrict__ xbar) {
+  constexpr int NJ = P::NJX;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int N = T * B, p0 = blockIdx.x * TP;
+  const int N = T * B, p0 = bx * TP;
   load_points(s, gamma, N, D, p0);
-  float xb[8][4];
+  float xb[8][NJ];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) xb[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) xb[i][j] = 0.f;
   for (int m = 0; m < M; ++m) {
-    __syncthreads();
-    stage_weights<R>(s, m, D, X, w);
-    __syncthreads();
-    float x[8][4];
-    uint32_t m1[2], m2[2];
-    decode_tile<R>(s, D, x, m1, m2);
+    float x[8][NJ];
+    typename P::Masks mk;
+    P::template decode<R>(s, c, m, D, X, x, mk);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float wm = wmb[(size_t)m * B + min(p0 + ty * 8 + i, N - 1) % B];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) xb[i][j] = xb[i][j] + wm * x[i][j];
+      for (int j = 0; j < NJ; ++j) xb[i][j] = xb[i][j] + wm * x[i][j];
     }
   }
 #pragma unroll
@@ -195,41 +233,50 @@ k2_xbar(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Weig
     const int pg = p0 + ty * 8 + i;
     if (pg >= N) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const int n = tx + 16 * j;
       if (n < X) xbar[(size_t)pg * X + n] = xb[i][j];
     }
   }
 }
 
-// K2, pass 2: per decoder, re-decode the tile, form dx and run the masked
-// cotangent chain back to dgamma (T*B, D).
 template <int R>
 __global__ void __launch_bounds__(NT, 1)
-k2_chain(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Weights w,
-         const float* __restrict__ wmb, const float* __restrict__ ct,
-         const float* __restrict__ xbar, float* __restrict__ dgamma) {
-  constexpr int C = CHAIN_RUNG<R>;
+k2_xbar(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Weights w,
+        const float* __restrict__ wmb, float* __restrict__ xbar) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
+  k2_xbar_body<R, FixedDecode>(*reinterpret_cast<Smem*>(smem_raw), FixedDecode::Ctx{w},
+                               blockIdx.x, gamma, T, B, D, M, X, wmb, xbar);
+}
+
+// K2, pass 2: per decoder, re-decode tile bx, form dx and run the masked
+// cotangent chain back to dgamma (T*B, D).
+template <int R, class P>
+__device__ __forceinline__ void k2_chain_body(K12Smem<typename P::Smem, P::XM>& s,
+                                              const typename P::Ctx& c, int bx,
+                                              const float* __restrict__ gamma, int T, int B,
+                                              int D, int M, int X,
+                                              const float* __restrict__ wmb,
+                                              const float* __restrict__ ct,
+                                              const float* __restrict__ xbar,
+                                              float* __restrict__ dgamma) {
+  constexpr int C = CHAIN_RUNG<R>;
+  constexpr int SX = P::XM + 1, NJ = P::NJX;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int N = T * B, p0 = blockIdx.x * TP;
+  const int N = T * B, p0 = bx * TP;
   load_points(s, gamma, N, D, p0);
   for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
-  for (int e = tid; e < TP * XMAX; e += NT) {
-    const int p = e / XMAX, n = e % XMAX;
+  for (int e = tid; e < TP * P::XM; e += NT) {
+    const int p = e / P::XM, n = e % P::XM;
     const int pg = min(p0 + p, N - 1), t = pg / B;
     const float left = (n < X && t > 0) ? xbar[(size_t)(pg - B) * X + n] : 0.f;
     const float right = (n < X && t < T - 1) ? xbar[(size_t)(pg + B) * X + n] : 0.f;
-    s.xs[p * S_X + n] = left + right;
+    s.xs[p * SX + n] = left + right;
   }
   for (int m = 0; m < M; ++m) {
-    __syncthreads();
-    stage_weights<R>(s, m, D, X, w);
-    __syncthreads();
-    float x[8][4];
-    uint32_t m1[2], m2[2];
-    decode_tile<R>(s, D, x, m1, m2);
+    float x[8][NJ];
+    typename P::Masks mk;
+    P::template decode<R>(s, c, m, D, X, x, mk);
     // dx -> act[n][p] at the chain rung
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -238,19 +285,60 @@ k2_chain(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Wei
       const float cc = (float)((t > 0) + (t < T - 1));
       const float sc = pg < N ? __fmul_rn(2.f, __fmul_rn(wmb[(size_t)m * B + b], ct[b])) : 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int n = tx + 16 * j;
         if (n < X) {
-          const float v = __fmul_rn(sc, __fsub_rn(__fmul_rn(cc, x[i][j]), s.xs[p * S_X + n]));
+          const float v = __fmul_rn(sc, __fsub_rn(__fmul_rn(cc, x[i][j]), s.xs[p * SX + n]));
           s.act[n * S_ACT + p] = pack<C>(v);
         }
       }
     }
     __syncthreads();
-    chain_tile<C>(s, D, X, m1, m2);
+    P::template chain<C>(s, c, m, D, X, mk);
   }
   __syncthreads();
   store_dgamma(s, dgamma, N, D, p0);
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k2_chain(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Weights w,
+         const float* __restrict__ wmb, const float* __restrict__ ct,
+         const float* __restrict__ xbar, float* __restrict__ dgamma) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  k2_chain_body<R, FixedDecode>(*reinterpret_cast<Smem*>(smem_raw), FixedDecode::Ctx{w},
+                                blockIdx.x, gamma, T, B, D, M, X, wmb, ct, xbar, dgamma);
+}
+
+// K2, any decoder, at every rung on the CUDA cores: the two passes with
+// persistent blocks over the n_items tiles.
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k2_xbar_any(const float* __restrict__ gamma, int T, int B, int M, AnyArgs a,
+            const float* __restrict__ wmb, float* __restrict__ xbar, int n_items) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemAny& s = *reinterpret_cast<SmemAny*>(smem_raw);
+  const AnyCtx c = any_begin(s, a);
+  const int D = s.dec.width[0], X = s.dec.width[s.dec.L];
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    k2_xbar_body<R, AnyDecode>(s, c, item, gamma, T, B, D, M, X, wmb, xbar);
+    __syncthreads();
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k2_chain_any(const float* __restrict__ gamma, int T, int B, int M, AnyArgs a,
+             const float* __restrict__ wmb, const float* __restrict__ ct,
+             const float* __restrict__ xbar, float* __restrict__ dgamma, int n_items) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SmemAny& s = *reinterpret_cast<SmemAny*>(smem_raw);
+  const AnyCtx c = any_begin(s, a);
+  const int D = s.dec.width[0], X = s.dec.width[s.dec.L];
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    k2_chain_body<R, AnyDecode>(s, c, item, gamma, T, B, D, M, X, wmb, ct, xbar, dgamma);
+    __syncthreads();
+  }
 }
 
 // K2 at a reduced rung, pass 1, on the tensor cores: xbar as k2_xbar.
@@ -442,6 +530,38 @@ cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, We
   return cudaGetLastError();
 }
 
+template <int R>
+cudaError_t launch_fwd_any(const float* gamma, int T, int B, int M, const AnyArgs& a,
+                           int n_blocks, const float* wmb, float* partial, float* out,
+                           cudaStream_t st) {
+  cudaError_t err = prepare<SmemAny>(k1_energy_tiles_any<R>);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = T > 1 ? (T - 1 + K1_SEGS - 1) / K1_SEGS : 1;
+  const int gx = (B + K1_COLS - 1) / K1_COLS;
+  k1_energy_tiles_any<R><<<n_blocks, NT, sizeof(SmemAny), st>>>(gamma, T, B, M, a, wmb, partial,
+                                                                gx, gx * n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k1_sum_tiles<<<(B + 127) / 128, 128, 0, st>>>(partial, n_tiles, B, out);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_bwd_any(const float* gamma, int T, int B, int M, const AnyArgs& a,
+                           int n_blocks, const float* wmb, const float* ct, float* xbar,
+                           float* dgamma, cudaStream_t st) {
+  const int n_items = (T * B + TP - 1) / TP;
+  cudaError_t err = prepare<SmemAny>(k2_xbar_any<R>);
+  if (err == cudaSuccess) err = prepare<SmemAny>(k2_chain_any<R>);
+  if (err != cudaSuccess) return err;
+  k2_xbar_any<R><<<n_blocks, NT, sizeof(SmemAny), st>>>(gamma, T, B, M, a, wmb, xbar, n_items);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k2_chain_any<R><<<n_blocks, NT, sizeof(SmemAny), st>>>(gamma, T, B, M, a, wmb, ct, xbar,
+                                                         dgamma, n_items);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -449,34 +569,42 @@ extern "C" {
 // Tile count of K1's (n_tiles, B) partial-energy buffer.
 int vlg_energy_fwd_tiles(int T) { return T > 1 ? (T - 1 + K1_SEGS - 1) / K1_SEGS : 1; }
 
-int vlg_energy_fwd(int rung, const float* gamma, int T, int B, int D, int M, int X,
-                   const float* W1, const float* b1, const float* W2, const float* b2,
-                   const float* W3, const float* b3, const float* wmb, float* partial,
-                   float* out, void* stream) {
-  const Weights w{W1, b1, W2, b2, W3, b3};
+// The decoder comes as L layers: widths[0..L] (D first, X last) and the
+// per-layer weight (M, in, out) and bias (M, out) pointers.  The fixed shape
+// (D <= 4 -> 128 -> 128 -> X <= 64) takes the fixed kernels; every other
+// decoder the generic ones, with n_blocks persistent blocks and `scratch`
+// of n_blocks x vlg_any_scratch_words(L, widths, 1) words.
+int vlg_energy_fwd(int rung, const float* gamma, int T, int B, int M, int L, const int* widths,
+                   const float* const* Ws, const float* const* bs, const float* wmb,
+                   float* partial, float* out, void* scratch, int n_blocks, void* stream) {
+  Decoder d;
+  if (!make_decoder(L, widths, Ws, bs, d)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rung) {
-    case F32: return launch_fwd<F32>(gamma, T, B, D, M, X, w, wmb, partial, out, st);
-    case F32X3: return launch_fwd<F32X3>(gamma, T, B, D, M, X, w, wmb, partial, out, st);
-    case F32X2: return launch_fwd<F32X2>(gamma, T, B, D, M, X, w, wmb, partial, out, st);
-    case BF16: return launch_fwd<BF16>(gamma, T, B, D, M, X, w, wmb, partial, out, st);
-  }
-  return cudaErrorInvalidValue;
+  const int D = d.width[0], X = d.width[L];
+  const AnyArgs a{d, static_cast<uint32_t*>(scratch), any_scratch_words(d, 1)};
+  return by_rung(rung, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return fixed_shape(d)
+        ? launch_fwd<R>(gamma, T, B, D, M, X, fixed_weights(d), wmb, partial, out, st)
+        : launch_fwd_any<R>(gamma, T, B, M, a, n_blocks, wmb, partial, out, st);
+  });
 }
 
-int vlg_energy_bwd(int rung, const float* gamma, int T, int B, int D, int M, int X,
-                   const float* W1, const float* b1, const float* W2, const float* b2,
-                   const float* W3, const float* b3, const float* wmb, const float* ct,
-                   float* xbar, float* dgamma, void* stream) {
-  const Weights w{W1, b1, W2, b2, W3, b3};
+int vlg_energy_bwd(int rung, const float* gamma, int T, int B, int M, int L, const int* widths,
+                   const float* const* Ws, const float* const* bs, const float* wmb,
+                   const float* ct, float* xbar, float* dgamma, void* scratch, int n_blocks,
+                   void* stream) {
+  Decoder d;
+  if (!make_decoder(L, widths, Ws, bs, d)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rung) {
-    case F32: return launch_bwd<F32>(gamma, T, B, D, M, X, w, wmb, ct, xbar, dgamma, st);
-    case F32X3: return launch_bwd<F32X3>(gamma, T, B, D, M, X, w, wmb, ct, xbar, dgamma, st);
-    case F32X2: return launch_bwd<F32X2>(gamma, T, B, D, M, X, w, wmb, ct, xbar, dgamma, st);
-    case BF16: return launch_bwd<BF16>(gamma, T, B, D, M, X, w, wmb, ct, xbar, dgamma, st);
-  }
-  return cudaErrorInvalidValue;
+  const int D = d.width[0], X = d.width[L];
+  const AnyArgs a{d, static_cast<uint32_t*>(scratch), any_scratch_words(d, 1)};
+  return by_rung(rung, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return fixed_shape(d)
+        ? launch_bwd<R>(gamma, T, B, D, M, X, fixed_weights(d), wmb, ct, xbar, dgamma, st)
+        : launch_bwd_any<R>(gamma, T, B, M, a, n_blocks, wmb, ct, xbar, dgamma, st);
+  });
 }
 
 int vlg_mma_selftest(int trans, const float* h, const float* w, float* out, int n,

@@ -58,7 +58,15 @@
 // 128 points, gathers dx from the planes and runs the masked chain.  This
 // decodes twice where the TPU kernel decodes once; the single decode with
 // kept masks is later work.
+//
+// Any decoder.  The kernels above take the production shape D <= 4 -> 128 ->
+// 128 -> X <= 64; every other decoder (2 to 6 layers, hidden widths up to
+// 512, X <= 128) takes mc_segments_any and mc_chain_any: the same bodies
+// (segments_body, chain_body) over the generic decode of decode_any.cuh, in
+// persistent blocks, one sample per decode sweep (8 output columns a thread
+// leave no registers for a second).
 
+#include "decode_any.cuh"
 #include "decode_common.cuh"
 
 namespace {
@@ -68,13 +76,15 @@ constexpr int MC_RUN = 8;                        // t-rows a thread group decode
 constexpr int MC_SEGS = MC_RUN - 1;              // segments it owns
 constexpr int MC_RUNS = TP / MC_RUN / MC_COLS;   // runs per spline per tile
 constexpr int MC_TILE_SEGS = MC_RUNS * MC_SEGS;  // segments per spline per tile
-constexpr int SLOTS = 2;                         // samples per decode sweep
 constexpr int SMAX = 8;                          // most samples mc_chain stages
 
-struct McSmem : DecodeSmem {
+template <class Base>
+struct McSmemOf : Base {
   int idx[2 * SMAX * TP];   // the tile's draws, -1 where there is no segment
   float red[TP];            // mc_segments: energy of the segment after point p
 };
+using McSmem = McSmemOf<DecodeSmem>;
+using McSmemAny = McSmemOf<AnySmem>;
 
 // Where the draws come from: planes in device memory (d1 != nullptr) or the
 // counter-based generator.
@@ -113,17 +123,20 @@ __device__ int draw(const Draws& dr, int S, int T, int B, int side, int smp, int
   return min((int)floorf(__fmul_rn(u, k)), (int)k - 1);
 }
 
-// Pass 1 of both directions.  Tile (blockIdx.y: segments t0..t0+27,
-// blockIdx.x: splines b0..b0+3).  diffs == nullptr: per-tile partial energies
-// -> partial[blockIdx.y * B + b]; else the difference planes -> diffs.
-template <int R>
-__global__ void __launch_bounds__(NT, 1)
-mc_segments(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
-            Weights w, Draws dr, float* __restrict__ partial, float* __restrict__ diffs) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  McSmem& s = *reinterpret_cast<McSmem*>(smem_raw);
+// Pass 1 of both directions.  Tile (by: segments t0..t0+27, bx: splines
+// b0..b0+3).  diffs == nullptr: per-tile partial energies -> partial[by * B
+// + b]; else the difference planes -> diffs.  P::SLOTS samples per decode
+// sweep.
+template <int R, class P>
+__device__ __forceinline__ void segments_body(McSmemOf<typename P::Smem>& s,
+                                              const typename P::Ctx& c, int bx, int by,
+                                              const float* __restrict__ gamma, int T, int B,
+                                              int D, int M, int X, int S, Draws dr,
+                                              float* __restrict__ partial,
+                                              float* __restrict__ diffs) {
+  constexpr int NJ = P::NJX, SLOTS = P::SLOTS;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int t0 = blockIdx.y * MC_TILE_SEGS, b0 = blockIdx.x * MC_COLS;
+  const int t0 = by * MC_TILE_SEGS, b0 = bx * MC_COLS;
   // point p = run * 8 + i: row i of run (p / 8), which is run (p / 8) /
   // MC_COLS of spline b0 + (p / 8) % MC_COLS
   for (int e = tid; e < TP * DMAX; e += NT) {
@@ -146,20 +159,17 @@ mc_segments(const float* __restrict__ gamma, int T, int B, int D, int M, int X, 
       const bool ok = i < MC_SEGS && tt < T - 1 && bb < B && smp < S;
       s.idx[e] = ok ? draw(dr, S, T, B, side, smp, tt, bb) : -1;
     }
-    float diff[SLOTS][MC_SEGS][4];
+    float diff[SLOTS][MC_SEGS][NJ];
 #pragma unroll
     for (int k = 0; k < SLOTS; ++k)
 #pragma unroll
       for (int i = 0; i < MC_SEGS; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) diff[k][i][j] = 0.f;
+        for (int j = 0; j < NJ; ++j) diff[k][i][j] = 0.f;
     for (int m = 0; m < M; ++m) {
-      __syncthreads();
-      stage_weights<R>(s, m, D, X, w);
-      __syncthreads();
-      float x[8][4];
-      uint32_t m1[2], m2[2];
-      decode_tile<R>(s, D, x, m1, m2);
+      float x[8][NJ];
+      typename P::Masks mk;
+      P::template decode<R>(s, c, m, D, X, x, mk);
 #pragma unroll
       for (int k = 0; k < SLOTS; ++k)
 #pragma unroll
@@ -168,7 +178,7 @@ mc_segments(const float* __restrict__ gamma, int T, int B, int D, int M, int X, 
           const bool lo = s.idx[k * TP + p] == m;
           const bool hi = s.idx[(SLOTS + k) * TP + p] == m;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < NJ; ++j) {
             if (hi) diff[k][i][j] = __fadd_rn(diff[k][i][j], x[i + 1][j]);
             if (lo) diff[k][i][j] = __fsub_rn(diff[k][i][j], x[i][j]);
           }
@@ -182,7 +192,7 @@ mc_segments(const float* __restrict__ gamma, int T, int B, int D, int M, int X, 
           if (s0 + k >= S || tb + i >= T - 1 || b >= B) continue;
           float* row = diffs + (((size_t)(s0 + k) * (T - 1) + tb + i) * B + b) * X;
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < NJ; ++j)
             if (tx + 16 * j < X) row[tx + 16 * j] = diff[k][i][j];
         }
     } else {
@@ -193,7 +203,7 @@ mc_segments(const float* __restrict__ gamma, int T, int B, int D, int M, int X, 
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) q += diff[k][i][j] * diff[k][i][j];
+          for (int j = 0; j < NJ; ++j) q += diff[k][i][j] * diff[k][i][j];
         q = sum16(q);
         if (tx == 0) s.red[ty * MC_RUN + i] += q;
       }
@@ -204,7 +214,33 @@ mc_segments(const float* __restrict__ gamma, int T, int B, int D, int M, int X, 
     float e = 0.f;
     for (int run = 0; run < MC_RUNS; ++run)
       for (int i = 0; i < MC_SEGS; ++i) e += s.red[(run * MC_COLS + tid) * MC_RUN + i];
-    partial[(size_t)blockIdx.y * B + b0 + tid] = e;
+    partial[(size_t)by * B + b0 + tid] = e;
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+mc_segments(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
+            Weights w, Draws dr, float* __restrict__ partial, float* __restrict__ diffs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  segments_body<R, FixedDecode>(*reinterpret_cast<McSmem*>(smem_raw), FixedDecode::Ctx{w},
+                                blockIdx.x, blockIdx.y, gamma, T, B, D, M, X, S, dr, partial,
+                                diffs);
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+mc_segments_any(const float* __restrict__ gamma, int T, int B, int M, int S, AnyArgs a,
+                Draws dr, float* __restrict__ partial, float* __restrict__ diffs, int gx,
+                int n_items) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  McSmemAny& s = *reinterpret_cast<McSmemAny*>(smem_raw);
+  const AnyCtx c = any_begin(s, a);
+  const int D = s.dec.width[0], X = s.dec.width[s.dec.L];
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    segments_body<R, AnyDecode>(s, c, item % gx, item / gx, gamma, T, B, D, M, X, S, dr,
+                                partial, diffs);
+    __syncthreads();
   }
 }
 
@@ -218,19 +254,21 @@ __global__ void mc_sum_tiles(const float* __restrict__ partial, int n_tiles, int
   out[b] = e / (float)S;
 }
 
-// K6/K8, pass 2: per decoder, re-decode the tile of 128 points of the
+// K6/K8, pass 2: per decoder, re-decode tile bx of 128 points of the
 // flattened (T*B) curve, gather dx from the difference planes and run the
 // masked cotangent chain back to dgamma (T*B, D).
-template <int R>
-__global__ void __launch_bounds__(NT, 1)
-mc_chain(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
-         Weights w, Draws dr, const float* __restrict__ ct,
-         const float* __restrict__ diffs, float* __restrict__ dgamma) {
+template <int R, class P>
+__device__ __forceinline__ void chain_body(McSmemOf<typename P::Smem>& s,
+                                           const typename P::Ctx& c, int bx,
+                                           const float* __restrict__ gamma, int T, int B, int D,
+                                           int M, int X, int S, Draws dr,
+                                           const float* __restrict__ ct,
+                                           const float* __restrict__ diffs,
+                                           float* __restrict__ dgamma) {
   constexpr int C = CHAIN_RUNG<R>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  McSmem& s = *reinterpret_cast<McSmem*>(smem_raw);
+  constexpr int NJ = P::NJX;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int N = T * B, p0 = blockIdx.x * TP;
+  const int N = T * B, p0 = bx * TP;
   load_points(s, gamma, N, D, p0);
   for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
   // idx[smp * TP + p]: d1 of the segment after point p; idx[(S + smp) * TP
@@ -245,42 +283,66 @@ mc_chain(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int
   }
   const float two_over_s = 2.f / (float)S;
   for (int m = 0; m < M; ++m) {
-    __syncthreads();
-    stage_weights<R>(s, m, D, X, w);
-    __syncthreads();
-    float x[8][4];
-    uint32_t m1[2], m2[2];
-    decode_tile<R>(s, D, x, m1, m2);
+    float x[8][NJ];
+    typename P::Masks mk;
+    P::template decode<R>(s, c, m, D, X, x, mk);
     // dx -> act[n][p] at the chain rung
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int p = ty * 8 + i, pg = p0 + p, pc = min(pg, N - 1);
       const int t = pc / B, b = pc % B;
       const float sc = pg < N ? __fmul_rn(two_over_s, ct[b]) : 0.f;
-      float dx[4] = {0.f, 0.f, 0.f, 0.f};
+      float dx[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) dx[j] = 0.f;
       for (int smp = 0; smp < S; ++smp) {
         if (s.idx[smp * TP + p] == m) {
           const float* row = diffs + (((size_t)smp * (T - 1) + t) * B + b) * X;
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < NJ; ++j)
             if (tx + 16 * j < X) dx[j] = __fsub_rn(dx[j], row[tx + 16 * j]);
         }
         if (s.idx[(S + smp) * TP + p] == m) {
           const float* row = diffs + (((size_t)smp * (T - 1) + t - 1) * B + b) * X;
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < NJ; ++j)
             if (tx + 16 * j < X) dx[j] = __fadd_rn(dx[j], row[tx + 16 * j]);
         }
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < NJ; ++j)
         if (tx + 16 * j < X) s.act[(tx + 16 * j) * S_ACT + p] = pack<C>(__fmul_rn(dx[j], sc));
     }
     __syncthreads();
-    chain_tile<C>(s, D, X, m1, m2);
+    P::template chain<C>(s, c, m, D, X, mk);
   }
   __syncthreads();
   store_dgamma(s, dgamma, N, D, p0);
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+mc_chain(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
+         Weights w, Draws dr, const float* __restrict__ ct,
+         const float* __restrict__ diffs, float* __restrict__ dgamma) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  chain_body<R, FixedDecode>(*reinterpret_cast<McSmem*>(smem_raw), FixedDecode::Ctx{w},
+                             blockIdx.x, gamma, T, B, D, M, X, S, dr, ct, diffs, dgamma);
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+mc_chain_any(const float* __restrict__ gamma, int T, int B, int M, int S, AnyArgs a, Draws dr,
+             const float* __restrict__ ct, const float* __restrict__ diffs,
+             float* __restrict__ dgamma, int n_items) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  McSmemAny& s = *reinterpret_cast<McSmemAny*>(smem_raw);
+  const AnyCtx c = any_begin(s, a);
+  const int D = s.dec.width[0], X = s.dec.width[s.dec.L];
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    chain_body<R, AnyDecode>(s, c, item, gamma, T, B, D, M, X, S, dr, ct, diffs, dgamma);
+    __syncthreads();
+  }
 }
 
 int fwd_tiles(int T) { return T > 1 ? (T - 1 + MC_TILE_SEGS - 1) / MC_TILE_SEGS : 1; }
@@ -318,6 +380,41 @@ cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, in
   return cudaGetLastError();
 }
 
+template <int R>
+cudaError_t launch_segments_any(const float* gamma, int T, int B, int M, int S,
+                                const AnyArgs& a, int n_blocks, Draws dr, float* partial,
+                                float* diffs, cudaStream_t st) {
+  cudaError_t err = prepare<McSmemAny>(mc_segments_any<R>);
+  if (err != cudaSuccess) return err;
+  const int gx = (B + MC_COLS - 1) / MC_COLS;
+  mc_segments_any<R><<<n_blocks, NT, sizeof(McSmemAny), st>>>(gamma, T, B, M, S, a, dr, partial,
+                                                              diffs, gx, gx * fwd_tiles(T));
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_fwd_any(const float* gamma, int T, int B, int M, int S, const AnyArgs& a,
+                           int n_blocks, Draws dr, float* partial, float* out, cudaStream_t st) {
+  cudaError_t err =
+      launch_segments_any<R>(gamma, T, B, M, S, a, n_blocks, dr, partial, nullptr, st);
+  if (err != cudaSuccess) return err;
+  mc_sum_tiles<<<(B + 127) / 128, 128, 0, st>>>(partial, fwd_tiles(T), B, S, out);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_bwd_any(const float* gamma, int T, int B, int M, int S, const AnyArgs& a,
+                           int n_blocks, Draws dr, const float* ct, float* diffs, float* dgamma,
+                           cudaStream_t st) {
+  cudaError_t err =
+      launch_segments_any<R>(gamma, T, B, M, S, a, n_blocks, dr, nullptr, diffs, st);
+  if (err == cudaSuccess) err = prepare<McSmemAny>(mc_chain_any<R>);
+  if (err != cudaSuccess) return err;
+  mc_chain_any<R><<<n_blocks, NT, sizeof(McSmemAny), st>>>(gamma, T, B, M, S, a, dr, ct, diffs,
+                                                           dgamma, (T * B + TP - 1) / TP);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -326,40 +423,45 @@ extern "C" {
 int vlg_mc_fwd_tiles(int T) { return fwd_tiles(T); }
 
 // d1 == nullptr: the draws are made in the kernel from (key0, key1) and kmax
-// (K7, K8); else from the planes d1, d2 (K5, K6).
-int vlg_mc_fwd(int rung, const float* gamma, int T, int B, int D, int M, int X, int S,
-               const float* W1, const float* b1, const float* W2, const float* b2,
-               const float* W3, const float* b3, const int* d1, const int* d2,
-               const float* kmax, unsigned key0, unsigned key1, float* partial, float* out,
-               void* stream) {
-  const Weights w{W1, b1, W2, b2, W3, b3};
+// (K7, K8); else from the planes d1, d2 (K5, K6).  The decoder as arrays, as
+// vlg_energy_fwd (energy_expected.cu); the generic kernels' scratch is
+// n_blocks x vlg_any_scratch_words(L, widths, 1) words.
+int vlg_mc_fwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
+               const int* widths, const float* const* Ws, const float* const* bs,
+               const int* d1, const int* d2, const float* kmax, unsigned key0, unsigned key1,
+               float* partial, float* out, void* scratch, int n_blocks, void* stream) {
+  Decoder d;
+  if (!make_decoder(L, widths, Ws, bs, d)) return cudaErrorInvalidValue;
   const Draws dr{d1, d2, kmax, key0, key1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rung) {
-    case F32: return launch_fwd<F32>(gamma, T, B, D, M, X, S, w, dr, partial, out, st);
-    case F32X3: return launch_fwd<F32X3>(gamma, T, B, D, M, X, S, w, dr, partial, out, st);
-    case F32X2: return launch_fwd<F32X2>(gamma, T, B, D, M, X, S, w, dr, partial, out, st);
-    case BF16: return launch_fwd<BF16>(gamma, T, B, D, M, X, S, w, dr, partial, out, st);
-  }
-  return cudaErrorInvalidValue;
+  const int D = d.width[0], X = d.width[L];
+  const AnyArgs a{d, static_cast<uint32_t*>(scratch), any_scratch_words(d, 1)};
+  return by_rung(rung, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return fixed_shape(d)
+        ? launch_fwd<R>(gamma, T, B, D, M, X, S, fixed_weights(d), dr, partial, out, st)
+        : launch_fwd_any<R>(gamma, T, B, M, S, a, n_blocks, dr, partial, out, st);
+  });
 }
 
-int vlg_mc_bwd(int rung, const float* gamma, int T, int B, int D, int M, int X, int S,
-               const float* W1, const float* b1, const float* W2, const float* b2,
-               const float* W3, const float* b3, const int* d1, const int* d2,
-               const float* kmax, unsigned key0, unsigned key1, const float* ct,
-               float* diffs, float* dgamma, void* stream) {
+int vlg_mc_bwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
+               const int* widths, const float* const* Ws, const float* const* bs,
+               const int* d1, const int* d2, const float* kmax, unsigned key0, unsigned key1,
+               const float* ct, float* diffs, float* dgamma, void* scratch, int n_blocks,
+               void* stream) {
   if (S > SMAX) return cudaErrorInvalidValue;
-  const Weights w{W1, b1, W2, b2, W3, b3};
+  Decoder d;
+  if (!make_decoder(L, widths, Ws, bs, d)) return cudaErrorInvalidValue;
   const Draws dr{d1, d2, kmax, key0, key1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rung) {
-    case F32: return launch_bwd<F32>(gamma, T, B, D, M, X, S, w, dr, ct, diffs, dgamma, st);
-    case F32X3: return launch_bwd<F32X3>(gamma, T, B, D, M, X, S, w, dr, ct, diffs, dgamma, st);
-    case F32X2: return launch_bwd<F32X2>(gamma, T, B, D, M, X, S, w, dr, ct, diffs, dgamma, st);
-    case BF16: return launch_bwd<BF16>(gamma, T, B, D, M, X, S, w, dr, ct, diffs, dgamma, st);
-  }
-  return cudaErrorInvalidValue;
+  const int D = d.width[0], X = d.width[L];
+  const AnyArgs a{d, static_cast<uint32_t*>(scratch), any_scratch_words(d, 1)};
+  return by_rung(rung, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return fixed_shape(d)
+        ? launch_bwd<R>(gamma, T, B, D, M, X, S, fixed_weights(d), dr, ct, diffs, dgamma, st)
+        : launch_bwd_any<R>(gamma, T, B, M, S, a, n_blocks, dr, ct, diffs, dgamma, st);
+  });
 }
 
 }  // extern "C"

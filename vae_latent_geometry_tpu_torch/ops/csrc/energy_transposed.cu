@@ -53,7 +53,17 @@
 // Blocks are persistent (one per SM: ~210 KB of shared memory each) and take
 // the (spline group, span) items in a fixed stride, so the scratch is per
 // resident block.
+//
+// Any decoder.  The kernels above take D <= 2 -> 128 -> 128 -> X <= 64;
+// every other 3-layer decoder (hidden widths up to 512, X <= 128) takes
+// k9_energy_spans_any and k10_dgamma_any: the same bodies (k9_body,
+// k10_body) over the generic decode of decode_any.cuh, its outputs read out
+// of shared memory into the narrow tile (16 row groups of 8 at X <= 128);
+// K10 keeps every decoder's masks of two chunks in 2 M mask areas of the
+// block's scratch, and its chain (decode_any.cuh's) sums dgamma in shared
+// memory in decoder order.
 
+#include "decode_any.cuh"
 #include "decode_common.cuh"
 
 namespace {
@@ -240,11 +250,13 @@ __device__ void decode_T(TSmem& s, int D, int ni, float (&x)[8][4], uint32_t (&m
   __syncthreads();
 }
 
-// The chunk's points rows t0.. (clamped to row t_last) of splines b0..b0+3.
-__device__ void load_chunk(TSmem& s, const float* __restrict__ gamma, int B, int D, int t0,
+// The chunk's points rows t0.. (clamped to row t_last) of splines b0..b0+3,
+// GS values a point.
+template <int GS, class S>
+__device__ void load_chunk(S& s, const float* __restrict__ gamma, int B, int D, int t0,
                            int t_last, int b0) {
-  for (int e = threadIdx.x; e < PC * DT; e += NT) {
-    const int p = e / DT, d = e % DT;
+  for (int e = threadIdx.x; e < PC * GS; e += NT) {
+    const int p = e / GS, d = e % GS;
     const int t = min(t0 + p / NS, t_last), b = min(b0 + p % NS, B - 1);
     s.g[e] = d < D ? gamma[((size_t)t * B + b) * D + d] : 0.f;
   }
@@ -263,13 +275,74 @@ __device__ __forceinline__ Span span_of(int item, int groups, int span, int T) {
   return sp;
 }
 
-// K9, pass 1: partial energy of every (spline, span) -> partial[g * B + b].
+// The generic decode's counterpart of TSmem: the same per-chunk state, the
+// output rows padded to XMAX_ANY.
+struct TSmemAny : AnySmem {
+  float xb[XMAX_ANY * S_ACT];
+  float red[8 * PC];
+  float var[PC];
+  float seg[PC];
+  float edge[2][XMAX_ANY * NS];
+  float edge_v[NS];
+};
+
+// The two decodes of the transposed kernels' bodies: the fixed decode_T
+// (weights staged per decoder) and the generic decode_any read out to the
+// narrow tile.  NI: the narrow tile's row groups (8 rows apart) a thread
+// holds, XP: the widest padded output, GS: floats a point in s.g.
+// tile(): element (i, j) of a running narrow tile (K10's xbar), in
+// registers or, beside the generic decode, in the block's scratch.
+struct TFixed {
+  static constexpr bool kFixed = true;
+  static constexpr int NI = 8, XP = XPM, GS = DT;
+  using Smem = TSmem;
+  struct Ctx {
+    Weights w;
+    const float* W1f;
+  };
+  __device__ static float& tile(float (&r)[NI][4], const Ctx&, int i, int j) { return r[i][j]; }
+};
+struct TAny {
+  static constexpr bool kFixed = false;
+  static constexpr int NI = XMAX_ANY / 8, XP = XMAX_ANY, GS = DMAX;
+  using Smem = TSmemAny;
+  struct Ctx {
+    AnyCtx a;
+    const float* W1f;
+  };
+  __device__ static float& tile(float (&)[NI][4], const Ctx& c, int i, int j) {
+    return c.a.priv[(i * 4 + j) * NT + threadIdx.x];
+  }
+};
+
+// decode_any of decoder m (masks to area `area`) read out to the narrow
+// tile: x[i][j] = output row qy + 8 i at point 4 qx + j.
 template <int R>
-__global__ void __launch_bounds__(NT, 1)
-k9_energy_spans(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int span,
-                int n_items, Weights w, float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  TSmem& s = *reinterpret_cast<TSmem*>(smem_raw);
+__device__ void decode_narrow_any(TSmemAny& s, const AnyCtx& c, int m, int area,
+                                  float (&x)[TAny::NI][4]) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, qx = tid & 31, qy = tid >> 5;
+  float xw[8][NJA];
+  decode_any<R>(s, c, m, area, xw);
+  float* o = reinterpret_cast<float*>(s.act);
+#pragma unroll
+  for (int j = 0; j < NJA; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[(tx + 16 * j) * S_ACT + ty * 8 + i] = xw[i][j];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TAny::NI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[i][j] = o[(qy + 8 * i) * S_ACT + 4 * qx + j];
+  __syncthreads();
+}
+
+// K9, pass 1: partial energy of every (spline, span) -> partial[g * B + b].
+template <int R, class P>
+__device__ __forceinline__ void k9_body(typename P::Smem& s, const typename P::Ctx& c,
+                                        const float* __restrict__ gamma, int T, int B, int D,
+                                        int M, int X, int span, int n_items,
+                                        float* __restrict__ partial) {
+  constexpr int NI = P::NI;
   const int tid = threadIdx.x, qx = tid & 31, qy = tid >> 5;
   const int ni = (X + 7) / 8, groups = (B + NS - 1) / NS;
   const float wm = 1.f / (float)M;
@@ -278,27 +351,31 @@ k9_energy_spans(const float* __restrict__ gamma, int T, int B, int D, int M, int
     const int t_a = max(sp.t_s - 1, 0), t_b = sp.t_e;   // one carried-in point
     const int n_chunks = sp.t_s < T ? (t_b - t_a + RC - 1) / RC : 0;
     float e_acc = 0.f;                                   // thread tid < NS: spline b0 + tid
-    for (int c = 0; c < n_chunks; ++c) {
-      const int t0 = t_a + c * RC;
+    for (int cc = 0; cc < n_chunks; ++cc) {
+      const int t0 = t_a + cc * RC;
       __syncthreads();
-      load_chunk(s, gamma, B, D, t0, t_b - 1, sp.b0);
-      float yb[8][4], sq[4];
+      load_chunk<P::GS>(s, gamma, B, D, t0, t_b - 1, sp.b0);
+      float yb[NI][4], sq[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         sq[j] = 0.f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) yb[i][j] = 0.f;
+        for (int i = 0; i < NI; ++i) yb[i][j] = 0.f;
       }
       for (int m = 0; m < M; ++m) {
-        __syncthreads();
-        stage_T<R>(s, m, D, X, w, nullptr);
-        __syncthreads();
-        float x[8][4];
-        uint32_t m1[2], m2[2];
-        decode_T<R>(s, D, ni, x, m1, m2);
+        float x[NI][4];
+        if constexpr (P::kFixed) {
+          __syncthreads();
+          stage_T<R>(s, m, D, X, c.w, nullptr);
+          __syncthreads();
+          uint32_t m1[2], m2[2];
+          decode_T<R>(s, D, ni, x, m1, m2);
+        } else {
+          decode_narrow_any<R>(s, c.a, m, 0, x);
+        }
         float q[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < NI; ++i) {
           if (i >= ni) continue;
           const int n = qy + 8 * i;
 #pragma unroll
@@ -320,7 +397,7 @@ k9_energy_spans(const float* __restrict__ gamma, int T, int B, int D, int M, int
       // over the 8 row groups below in a fixed order
       float v[4] = {sq[0], sq[1], sq[2], sq[3]};
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < NI; ++i) {
         if (i >= ni) continue;
         const int n = qy + 8 * i;
 #pragma unroll
@@ -341,7 +418,7 @@ k9_energy_spans(const float* __restrict__ gamma, int T, int B, int D, int M, int
       if (tid < PC) {
         const int r = tid / NS, sl = tid % NS, t = t0 + r;
         float seg = 0.f;
-        if (t < t_b && sp.b0 + sl < B && (r > 0 || c > 0)) {
+        if (t < t_b && sp.b0 + sl < B && (r > 0 || cc > 0)) {
           float sd = 0.f;
           for (int n = 0; n < X; ++n) {
             const float prev = r > 0 ? s.xb[n * S_ACT + tid - NS] : s.edge[0][n * NS + sl];
@@ -356,12 +433,32 @@ k9_energy_spans(const float* __restrict__ gamma, int T, int B, int D, int M, int
       if (tid < NS)
         for (int r = 0; r < RC; ++r) e_acc += s.seg[r * NS + tid];
       // carry the chunk's last row into the next chunk
-      for (int e = tid; e < XPM * NS; e += NT)
+      for (int e = tid; e < P::XP * NS; e += NT)
         s.edge[0][e] = s.xb[(e / NS) * S_ACT + (RC - 1) * NS + e % NS];
       if (tid < NS) s.edge_v[tid] = s.var[(RC - 1) * NS + tid];
     }
     if (tid < NS && sp.b0 + tid < B && sp.t_s < T) partial[(size_t)sp.g * B + sp.b0 + tid] = e_acc;
   }
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k9_energy_spans(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int span,
+                int n_items, Weights w, float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  k9_body<R, TFixed>(*reinterpret_cast<TSmem*>(smem_raw), TFixed::Ctx{w, nullptr}, gamma, T, B,
+                     D, M, X, span, n_items, partial);
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k9_energy_spans_any(const float* __restrict__ gamma, int T, int B, int M, int span,
+                    int n_items, AnyArgs a, float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TSmemAny& s = *reinterpret_cast<TSmemAny*>(smem_raw);
+  const TAny::Ctx c{any_begin(s, a), nullptr};
+  k9_body<R, TAny>(s, c, gamma, T, B, s.dec.width[0], M, s.dec.width[s.dec.L], span, n_items,
+                   partial);
 }
 
 // K9, pass 2: fixed-order sum of the G span energies.
@@ -375,20 +472,22 @@ __global__ void k9_sum_spans(const float* __restrict__ partial, int G, int B,
 }
 
 // K10: dgamma of sum_b ct_b E_b, one launch, one decode per point and decoder.
-template <int R>
-__global__ void __launch_bounds__(NT, 1)
-k10_dgamma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int span,
-           int n_items, Weights w, const float* __restrict__ W1f, const float* __restrict__ ct,
-           float4* __restrict__ xs_scr, uint4* __restrict__ mk_scr, float4* __restrict__ xb_scr,
-           float* __restrict__ dgamma) {
+template <int R, class P>
+__device__ __forceinline__ void k10_body(typename P::Smem& s, const typename P::Ctx& c,
+                                         const float* __restrict__ gamma, int T, int B, int D,
+                                         int M, int X, int span, int n_items,
+                                         const float* __restrict__ ct,
+                                         float4* __restrict__ xs_scr, uint4* __restrict__ mk_scr,
+                                         float4* __restrict__ xb_scr,
+                                         float* __restrict__ dgamma) {
   constexpr int C = CHAIN_RUNG<R>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  TSmem& s = *reinterpret_cast<TSmem*>(smem_raw);
+  constexpr int NI = P::NI;
   const int tid = threadIdx.x, qx = tid & 31, qy = tid >> 5, px = tid & 15, ry = tid >> 4;
   const int ni = (X + 7) / 8, groups = (B + NS - 1) / NS;
   const float wm = 1.f / (float)M;
   const float sc2 = __fmul_rn(2.f, wm);
-  // this block's scratch: decoder outputs [buf][m][i][tid], masks [buf][m][tid],
+  // this block's scratch: decoder outputs [buf][m][i][tid], masks [buf][m][tid]
+  // (the fixed decode; the generic one keeps area buf * M + m of its own),
   // the chunk's xbar [i][tid]
   float4* xs = xs_scr + (size_t)blockIdx.x * 2 * M * ni * NT;
   uint4* mk = mk_scr + (size_t)blockIdx.x * 2 * M * NT;
@@ -398,71 +497,81 @@ k10_dgamma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, i
     const Span sp = span_of(item, groups, span, T);
     const int t_a = max(sp.t_s - 1, 0), t_b = min(sp.t_e + 1, T);   // one extra point each side
     const int n_chunks = sp.t_s < T ? (t_b - t_a + RC - 1) / RC : 0;
-    for (int c = 0; c <= n_chunks && n_chunks > 0; ++c) {
-      const int buf = c & 1;
-      // ---- decode chunk c, keep every decoder's output and masks ----
-      if (c < n_chunks) {
+    for (int cc = 0; cc <= n_chunks && n_chunks > 0; ++cc) {
+      const int buf = cc & 1;
+      // ---- decode chunk cc, keep every decoder's output and masks ----
+      if (cc < n_chunks) {
         __syncthreads();
-        load_chunk(s, gamma, B, D, t_a + c * RC, t_b - 1, sp.b0);
-        float xb[8][4];
+        load_chunk<P::GS>(s, gamma, B, D, t_a + cc * RC, t_b - 1, sp.b0);
+        float xb[NI][4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < NI; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) xb[i][j] = 0.f;
+          for (int j = 0; j < 4; ++j) P::tile(xb, c, i, j) = 0.f;
         for (int m = 0; m < M; ++m) {
-          if (m != staged) {
-            __syncthreads();
-            stage_T<R>(s, m, D, X, w, W1f);
-            staged = m;
-          }
-          __syncthreads();
-          float x[8][4];
+          float x[NI][4];
           uint32_t m1[2], m2[2];
-          decode_T<R>(s, D, ni, x, m1, m2);
+          if constexpr (P::kFixed) {
+            if (m != staged) {
+              __syncthreads();
+              stage_T<R>(s, m, D, X, c.w, c.W1f);
+              staged = m;
+            }
+            __syncthreads();
+            decode_T<R>(s, D, ni, x, m1, m2);
+          } else {
+            decode_narrow_any<R>(s, c.a, m, buf * M + m, x);
+          }
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
+          for (int i = 0; i < NI; ++i) {
             if (i >= ni) continue;
             xs[((size_t)(buf * M + m) * ni + i) * NT + tid] =
                 make_float4(x[i][0], x[i][1], x[i][2], x[i][3]);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) xb[i][j] = xb[i][j] + wm * x[i][j];
+            for (int j = 0; j < 4; ++j) P::tile(xb, c, i, j) = P::tile(xb, c, i, j) + wm * x[i][j];
           }
-          mk[(size_t)(buf * M + m) * NT + tid] = make_uint4(m1[0], m1[1], m2[0], m2[1]);
+          if constexpr (P::kFixed)
+            mk[(size_t)(buf * M + m) * NT + tid] = make_uint4(m1[0], m1[1], m2[0], m2[1]);
         }
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < NI; ++i) {
           if (i >= ni) continue;
-          xbs[(size_t)i * NT + tid] = make_float4(xb[i][0], xb[i][1], xb[i][2], xb[i][3]);
-          // row 0 of this chunk: the right neighbour of chunk c-1's last row
+          xbs[(size_t)i * NT + tid] = make_float4(P::tile(xb, c, i, 0), P::tile(xb, c, i, 1),
+                                                  P::tile(xb, c, i, 2), P::tile(xb, c, i, 3));
+          // row 0 of this chunk: the right neighbour of chunk cc-1's last row
           if (qx == 0)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) s.edge[1][(qy + 8 * i) * NS + j] = xb[i][j];
+            for (int j = 0; j < 4; ++j) s.edge[1][(qy + 8 * i) * NS + j] = P::tile(xb, c, i, j);
         }
       }
-      // ---- emit dgamma of chunk c-1 ----
-      if (c > 0) {
-        const int pb = buf ^ 1, t0 = t_a + (c - 1) * RC;
+      // ---- emit dgamma of chunk cc-1 ----
+      if (cc > 0) {
+        const int pb = buf ^ 1, t0 = t_a + (cc - 1) * RC;
         const int r = qx, t = t0 + r;                       // the narrow tile's row
         const bool row_out = t >= sp.t_s && t < sp.t_e;
         const bool has_l = t > 0, has_r = t < T - 1;
-        const float cc = (float)((int)has_l + (int)has_r);
+        const float cl = (float)((int)has_l + (int)has_r);
         float q[8][DT];
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int d = 0; d < DT; ++d) q[j][d] = 0.f;
+        if constexpr (!P::kFixed)
+          for (int e = tid; e < PC * DMAX; e += NT) s.dg[e] = 0.f;
         __syncthreads();
         for (int mm = 0; mm < M; ++mm) {
           const int m = M - 1 - mm;                          // reuse the staged decoder
-          if (m != staged) {
-            __syncthreads();
-            stage_T<R>(s, m, D, X, w, W1f);
-            staged = m;
-            __syncthreads();
+          if constexpr (P::kFixed) {
+            if (m != staged) {
+              __syncthreads();
+              stage_T<R>(s, m, D, X, c.w, c.W1f);
+              staged = m;
+              __syncthreads();
+            }
           }
           // dx -> act[n][p] at the chain rung
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
+          for (int i = 0; i < NI; ++i) {
             if (i >= ni) continue;
             const int n = qy + 8 * i;
             const float4 xv = xs[((size_t)(pb * M + m) * ni + i) * NT + tid];
@@ -477,68 +586,82 @@ k10_dgamma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, i
                 const float right =
                     has_r ? (r < RC - 1 ? s.xb[n * S_ACT + p + NS] : s.edge[1][n * NS + j]) : 0.f;
                 const float sc = __fmul_rn(sc2, ct[b]);
-                v = __fmul_rn(sc, __fsub_rn(__fsub_rn(__fmul_rn(cc, xr[j]), left), right));
+                v = __fmul_rn(sc, __fsub_rn(__fsub_rn(__fmul_rn(cl, xr[j]), left), right));
               }
               s.act[n * S_ACT + p] = pack<C>(v);
             }
           }
-          const uint4 mv = mk[(size_t)(pb * M + m) * NT + tid];
-          const uint32_t m1[2] = {mv.x, mv.y}, m2[2] = {mv.z, mv.w};
-          __syncthreads();
-          float acc[8][8];
+          if constexpr (P::kFixed) {
+            const uint4 mv = mk[(size_t)(pb * M + m) * NT + tid];
+            const uint32_t m1[2] = {mv.x, mv.y}, m2[2] = {mv.z, mv.w};
+            __syncthreads();
+            float acc[8][8];
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+            for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-          gemm_wide<C, false>(s.act, s.w3, S_W3T, 8 * ni, acc);   // dh2 = W3 . dx
-          __syncthreads();
+              for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+            gemm_wide<C, false>(s.act, s.w3, S_W3T, 8 * ni, acc);   // dh2 = W3 . dx
+            __syncthreads();
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+            for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const int bit = i * 8 + j;
-              const float v = (m2[bit >> 5] >> (bit & 31)) & 1u ? acc[i][j] : 0.f;
-              s.act[(ry + 16 * i) * S_ACT + wide_p(px, j)] = pack<C>(v);
-              acc[i][j] = 0.f;
+              for (int j = 0; j < 8; ++j) {
+                const int bit = i * 8 + j;
+                const float v = (m2[bit >> 5] >> (bit & 31)) & 1u ? acc[i][j] : 0.f;
+                s.act[(ry + 16 * i) * S_ACT + wide_p(px, j)] = pack<C>(v);
+                acc[i][j] = 0.f;
+              }
+            __syncthreads();
+            gemm_wide<C, false>(s.act, s.w2, S_W2, H, acc);         // dh1 = W2 . dh2
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int k = ry + 16 * i;
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const int bit = i * 8 + j;
+                const float v = (m1[bit >> 5] >> (bit & 31)) & 1u ? acc[i][j] : 0.f;
+#pragma unroll
+                for (int d = 0; d < DT; ++d) q[j][d] += v * s.w1f[d * H + k];
+              }
             }
-          __syncthreads();
-          gemm_wide<C, false>(s.act, s.w2, S_W2, H, acc);         // dh1 = W2 . dh2
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int k = ry + 16 * i;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const int bit = i * 8 + j;
-              const float v = (m1[bit >> 5] >> (bit & 31)) & 1u ? acc[i][j] : 0.f;
-#pragma unroll
-              for (int d = 0; d < DT; ++d) q[j][d] += v * s.w1f[d * H + k];
-            }
+          } else {
+            __syncthreads();
+            chain_any<C>(s, c.a, m, pb * M + m, c.W1f);
           }
           __syncthreads();
         }
-        // dgamma: sum of the 16 wide row groups in a fixed order
-        float* red = reinterpret_cast<float*>(s.act);
+        if constexpr (P::kFixed) {
+          // dgamma: sum of the 16 wide row groups in a fixed order
+          float* red = reinterpret_cast<float*>(s.act);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int d = 0; d < DT; ++d) red[(ry * PC + wide_p(px, j)) * DT + d] = q[j][d];
-        __syncthreads();
-        for (int e = tid; e < PC * D; e += NT) {
-          const int p = e / D, d = e % D;
-          float v = 0.f;
-          for (int r16 = 0; r16 < 16; ++r16) v += red[(r16 * PC + p) * DT + d];
-          const int tp = t0 + p / NS, b = sp.b0 + p % NS;
-          if (tp >= sp.t_s && tp < sp.t_e && b < B) dgamma[((size_t)tp * B + b) * D + d] = v;
+            for (int d = 0; d < DT; ++d) red[(ry * PC + wide_p(px, j)) * DT + d] = q[j][d];
+          __syncthreads();
+          for (int e = tid; e < PC * D; e += NT) {
+            const int p = e / D, d = e % D;
+            float v = 0.f;
+            for (int r16 = 0; r16 < 16; ++r16) v += red[(r16 * PC + p) * DT + d];
+            const int tp = t0 + p / NS, b = sp.b0 + p % NS;
+            if (tp >= sp.t_s && tp < sp.t_e && b < B) dgamma[((size_t)tp * B + b) * D + d] = v;
+          }
+        } else {
+          for (int e = tid; e < PC * D; e += NT) {
+            const int p = e / D, d = e % D;
+            const int tp = t0 + p / NS, b = sp.b0 + p % NS;
+            if (tp >= sp.t_s && tp < sp.t_e && b < B)
+              dgamma[((size_t)tp * B + b) * D + d] = s.dg[p * DMAX + d];
+          }
         }
       }
-      // ---- rotate: left carry <- chunk c-1's last row; xbar <- chunk c's ----
-      if (c < n_chunks) {
+      // ---- rotate: left carry <- chunk cc-1's last row; xbar <- chunk cc's ----
+      if (cc < n_chunks) {
         __syncthreads();
-        for (int e = tid; e < XPM * NS; e += NT)
+        for (int e = tid; e < P::XP * NS; e += NT)
           s.edge[0][e] = s.xb[(e / NS) * S_ACT + (RC - 1) * NS + e % NS];
         __syncthreads();
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < NI; ++i) {
           if (i >= ni) continue;
           const float4 v = xbs[(size_t)i * NT + tid];
           float* row = &s.xb[(qy + 8 * i) * S_ACT + 4 * qx];
@@ -550,6 +673,30 @@ k10_dgamma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, i
       }
     }
   }
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k10_dgamma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int span,
+           int n_items, Weights w, const float* __restrict__ W1f, const float* __restrict__ ct,
+           float4* __restrict__ xs_scr, uint4* __restrict__ mk_scr, float4* __restrict__ xb_scr,
+           float* __restrict__ dgamma) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  k10_body<R, TFixed>(*reinterpret_cast<TSmem*>(smem_raw), TFixed::Ctx{w, W1f}, gamma, T, B, D,
+                      M, X, span, n_items, ct, xs_scr, mk_scr, xb_scr, dgamma);
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k10_dgamma_any(const float* __restrict__ gamma, int T, int B, int M, int span, int n_items,
+               AnyArgs a, const float* __restrict__ W1f, const float* __restrict__ ct,
+               float4* __restrict__ xs_scr, float4* __restrict__ xb_scr,
+               float* __restrict__ dgamma) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TSmemAny& s = *reinterpret_cast<TSmemAny*>(smem_raw);
+  const TAny::Ctx c{any_begin(s, a), W1f};
+  k10_body<R, TAny>(s, c, gamma, T, B, s.dec.width[0], M, s.dec.width[s.dec.L], span, n_items,
+                    ct, xs_scr, nullptr, xb_scr, dgamma);
 }
 
 template <int R>
@@ -579,12 +726,40 @@ cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, in
   return cudaGetLastError();
 }
 
+template <int R>
+cudaError_t launch_fwd_any(const float* gamma, int T, int B, int M, int span, int G,
+                           int n_blocks, const AnyArgs& a, float* partial, float* out,
+                           cudaStream_t st) {
+  cudaError_t err = prepare<TSmemAny>(k9_energy_spans_any<R>);
+  if (err != cudaSuccess) return err;
+  const int n_items = G * ((B + NS - 1) / NS);
+  k9_energy_spans_any<R><<<n_blocks, NT, sizeof(TSmemAny), st>>>(gamma, T, B, M, span, n_items,
+                                                                 a, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k9_sum_spans<<<(B + 127) / 128, 128, 0, st>>>(partial, G, B, out);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_bwd_any(const float* gamma, int T, int B, int M, int span, int G,
+                           int n_blocks, const AnyArgs& a, const float* W1f, const float* ct,
+                           float* xs_scr, float* xb_scr, float* dgamma, cudaStream_t st) {
+  cudaError_t err = prepare<TSmemAny>(k10_dgamma_any<R>);
+  if (err != cudaSuccess) return err;
+  const int n_items = G * ((B + NS - 1) / NS);
+  k10_dgamma_any<R><<<n_blocks, NT, sizeof(TSmemAny), st>>>(
+      gamma, T, B, M, span, n_items, a, W1f, ct, reinterpret_cast<float4*>(xs_scr),
+      reinterpret_cast<float4*>(xb_scr), dgamma);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Scratch sizes of K10 per block, in 32-bit words: decoder outputs, masks,
-// the chunk's xbar.
+// Scratch sizes of K10 per block, in 32-bit words: decoder outputs, masks
+// (the fixed decode's), the chunk's xbar.
 int vlg_t_scratch_words(int M, int X, int which) {
   const int ni = (X + 7) / 8;
   if (which == 0) return 2 * M * ni * NT * 4;
@@ -592,43 +767,48 @@ int vlg_t_scratch_words(int M, int X, int which) {
   return ni * NT * 4;
 }
 
-int vlg_energy_t_fwd(int rung, const float* gamma, int T, int B, int D, int M, int X, int span,
-                     int G, int n_blocks, const float* W1, const float* b1, const float* W2,
-                     const float* b2, const float* W3, const float* b3, float* partial,
-                     float* out, void* stream) {
-  const Weights w{W1, b1, W2, b2, W3, b3};
+// The decoder as arrays, as vlg_energy_fwd (energy_expected.cu); three
+// layers.  The generic kernels' scratch (any_scr) is n_blocks x
+// vlg_any_scratch_words(3, widths, n) words, n = 1 for K9 and 2 M for K10
+// (every decoder's masks of two chunks).
+int vlg_energy_t_fwd(int rung, const float* gamma, int T, int B, int M, int span, int G,
+                     int n_blocks, int L, const int* widths, const float* const* Ws,
+                     const float* const* bs, float* partial, float* out, void* any_scr,
+                     void* stream) {
+  Decoder d;
+  if (L != 3 || !make_decoder(L, widths, Ws, bs, d) || d.width[0] > DT)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rung) {
-    case F32: return launch_fwd<F32>(gamma, T, B, D, M, X, span, G, n_blocks, w, partial, out, st);
-    case F32X3: return launch_fwd<F32X3>(gamma, T, B, D, M, X, span, G, n_blocks, w, partial, out, st);
-    case F32X2: return launch_fwd<F32X2>(gamma, T, B, D, M, X, span, G, n_blocks, w, partial, out, st);
-    case BF16: return launch_fwd<BF16>(gamma, T, B, D, M, X, span, G, n_blocks, w, partial, out, st);
-  }
-  return cudaErrorInvalidValue;
+  const int D = d.width[0], X = d.width[L];
+  const AnyArgs a{d, static_cast<uint32_t*>(any_scr), any_scratch_words(d, 1)};
+  return by_rung(rung, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return fixed_shape(d) ? launch_fwd<R>(gamma, T, B, D, M, X, span, G, n_blocks,
+                                          fixed_weights(d), partial, out, st)
+                          : launch_fwd_any<R>(gamma, T, B, M, span, G, n_blocks, a, partial,
+                                              out, st);
+  });
 }
 
-int vlg_energy_t_bwd(int rung, const float* gamma, int T, int B, int D, int M, int X, int span,
-                     int G, int n_blocks, const float* W1, const float* b1, const float* W2,
-                     const float* b2, const float* W3, const float* b3, const float* W1f,
-                     const float* ct, float* xs_scr, unsigned int* mk_scr, float* xb_scr,
-                     float* dgamma, void* stream) {
-  const Weights w{W1, b1, W2, b2, W3, b3};
+int vlg_energy_t_bwd(int rung, const float* gamma, int T, int B, int M, int span, int G,
+                     int n_blocks, int L, const int* widths, const float* const* Ws,
+                     const float* const* bs, const float* W1f, const float* ct, float* xs_scr,
+                     unsigned int* mk_scr, float* xb_scr, void* any_scr, float* dgamma,
+                     void* stream) {
+  Decoder d;
+  if (L != 3 || !make_decoder(L, widths, Ws, bs, d) || d.width[0] > DT)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rung) {
-    case F32:
-      return launch_bwd<F32>(gamma, T, B, D, M, X, span, G, n_blocks, w, W1f, ct, xs_scr, mk_scr,
-                             xb_scr, dgamma, st);
-    case F32X3:
-      return launch_bwd<F32X3>(gamma, T, B, D, M, X, span, G, n_blocks, w, W1f, ct, xs_scr,
-                               mk_scr, xb_scr, dgamma, st);
-    case F32X2:
-      return launch_bwd<F32X2>(gamma, T, B, D, M, X, span, G, n_blocks, w, W1f, ct, xs_scr,
-                               mk_scr, xb_scr, dgamma, st);
-    case BF16:
-      return launch_bwd<BF16>(gamma, T, B, D, M, X, span, G, n_blocks, w, W1f, ct, xs_scr,
-                              mk_scr, xb_scr, dgamma, st);
-  }
-  return cudaErrorInvalidValue;
+  const int D = d.width[0], X = d.width[L];
+  const AnyArgs a{d, static_cast<uint32_t*>(any_scr), any_scratch_words(d, 2 * M)};
+  return by_rung(rung, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return fixed_shape(d) ? launch_bwd<R>(gamma, T, B, D, M, X, span, G, n_blocks,
+                                          fixed_weights(d), W1f, ct, xs_scr, mk_scr, xb_scr,
+                                          dgamma, st)
+                          : launch_bwd_any<R>(gamma, T, B, M, span, G, n_blocks, a, W1f, ct,
+                                              xs_scr, xb_scr, dgamma, st);
+  });
 }
 
 }  // extern "C"

@@ -30,13 +30,21 @@ geodesic optimization trains only the curve.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 PRECISIONS = ("float32", "f32x3", "f32x2", "bfloat16")
 _RUNG = {"float32": 0, "f32x3": 1, "f32x2": 2, "bfloat16": 3}
-HIDDEN = 128     # hidden width the CUDA kernels support
-MAX_X = 64       # widest decoder output the CUDA kernels support
-MAX_D = 4        # widest latent the CUDA kernels support
+# The decoders the CUDA kernels take (``csrc/decode_any.cuh``): 2 to
+# MAX_LAYERS layers, hidden widths up to MAX_WIDTH, outputs up to MAX_X
+# (the JAX kernels' own limit), latents up to MAX_D.  D -> 128 -> 128 -> X
+# <= 64 runs the production kernels, every other shape the generic ones.
+MAX_LAYERS = 6
+MAX_WIDTH = 512
+MAX_X = 128
+MAX_D = 4
 
 # Launches of each kernel's wrapper (one per wrapper call that launched the
 # CUDA kernel; the plain CPU version does not count).
@@ -200,37 +208,89 @@ def _check_cuda(ws, bs, gamma, wmb=None, extra=()):
         if not x.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
     T, B, D = gamma.shape
-    if len(ws) != 3 or len(bs) != 3:
-        raise ValueError(f"the kernels take 3-layer decoders, got {len(ws)}"
-                         + _PLAIN_MODES)
+    if not 2 <= len(ws) <= MAX_LAYERS or len(bs) != len(ws):
+        raise ValueError(f"the kernels take decoders of 2 to {MAX_LAYERS} "
+                         f"layers, got {len(ws)} weights and {len(bs)} "
+                         "biases" + _PLAIN_MODES)
     M = ws[0].shape[0]
-    X = ws[2].shape[-1]
+    widths = [D] + [w.shape[-1] for w in ws]
+    X = widths[-1]
     if not 1 <= D <= MAX_D:
         raise ValueError(f"latent width D={D} outside 1..{MAX_D}"
                          + _PLAIN_MODES)
-    if ws[0].shape != (M, D, HIDDEN) or ws[1].shape != (M, HIDDEN, HIDDEN) \
-            or ws[2].shape != (M, HIDDEN, X) or not 1 <= X <= MAX_X:
+    if [tuple(w.shape) for w in ws] != [
+            (M, i, o) for i, o in zip(widths[:-1], widths[1:])]:
+        raise ValueError(f"decoder shapes {[tuple(w.shape) for w in ws]} do "
+                         f"not chain from the latent width D={D}")
+    if max(widths[1:-1]) > MAX_WIDTH or not 1 <= X <= MAX_X:
         raise ValueError(
-            f"decoder shapes {[tuple(w.shape) for w in ws]} unsupported: the "
-            f"kernels take D -> {HIDDEN} -> {HIDDEN} -> X with X <= {MAX_X}"
-            + _PLAIN_MODES)
-    if [tuple(b.shape) for b in bs] != [(M, HIDDEN), (M, HIDDEN), (M, X)]:
-        raise ValueError(f"bias shapes {[tuple(b.shape) for b in bs]} "
-                         "do not match the weights")
+            f"decoder widths {widths} unsupported: the kernels take hidden "
+            f"widths up to {MAX_WIDTH} and X <= {MAX_X}" + _PLAIN_MODES)
+    for layer, (w, b) in enumerate(zip(ws, bs)):
+        if tuple(b.shape) != (M, w.shape[-1]):
+            raise ValueError(f"bias {layer} of shape {tuple(b.shape)} does "
+                             f"not match its weight {tuple(w.shape)}"
+                             + _PLAIN_MODES)
     if wmb is not None and tuple(wmb.shape) != (M, B):
         raise ValueError(f"wmb must be (M, B) = ({M}, {B}), got "
                          f"{tuple(wmb.shape)}")
-    if T * B * HIDDEN >= 2**31:
+    if T * B * max(widths) >= 2**31:
         raise ValueError(f"T*B={T * B} too large for the kernels' indexing"
                          + _PLAIN_MODES)
     return T, B, D, M, X
 
 
-def _ptrs(ws, bs):
-    out = []
-    for w, b in zip(ws, bs):
-        out += [w.data_ptr(), b.data_ptr()]
-    return out
+@functools.lru_cache(maxsize=None)
+def _int_array(values):
+    return (ctypes.c_int * len(values))(*values)
+
+
+@functools.lru_cache(maxsize=64)
+def _ptr_array(ptrs):
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def _decoder_args(ws, bs):
+    """(widths, dec): the widths D, ..., X, and the decoder as the entry
+    points take it: L, widths[0..L] and the per-layer weight and bias
+    pointers as ctypes arrays, made once per shape and per set of addresses
+    (the entry points only read them)."""
+    widths = (ws[0].shape[1],) + tuple(w.shape[-1] for w in ws)
+    return widths, (len(ws), _int_array(widths),
+                    _ptr_array(tuple(w.data_ptr() for w in ws)),
+                    _ptr_array(tuple(b.data_ptr() for b in bs)))
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_words(lib, widths, n_areas):
+    return lib.vlg_any_scratch_words(len(widths) - 1, _int_array(widths),
+                                     n_areas)
+
+
+def _any_scratch(lib, widths, n_areas, dev, n_blocks=None):
+    """(scratch, n_blocks) of the generic kernels: one persistent block per
+    SM (or ``n_blocks``), each with its activation planes and ``n_areas``
+    mask areas; (None, n_blocks) for the production shape, whose kernels
+    take none."""
+    if n_blocks is None:
+        n_blocks = _n_sm(dev)
+    words = _scratch_words(lib, widths, n_areas)
+    if words < 0:
+        raise ValueError(f"decoder widths {list(widths)} refused by the "
+                         "kernels" + _PLAIN_MODES)
+    if words == 0:
+        return None, n_blocks
+    return torch.empty((n_blocks * words,), dtype=torch.int32,
+                       device=dev), n_blocks
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _stream(dev):
@@ -249,12 +309,15 @@ def energy_fwd(ws, bs, gamma, wmb, precision):
     ws = [w.contiguous() for w in ship_weights(ws, precision)]
     T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb)
     lib = library("energy_expected")
+    widths, dec = _decoder_args(ws, bs)
+    scratch, n_blocks = _any_scratch(lib, widths, 1, gamma.device)
     partial = torch.empty((lib.vlg_energy_fwd_tiles(T), B),
                           dtype=torch.float32, device=gamma.device)
     out = torch.empty((B,), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_energy_fwd(_RUNG[precision], gamma.data_ptr(), T, B, D, M, X,
-                             *_ptrs(ws, bs), wmb.data_ptr(), partial.data_ptr(),
-                             out.data_ptr(), _stream(gamma.device)),
+    check(lib.vlg_energy_fwd(_RUNG[precision], gamma.data_ptr(), T, B, M, *dec,
+                             wmb.data_ptr(), partial.data_ptr(),
+                             out.data_ptr(), _ptr(scratch), n_blocks,
+                             _stream(gamma.device)),
           "energy_fwd")
     LAUNCHES["energy_fwd"] += 1
     return out
@@ -274,11 +337,13 @@ def energy_bwd(ws, bs, gamma, wmb, ct, precision):
     if tuple(ct.shape) != (B,):
         raise ValueError(f"ct must be (B,) = ({B},), got {tuple(ct.shape)}")
     lib = library("energy_expected")
+    widths, dec = _decoder_args(ws, bs)
+    scratch, n_blocks = _any_scratch(lib, widths, 1, gamma.device)
     xbar = torch.empty((T, B, X), dtype=torch.float32, device=gamma.device)
     dgamma = torch.empty((T, B, D), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_energy_bwd(_RUNG[precision], gamma.data_ptr(), T, B, D, M, X,
-                             *_ptrs(ws, bs), wmb.data_ptr(), ct.data_ptr(),
-                             xbar.data_ptr(), dgamma.data_ptr(),
+    check(lib.vlg_energy_bwd(_RUNG[precision], gamma.data_ptr(), T, B, M, *dec,
+                             wmb.data_ptr(), ct.data_ptr(), xbar.data_ptr(),
+                             dgamma.data_ptr(), _ptr(scratch), n_blocks,
                              _stream(gamma.device)),
           "energy_bwd")
     LAUNCHES["energy_bwd"] += 1
@@ -425,12 +490,14 @@ def stats_fwd(ws, bs, gamma, wmb, precision):
     ws = [w.contiguous() for w in ship_weights(ws, precision)]
     T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb)
     lib = library("energy_stats")
+    widths, dec = _decoder_args(ws, bs)
+    scratch, n_blocks = _any_scratch(lib, widths, 2, gamma.device)
     x0 = torch.empty((T, B, X), dtype=torch.float32, device=gamma.device)
     yb = torch.empty((T, B, X), dtype=torch.float32, device=gamma.device)
     sq = torch.empty((T, B), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_stats_fwd(_RUNG[precision], gamma.data_ptr(), T, B, D, M, X,
-                            *_ptrs(ws, bs), wmb.data_ptr(), x0.data_ptr(),
-                            yb.data_ptr(), sq.data_ptr(),
+    check(lib.vlg_stats_fwd(_RUNG[precision], gamma.data_ptr(), T, B, M, *dec,
+                            wmb.data_ptr(), x0.data_ptr(), yb.data_ptr(),
+                            sq.data_ptr(), _ptr(scratch), n_blocks,
                             _stream(gamma.device)),
           "stats_fwd")
     LAUNCHES["stats_fwd"] += 1
@@ -452,11 +519,13 @@ def stats_bwd(ws, bs, gamma, wmb, dx0, dyb, dsq, precision):
     T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb, (dx0, dyb, dsq))
     _check_stats_ct(T, B, X, dx0, dyb, dsq)
     lib = library("energy_stats")
+    widths, dec = _decoder_args(ws, bs)
+    scratch, n_blocks = _any_scratch(lib, widths, 2, gamma.device)
     dgamma = torch.empty((T, B, D), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_stats_bwd(_RUNG[precision], gamma.data_ptr(), T, B, D, M, X,
-                            *_ptrs(ws, bs), wmb.data_ptr(), dx0.data_ptr(),
-                            dyb.data_ptr(), dsq.data_ptr(), dgamma.data_ptr(),
-                            _stream(gamma.device)),
+    check(lib.vlg_stats_bwd(_RUNG[precision], gamma.data_ptr(), T, B, M, *dec,
+                            wmb.data_ptr(), dx0.data_ptr(), dyb.data_ptr(),
+                            dsq.data_ptr(), dgamma.data_ptr(), _ptr(scratch),
+                            n_blocks, _stream(gamma.device)),
           "stats_bwd")
     LAUNCHES["stats_bwd"] += 1
     return dgamma

@@ -40,10 +40,12 @@ from vae_latent_geometry_tpu_torch.geometry.energy import (  # noqa: F401
 from vae_latent_geometry_tpu_torch.ops.energy_fused import (
     _RUNG,
     LAUNCHES,
+    _any_scratch,
     _check_cuda,
     _decode_plain,
+    _decoder_args,
     _mp_matmul,
-    _ptrs,
+    _ptr,
     _stream,
     check_precision,
     ship_weights,
@@ -249,22 +251,21 @@ def _launch(name, backward, ws, bs, gamma, precision, S, d1, d2, kmax, seed,
     lib = library("energy_mc")
     dev = gamma.device
     key = _seed_key(seed)
-    draws = [None if d1 is None else d1.data_ptr(),
-             None if d2 is None else d2.data_ptr(),
-             None if kmax is None else kmax.data_ptr(), *key]
-    head = [_RUNG[precision], gamma.data_ptr(), T, B, D, M, X, S,
-            *_ptrs(ws, bs), *draws]
+    draws = [_ptr(d1), _ptr(d2), _ptr(kmax), *key]
+    widths, dec = _decoder_args(ws, bs)
+    scratch, n_blocks = _any_scratch(lib, widths, 1, dev)
+    head = [_RUNG[precision], gamma.data_ptr(), T, B, M, S, *dec, *draws]
+    tail = [_ptr(scratch), n_blocks, _stream(dev)]
     if backward:
         diffs = torch.empty((S, T - 1, B, X), dtype=torch.float32, device=dev)
         out = torch.empty((T, B, D), dtype=torch.float32, device=dev)
         err = lib.vlg_mc_bwd(*head, ct.data_ptr(), diffs.data_ptr(),
-                             out.data_ptr(), _stream(dev))
+                             out.data_ptr(), *tail)
     else:
         partial = torch.empty((lib.vlg_mc_fwd_tiles(T), B),
                               dtype=torch.float32, device=dev)
         out = torch.empty((B,), dtype=torch.float32, device=dev)
-        err = lib.vlg_mc_fwd(*head, partial.data_ptr(), out.data_ptr(),
-                             _stream(dev))
+        err = lib.vlg_mc_fwd(*head, partial.data_ptr(), out.data_ptr(), *tail)
     check(err, name)
     LAUNCHES[name] += 1
     return out
