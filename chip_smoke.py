@@ -7,14 +7,17 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
 1. build   — compile the CUDA kernels from ``vae_latent_geometry_tpu_torch/
              ops/csrc`` with nvcc (sm_90a); card name, power limit, versions;
-             the tensor-core instructions (HMMA) in K2's SASS: present in
-             the production shape's mma kernels at the reduced rungs, absent
-             at float32 and in the generic decode's kernels.
+             the tensor-core instructions (HMMA) in K2's and K6/K8's SASS:
+             present in the production shape's mma kernels at the reduced
+             rungs, absent at float32, in the forward MC kernels and in the
+             generic decode's kernels.
 2. kernels — at full width (seed-42 10-decoder EVAE, the 190 seed-42 init
              curves padded to B=200, T=2000, S=2 MC samples): each kernel
              against its plain PyTorch version on the same inputs, every
              precision rung, M=10 and M=1, and once with mixed per-spline
-             decoder counts; CUDA-event times of kernel and plain version.
+             decoder counts, and K5-K8 at S=12 (float32 and f32x2); a
+             second call of K2, K6 and K8 bitwise equal to the first;
+             CUDA-event times of kernel and plain version.
              The stats kernels (K3/K4) on local shards of 10, 5 and 1
              decoders with random smooth cotangents, and
              ``energy_expected_sharded`` on one shard of all ten against
@@ -27,8 +30,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
              committed TPU result on the same init blob; then the same run
              through the unfused plain-PyTorch ``expected`` mode (float32,
              200 steps) as the end-to-end yardstick; profile — device time
-             by kernel (torch.profiler): K2's two launches, and 50 steps of
-             the main path with the device's busy share.
+             by kernel (torch.profiler): the two launches of K2, K6 and K8,
+             and 50 steps of the main path and of the MC main path with the
+             device's busy share.
 4. rung    — pairs 0, 42, 65, 164 through the same recipe at float32
              against the JAX package on the CPU at float32.
 5. mc_stats — the mean of the in-kernel-draw MC energy (K7) over 64 seeds
@@ -45,7 +49,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
              curves.
 7. mc_ext  — 200 steps with the draws shipped as index planes (K5/K6), and
              200 steps of the unfused plain-PyTorch ``mc`` mode as the
-             end-to-end yardstick; mc_scan — 20 steps of the chunked unfused
+             end-to-end yardstick (``mc_main_over_mc_plain``); mc_scan — 20
+             steps of the chunked unfused
              mode (no kernel) after a 2-step warm-up; mc_coarse_bf16 — a cut turbo plan with its
              coarse phase at ``mc_fused_bf16`` (the CLI's ``--coarse-bf16``).
 8. init    — ``run_distance_pipeline`` from data to matrix on the seeded
@@ -94,9 +99,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
 15. the ``kernels`` summary line (each kernel with its records on those
     shapes), the card line, and the result line.
 
-At the reduced rungs K2 runs on the tensor cores (``csrc/decode_mma.cuh``):
-the kernels phase also holds it on random decoders at X = 7 and 64 with a
-ragged tile, and every K2 call there is repeated and must be bitwise equal.
+At the reduced rungs K2 and K6/K8 run on the tensor cores
+(``csrc/decode_mma.cuh``): the kernels phase also holds K2 on random
+decoders at X = 7 and 64 with a ragged tile, and every K2 call there is
+repeated and must be bitwise equal.
 The kernels phase also holds the four MC kernels (K5-K8) against their plain
 versions, and K7/K8 against K5/K6 on the planes of ``philox_draws``; phase
 ``transposed`` holds K9/K10 (``ops/csrc/energy_transposed.cu``) against
@@ -201,6 +207,7 @@ TPU_LEN_MAX = 5e-2
 # between f32x2 and float32, phase plain_path), and another seed moves
 # other pairs (PERF.md, Findings).
 MC_SAMPLES = 2
+MC_SAMPLES_WIDE = 12      # K5-K8 in the kernels phase: two sweeps of draws
 MC_SEEDS = 64
 MC_GROUPS = 16
 MC_Z_MAX = 5.0
@@ -410,20 +417,25 @@ def dgamma_stats(g_k, g_p, prefix=""):
                 (err > DG_OVER).double().mean())}
 
 
-def k2_sass_hmma(lib_path):
-    """Tensor-core instructions (HMMA) in the SASS of each K2 kernel of the
-    built library, by ``cuobjdump -sass``: {"k2_xbar_mma<R>": n, ...}, R
-    the rung (0 float32, 1 f32x3, 2 f32x2, 3 bfloat16).  cuobjdump ships
-    with every CUDA toolkit that nvcc comes from: without it the run fails."""
+def sass_hmma(lib_path, prefix):
+    """Tensor-core instructions (HMMA) in the SASS of each kernel template
+    ``<prefix>...<R>`` of the built library, by ``cuobjdump -sass``:
+    {"k2_xbar_mma<R>": n, ...}, R the rung (0 float32, 1 f32x3, 2 f32x2, 3
+    bfloat16).  cuobjdump ships with every CUDA toolkit that nvcc comes
+    from: without it, or when it cannot read the library, the run fails."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
-        fail("cuobjdump not found: K2's SASS cannot be checked for HMMA")
+        fail("cuobjdump not found: the kernels' SASS cannot be checked for "
+             "HMMA")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*?(k2_\w+?)ILi(\d)E", line)
+        # the kernel's name follows its length's digits (the anonymous
+        # namespace's name before it holds the source's, e.g. "energy_mc")
+        m = re.search(rf"Function : \S*?\d({prefix}[A-Za-z_]+?)ILi(\d)E",
+                      line)
         if m:
             fn = f"{m.group(1)}<{m.group(2)}>"
             counts[fn] = 0
@@ -432,6 +444,22 @@ def k2_sass_hmma(lib_path):
         elif fn and "HMMA" in line:
             counts[fn] += 1
     return counts
+
+
+def check_hmma(hmma, mma_kernels, fma_kernels, any_kernels):
+    """The reduced rungs (1-3) of the production shape's ``mma_kernels``
+    run on the tensor cores; their float32 rung runs ``fma_kernels``, with
+    no HMMA (TF32 is barred); the generic decode's ``any_kernels`` have none
+    at any rung.  Fails on a kernel missing from the SASS."""
+    for rung in (0, 1, 2, 3):
+        for name in (mma_kernels if rung else fma_kernels):
+            key = f"{name}<{rung}>"
+            if key not in hmma or (hmma[key] > 0) != (rung > 0):
+                fail(f"SASS of {key}: {hmma.get(key)} HMMA instructions")
+        for name in any_kernels:
+            if hmma.get(f"{name}<{rung}>") != 0:
+                fail(f"SASS of {name}<{rung}>: "
+                     f"{hmma.get(f'{name}<{rung}>')} HMMA instructions")
 
 
 def decode_flops(D, H, X, passes):
@@ -1162,24 +1190,35 @@ def device_kernel_times(prof):
     return by, span
 
 
-def profile_phase(ef, params, art, cfg, dev, ws, bs, gamma, wmb, ct):
-    """Device time by kernel from torch.profiler: K2 at f32x2 split into its
-    two launches, and PROFILE_STEPS steps of the main path (the device's
-    busy share between its first and last kernel).  A trace without device
-    events is reported as not measured."""
+def launch_times(fn, calls):
+    """{kernel: device ms per call} of ``calls`` calls of ``fn`` after one
+    warm-up, by torch.profiler (names without the anonymous namespace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by, _ = device_kernel_times(prof)
+    return {k.replace("(anonymous namespace)::", "").replace("void ", "")
+            .split("(")[0]: v / calls / 1e3 for k, v in by.items()}
+
+
+def step_profile(params, art, cfg, dev, tag):
+    """PROFILE_STEPS steps of ``optimize_splines`` at ``cfg`` (the first
+    chunk, final evaluation included) under torch.profiler: the device's
+    busy share between its first and last kernel and the kernels that take
+    the most of it (keys prefixed with ``tag``), and {kernel: device us}.
+    ({}, {}) for a trace without device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from vae_latent_geometry_tpu_torch.optim.geodesic import optimize_splines
 
-    ef.energy_bwd(ws, bs, gamma, wmb, ct, "f32x2")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_K2_CALLS):
-            ef.energy_bwd(ws, bs, gamma, wmb, ct, "f32x2")
-        torch.cuda.synchronize()
-    k2, _ = device_kernel_times(prof)
-    B = gamma.shape[1]
+    B = cfg.batch_size
     idx = np.concatenate([np.arange(len(art)),
                           np.full(B - len(art), len(art) - 1)])[:B]
     pcfg = dataclasses.replace(cfg, steps=PROFILE_STEPS)
@@ -1187,32 +1226,71 @@ def profile_phase(ef, params, art, cfg, dev, ws, bs, gamma, wmb, ct):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         optimize_splines(params.decoders, art.omega_init[idx], art.a[idx],
-                         art.b[idx], art.basis, pcfg, device=dev)
+                         art.b[idx], art.basis, pcfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
         torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - t0)
     steps, span = device_kernel_times(prof)
-    rec = {"phase": "profile", "measured": bool(k2 and steps)}
-    if rec["measured"]:
-        def per_call(key):
-            return sum(v for k, v in k2.items() if key in k) \
-                / PROFILE_K2_CALLS / 1e3
+    if not steps:
+        return {}, {}
+    busy = sum(steps.values())
+    top = sorted(steps.items(), key=lambda kv: -kv[1])[:6]
+    return {tag + "steps": PROFILE_STEPS, tag + "wall_ms": wall_us / 1e3,
+            tag + "device_span_ms": span / 1e3,
+            tag + "device_busy_share_of_span": busy / span,
+            tag + "device_idle_share_of_span": 1.0 - busy / span,
+            tag + "kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+            tag + "n_kernel_launches": sum(
+                1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)}, steps
 
-        busy = sum(steps.values())
-        top = sorted(steps.items(), key=lambda kv: -kv[1])[:6]
+
+def profile_phase(ef, mc, params, art, cfg, dev, ws, bs, gamma, wmb, ct):
+    """Device time by kernel from torch.profiler: K2 at f32x2 split into its
+    two launches, K6 and K8 at f32x2 split into theirs, and PROFILE_STEPS
+    steps of the main path and of the MC main path (the device's busy share
+    between its first and last kernel).  A trace without device events is
+    reported as not measured."""
+    import torch
+
+    k2 = launch_times(lambda: ef.energy_bwd(ws, bs, gamma, wmb, ct, "f32x2"),
+                      PROFILE_K2_CALLS)
+    T, B = gamma.shape[:2]
+    M = ws[0].shape[0]
+    d1, d2 = mc.sample_decoder_indices(
+        torch.Generator(device=dev).manual_seed(7), T, B, M, MC_SAMPLES)
+    kmax = torch.full((B,), float(M), device=dev)
+    mc_ct = torch.linspace(0.5, 2.0, B, device=dev)
+    k6 = launch_times(lambda: mc.energy_mc_bwd(ws, bs, gamma, d1, d2, mc_ct,
+                                               "f32x2"), PROFILE_K2_CALLS)
+    k8 = launch_times(lambda: mc.energy_mc_bwd_rng(
+        ws, bs, gamma, (1 << 40) + 42, kmax, MC_SAMPLES, mc_ct, "f32x2"),
+        PROFILE_K2_CALLS)
+    main, by = step_profile(params, art, cfg, dev, "")
+    mc_cfg = dataclasses.replace(cfg, energy=dataclasses.replace(
+        cfg.energy, mode="mc_fused", mc_samples=MC_SAMPLES,
+        mc_inkernel_rng=True))
+    mc_main, mc_by = step_profile(params, art, mc_cfg, dev, "mc_main_")
+    rec = {"phase": "profile",
+           "measured": bool(k2 and k6 and k8 and main and mc_main)}
+    if rec["measured"]:
+        def of(times, key):
+            return sum(v for k, v in times.items() if key in k)
+
         rec.update({
-            "k2_f32x2_ms_per_call": sum(k2.values()) / PROFILE_K2_CALLS / 1e3,
-            "k2_xbar_mma_ms": per_call("k2_xbar_mma"),
-            "k2_chain_mma_ms": per_call("k2_chain_mma"),
-            "steps": PROFILE_STEPS, "wall_ms": wall_us / 1e3,
-            "device_span_ms": span / 1e3,
-            "device_busy_share_of_span": busy / span,
-            "device_idle_share_of_span": 1.0 - busy / span,
-            "k2_share_of_span": sum(v for k, v in steps.items()
-                                    if "k2_" in k) / span,
-            "kernels_ms": {k[:80]: v / 1e3 for k, v in top},
-            "n_kernel_launches": sum(1 for e in prof.events()
-                                     if e.device_type
-                                     == torch.autograd.DeviceType.CUDA)})
+            "k2_f32x2_ms_per_call": sum(k2.values()),
+            "k2_xbar_mma_ms": of(k2, "k2_xbar_mma"),
+            "k2_chain_mma_ms": of(k2, "k2_chain_mma"),
+            "mc_bwd_ms_by_launch": k6, "mc_rng_bwd_ms_by_launch": k8,
+            "mc_select_mma_ms": of(k8, "mc_select_mma"),
+            "mc_chain_mma_ms": of(k8, "mc_chain_mma"),
+            **main,
+            "k2_share_of_span": of(by, "k2_") / 1e3
+            / main["device_span_ms"],
+            **mc_main,
+            "mc_main_k8_share_of_span": (of(mc_by, "mc_select_mma")
+                                         + of(mc_by, "mc_chain_mma")) / 1e3
+            / mc_main["mc_main_device_span_ms"]})
     emit(rec)
     return rec
 
@@ -1692,24 +1770,23 @@ def main() -> int:
         f.write("\n".join(_build.BUILD_LOG.values()))
     ptxas = [l.strip() for log in _build.BUILD_LOG.values()
              for l in log.splitlines() if "registers" in l or "spill" in l]
-    hmma = k2_sass_hmma(_build._target("energy_expected"))
+    hmma = sass_hmma(_build._target("energy_expected"), "k2_")
+    mc_hmma = sass_hmma(_build._target("energy_mc"), "mc_")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     emit({"phase": "build", "seconds": build_s,
           "seconds_by_source": _build.BUILD_SECONDS, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "nvcc": nvcc, "ptxas": ptxas, "k2_sass_hmma": hmma})
-    # K2's reduced rungs run on the tensor cores in the mma kernels of the
-    # production shape, its float32 rung does not (TF32 is barred), nor does
-    # the generic decode (k2_*_any) at any rung
-    for rung in (0, 1, 2, 3):
-        for name in ("k2_xbar", "k2_chain"):
-            key = f"{name}{'_mma' if rung else ''}<{rung}>"
-            if key not in hmma or (hmma[key] > 0) != (rung > 0):
-                fail(f"SASS of {key}: {hmma.get(key)} HMMA instructions")
-            if hmma.get(f"{name}_any<{rung}>", 1) != 0:
-                fail(f"SASS of {name}_any<{rung}>: "
-                     f"{hmma.get(f'{name}_any<{rung}>')} HMMA instructions")
+          "nvcc": nvcc, "ptxas": ptxas, "k2_sass_hmma": hmma,
+          "mc_sass_hmma": mc_hmma})
+    # K2's and K6/K8's reduced rungs run on the tensor cores in the mma
+    # kernels of the production shape, their float32 rung does not (TF32 is
+    # barred), nor does the generic decode at any rung, nor the forward
+    # energies' mc_segments (K5/K7) at any rung
+    check_hmma(hmma, ("k2_xbar_mma", "k2_chain_mma"), ("k2_xbar", "k2_chain"),
+               ("k2_xbar_any", "k2_chain_any"))
+    check_hmma(mc_hmma, ("mc_select_mma", "mc_chain_mma"), ("mc_chain",),
+               ("mc_segments", "mc_segments_any", "mc_chain_any"))
 
     # 2. kernels vs plain versions at full width ----------------------------
     params = load_npz(MODEL, dev)
@@ -1732,35 +1809,39 @@ def main() -> int:
     mc_ct = torch.linspace(0.5, 2.0, B, device=dev)
     mc_seed = (1 << 40) + 42
 
-    def mc_inputs(M, num_active):
+    def mc_inputs(M, num_active, S=MC_SAMPLES):
         """Index planes, per-spline counts and the planes K7/K8 draw."""
         gen = torch.Generator(device=dev).manual_seed(7)
-        d1, d2 = mc.sample_decoder_indices(gen, T, B, M, MC_SAMPLES,
-                                           num_active)
+        d1, d2 = mc.sample_decoder_indices(gen, T, B, M, S, num_active)
         kmax = (torch.full((B,), float(M), device=dev) if num_active is None
                 else num_active.float())
         p1, p2 = (d.contiguous() for d in mc.philox_draws(
-            mc_seed, MC_SAMPLES, T, B, kmax))
+            mc_seed, S, T, B, kmax))
         return d1, d2, kmax, p1, p2
 
-    def mc_check(ws, bs, M, prec, num_active):
+    def mc_check(ws, bs, M, prec, num_active, S=MC_SAMPLES):
         """K5/K6 against their plain versions on given planes; K7/K8 against
         K5/K6 on the planes of ``philox_draws`` (exact: the proof that
         forward and backward make the same draws) and so against the plain
-        versions on those planes."""
-        d1, d2, kmax, p1, p2 = mc_inputs(M, num_active)
+        versions on those planes; a second K6 and K8 call bitwise equal to
+        the first."""
+        d1, d2, kmax, p1, p2 = mc_inputs(M, num_active, S)
         e5 = mc.energy_mc_fwd(ws, bs, gamma, d1, d2, prec)
         e5_p = mc.energy_mc_fwd_plain(ws, bs, gamma, d1, d2, prec)
         g6 = mc.energy_mc_bwd(ws, bs, gamma, d1, d2, mc_ct, prec)
         g6_p = mc.energy_mc_bwd_plain(ws, bs, gamma, d1, d2, mc_ct, prec)
-        e7 = mc.energy_mc_fwd_rng(ws, bs, gamma, mc_seed, kmax, MC_SAMPLES,
+        e7 = mc.energy_mc_fwd_rng(ws, bs, gamma, mc_seed, kmax, S, prec)
+        g8 = mc.energy_mc_bwd_rng(ws, bs, gamma, mc_seed, kmax, S, mc_ct,
                                   prec)
-        g8 = mc.energy_mc_bwd_rng(ws, bs, gamma, mc_seed, kmax, MC_SAMPLES,
-                                  mc_ct, prec)
         e7_p = mc.energy_mc_fwd_plain(ws, bs, gamma, p1, p2, prec)
         g8_p = mc.energy_mc_bwd_plain(ws, bs, gamma, p1, p2, mc_ct, prec)
         torch.cuda.synchronize()
         return {
+            "mc_samples": S,
+            "k6_repeat_bitwise": bool(torch.equal(g6, mc.energy_mc_bwd(
+                ws, bs, gamma, d1, d2, mc_ct, prec))),
+            "k8_repeat_bitwise": bool(torch.equal(g8, mc.energy_mc_bwd_rng(
+                ws, bs, gamma, mc_seed, kmax, S, mc_ct, prec))),
             "mc_energy_max_rel": float(((e5 - e5_p).abs() / e5_p.abs()).max()),
             "mc_energy_max_abs": float((e5 - e5_p).abs().max()),
             **dgamma_stats(g6, g6_p, "mc_"),
@@ -1849,6 +1930,14 @@ def main() -> int:
             else:
                 rec["bwd_ms"] = time_ms(
                     lambda: ef.energy_bwd(ws, bs, gamma, wmb, ct, prec), 5)
+                if M > 1:   # K6/K8 at the other rungs
+                    d1, d2, kmax, _, _ = mc_inputs(M, None)
+                    rec["mc_bwd_ms"] = time_ms(lambda: mc.energy_mc_bwd(
+                        ws, bs, gamma, d1, d2, mc_ct, prec), 5)
+                    rec["mc_rng_bwd_ms"] = time_ms(
+                        lambda: mc.energy_mc_bwd_rng(
+                            ws, bs, gamma, mc_seed, kmax, MC_SAMPLES, mc_ct,
+                            prec), 5)
             emit(rec)
             errors[(M, prec)] = rec
     # the MC kernels once more with mixed per-spline decoder counts
@@ -1860,6 +1949,23 @@ def main() -> int:
                       num_active)}
     emit(rec)
     errors[("mixed", "f32x2")] = rec
+    # K5-K8 at more samples than one sweep of staged draws (the backward
+    # kernels once refused S > 8): the CUDA-core kernels at float32, the
+    # tensor-core pair at f32x2; ms of K6/K8
+    for prec in ("float32", "f32x2"):
+        rec = {"phase": "kernels", "M": ws_all[0].shape[0], "precision": prec,
+               **mc_check(ws_all, bs_all, ws_all[0].shape[0], prec, None,
+                          MC_SAMPLES_WIDE)}
+        d1, d2, kmax, _, _ = mc_inputs(ws_all[0].shape[0], None,
+                                       MC_SAMPLES_WIDE)
+        rec["mc_bwd_ms"] = time_ms(lambda: mc.energy_mc_bwd(
+            ws_all, bs_all, gamma, d1, d2, mc_ct, prec), 2)
+        rec["mc_rng_bwd_ms"] = time_ms(lambda: mc.energy_mc_bwd_rng(
+            ws_all, bs_all, gamma, mc_seed, kmax, MC_SAMPLES_WIDE, mc_ct,
+            prec), 2)
+        del d1, d2
+        emit(rec)
+        errors[(f"S{MC_SAMPLES_WIDE}", prec)] = rec
     # K2's tensor-core kernels at the padded output widths, ragged tile
     k2_small_shapes(ef, dev)
     # the stats kernels (K3/K4) on local shards, and the sharded energy on
@@ -1933,8 +2039,9 @@ def main() -> int:
     np.savez(os.path.join(OUT_DIR, "main_lengths.npz"), port=lengths,
              jax=np.asarray(ref.geodesic_length))
     # where the time of K2 and of a main-path step goes on the device
-    profile_phase(ef, params, art, cfg, dev, ws_all, bs_all, gamma,
-                  ef.uniform_weights(ws_all[0].shape[0], B, dev), ct)
+    prof_rec = profile_phase(ef, mc, params, art, cfg, dev, ws_all, bs_all,
+                             gamma, ef.uniform_weights(ws_all[0].shape[0], B,
+                                                       dev), ct)
 
     # 3c. the float32 rung on a few pairs (the sensitive 65 and 164 among
     # them), padded to B, against the JAX package on the CPU at float32
@@ -2065,6 +2172,8 @@ def main() -> int:
                "plain_mc_optimize_s": plain_mc_s,
                "plain_mc_steps_per_s": MC_EXT_STEPS / plain_mc_s,
                "plain_mc_launches": plain_mc_launches,
+               "mc_main_over_mc_plain": mc_rec["steps_per_s"]
+               / (MC_EXT_STEPS / plain_mc_s),
                "vs_plain_mc_len_rel_median": float(np.median(np.abs(
                    ext_len / np.asarray(plain_mc_out.geodesic_length) - 1)))}
     emit(ext_rec)
@@ -2214,6 +2323,19 @@ def main() -> int:
                 "bound_by": "operations" if bound[0] >= bound[1] else "bytes",
                 "library_ms": None}
 
+    def mc_bwd_extra(key):
+        """K6's or K8's design, its times at the other rungs and at
+        MC_SAMPLES_WIDE samples, and its pass split (phase profile)."""
+        wide = f"S{MC_SAMPLES_WIDE}"
+        return {"design": "mma.sync bf16 (reduced rungs): mc_select_mma "
+                          "(endpoint planes) + mc_chain_mma; FMA at float32",
+                "ms_f32x3": errors[(M, "f32x3")][key + "_ms"],
+                "ms_bfloat16": errors[(M, "bfloat16")][key + "_ms"],
+                "ms_float32": times["float32"][key + "_ms"],
+                f"ms_{wide}_f32x2": errors[(wide, "f32x2")][key + "_ms"],
+                f"ms_{wide}_float32": errors[(wide, "float32")][key + "_ms"],
+                "ms_by_launch_f32x2": prof_rec.get(key + "_ms_by_launch")}
+
     kernels = [
         {"name": "energy_fwd (K1, float32 final re-evaluation)",
          "route": "cuda",
@@ -2284,17 +2406,19 @@ def main() -> int:
         mc_kernel("energy_mc_fwd (K5, float32 final evaluation, planes)", 473,
                   ext_launches["energy_mc_fwd"], "mc_energy_max_abs",
                   "mc_fwd", "float32", mc_bounds["k5"]),
-        mc_kernel("energy_mc_bwd (K6, f32x2 trajectory steps, planes)", 548,
-                  ext_launches["energy_mc_bwd"], "mc_dgamma_max_abs",
-                  "mc_bwd", "f32x2", mc_bounds["k6"]),
+        {**mc_kernel("energy_mc_bwd (K6, f32x2 trajectory steps, planes)",
+                     548, ext_launches["energy_mc_bwd"], "mc_dgamma_max_abs",
+                     "mc_bwd", "f32x2", mc_bounds["k6"]),
+         **mc_bwd_extra("mc_bwd")},
         mc_kernel("energy_mc_fwd_rng (K7, float32 final evaluation, "
                   "in-kernel draws)", 166,
                   rep_launches["energy_mc_fwd_rng"], "mc_rng_energy_max_abs",
                   "mc_rng_fwd", "float32", mc_bounds["k7"]),
-        mc_kernel("energy_mc_bwd_rng (K8, f32x2 trajectory steps, in-kernel "
-                  "draws)", 235, mc_launches["energy_mc_bwd_rng"],
-                  "mc_rng_dgamma_max_abs", "mc_rng_bwd", "f32x2",
-                  mc_bounds["k8"]),
+        {**mc_kernel("energy_mc_bwd_rng (K8, f32x2 trajectory steps, "
+                     "in-kernel draws)", 235, mc_launches["energy_mc_bwd_rng"],
+                     "mc_rng_dgamma_max_abs", "mc_rng_bwd", "f32x2",
+                     mc_bounds["k8"]),
+         **mc_bwd_extra("mc_rng_bwd")},
     ]
 
     # each kernel's records on the other decoder shapes (on the optimized
@@ -2338,6 +2462,9 @@ def main() -> int:
         if not (r["k7_equals_k5_on_philox_planes"]
                 and r["k8_equals_k6_on_philox_planes"]):
             fail(f"K7/K8 do not equal K5/K6 on the philox planes at M={m} "
+                 f"{prec}")
+        if not (r["k6_repeat_bitwise"] and r["k8_repeat_bitwise"]):
+            fail(f"K6/K8: a second call on the same input differs at M={m} "
                  f"{prec}")
         if "finite" not in r:        # the mixed-count case holds K5-K8 only
             continue

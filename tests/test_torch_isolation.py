@@ -156,9 +156,9 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
     for name in ("energy_expected", "energy_mc", "energy_stats",
                  "energy_transposed"):
         files = [p.name for p in _build.source_files(name)]
-        assert files == [f"{name}.cu"] + (["decode_mma.cuh"] if name ==
-                                          "energy_expected" else []) + [
-            "decode_common.cuh", "decode_any.cuh"]
+        mma = name in ("energy_expected", "energy_mc")
+        assert files == [f"{name}.cu"] + (["decode_mma.cuh"] if mma else []) \
+            + ["decode_common.cuh", "decode_any.cuh"]
     for f in os.listdir(_build.CSRC):
         (tmp_path / f).write_bytes((_build.CSRC / f).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -169,6 +169,12 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
         after = {n: _build._target(n).name for n in _build.SIGNATURES}
         assert all(before[n] != after[n] for n in before)
         before = after
+    # the tensor-core header renames the libraries that include it only
+    with open(tmp_path / "decode_mma.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build._target(n).name for n in _build.SIGNATURES}
+    assert {n for n in before if before[n] != after[n]} == {
+        "energy_expected", "energy_mc"}
     with open(tmp_path / "energy_mc.cu", "a") as f:
         f.write("// edited\n")
     assert _build._target("energy_mc").name != after["energy_mc"]
@@ -567,6 +573,151 @@ def test_mc_kernels_match_plain_versions_on_gpu(precision, mc_samples):
     p1, p2 = (d.contiguous() for d in mc.philox_draws(seed, S, T, B, kmax))
     assert torch.equal(e7, mc.energy_mc_fwd(ws, bs, g, p1, p2, precision))
     assert torch.equal(d8, mc.energy_mc_bwd(ws, bs, g, p1, p2, ct, precision))
+
+
+def _mc_bwd_pair(mc, ws, bs, g, ct, S, kmax, seed, precision):
+    """K6 on ``torch.randint``-style planes and K8 on in-kernel draws, each
+    with its plain version and a repeat: ((k6, k6_plain), (k8, k8_plain))
+    after checking the repeats bitwise and K8 = K6 on the philox planes."""
+    T, B = g.shape[:2]
+    d1, d2 = mc.sample_decoder_indices(
+        torch.Generator(device="cuda").manual_seed(S), T, B, ws[0].shape[0],
+        S, kmax.long())
+    k6 = mc.energy_mc_bwd(ws, bs, g, d1, d2, ct, precision)
+    k8 = mc.energy_mc_bwd_rng(ws, bs, g, seed, kmax, S, ct, precision)
+    assert torch.equal(k6, mc.energy_mc_bwd(ws, bs, g, d1, d2, ct, precision))
+    assert torch.equal(k8, mc.energy_mc_bwd_rng(ws, bs, g, seed, kmax, S, ct,
+                                                precision))
+    p1, p2 = (d.contiguous() for d in mc.philox_draws(seed, S, T, B, kmax))
+    assert torch.equal(k8, mc.energy_mc_bwd(ws, bs, g, p1, p2, ct, precision))
+    return ((k6, mc.energy_mc_bwd_plain(ws, bs, g, d1, d2, ct, precision)),
+            (k8, mc.energy_mc_bwd_plain(ws, bs, g, p1, p2, ct, precision)))
+
+
+def _assert_dgamma_close(d, d_p):
+    err = ((d - d_p).abs() / d_p.abs().max()).flatten()
+    assert bool(torch.isfinite(d).all())
+    assert float(err.median()) < 1e-4
+    assert float(torch.quantile(err, 0.99)) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 2, 3, 9, 16])
+@pytest.mark.parametrize("X,D,M", [(50, 2, 10)] + [
+    (x, d, m) for x in (7, 50, 64) for d in (1, 2, 4) for m in (1, 3)])
+@pytest.mark.parametrize("precision", ["f32x3", "f32x2", "bfloat16"])
+def test_mc_backward_on_tensor_cores_matches_plain_versions_on_gpu(
+        precision, X, D, M, S):
+    """K6 and K8 at the reduced rungs (the tensor-core pair mc_select_mma +
+    mc_chain_mma of ``csrc/energy_mc.cu``) against their plain versions:
+    the committed model (X, D, M = 50, 2, 10) and random decoders at the
+    widths the production kernels take, T*B = 67*13 (a ragged last tile),
+    mixed per-spline decoder counts, S up to two sweeps of draws; every
+    call repeated bitwise, K8 = K6 on the planes of ``philox_draws``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+
+    rng = np.random.default_rng(S)
+    if (X, D, M) == (50, 2, 10):
+        p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
+        ws, bs = ef.stack_weights(p.decoders)
+    else:
+        ws, bs = _random_decoders(rng, M, D, X, "cuda")
+    T, B = 67, 13
+    g = torch.as_tensor(rng.normal(size=(T, B, D)).astype(np.float32) * 2,
+                        device="cuda")
+    ct = torch.as_tensor(rng.uniform(0.5, 2, B).astype(np.float32),
+                         device="cuda")
+    kmax = torch.as_tensor(rng.integers(1, M + 1, B), device="cuda").float()
+    ef.reset_launch_counts()
+    for d, d_p in _mc_bwd_pair(mc, ws, bs, g, ct, S, kmax, (1 << 40) + S,
+                               precision):
+        _assert_dgamma_close(d, d_p)
+    assert ef.LAUNCHES["energy_mc_bwd"] == 3
+    assert ef.LAUNCHES["energy_mc_bwd_rng"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [9, 12, 33])
+@pytest.mark.parametrize("shape", ["production", "S2"])
+@pytest.mark.parametrize("precision", ["float32", "f32x3", "f32x2",
+                                       "bfloat16"])
+def test_mc_kernels_take_more_samples_than_one_sweep_on_gpu(precision, shape,
+                                                            S):
+    """K5-K8 at more samples than one sweep of staged draws (8 on the CUDA
+    cores, 32 on the tensor cores) on the committed model (the CUDA-core
+    kernels at float32, the tensor-core pair at the reduced rungs) and on
+    the generic decode (decoder S2, every rung): against their plain
+    versions, repeated bitwise, K7/K8 = K5/K6 on the planes of
+    ``philox_draws``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+
+    if shape == "production":
+        p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
+        ws, bs = ef.stack_weights(p.decoders)
+    else:
+        ws, bs = _shape_decoders(shape, "cuda")
+    rng = np.random.default_rng(S)
+    T, B, M = 67, 13, ws[0].shape[0]
+    g = torch.as_tensor(rng.normal(size=(T, B, 2)).astype(np.float32) * 2,
+                        device="cuda")
+    ct = torch.as_tensor(rng.uniform(0.5, 2, B).astype(np.float32),
+                         device="cuda")
+    kmax = torch.as_tensor(rng.integers(1, M + 1, B), device="cuda").float()
+    seed = (1 << 40) + S
+    for d, d_p in _mc_bwd_pair(mc, ws, bs, g, ct, S, kmax, seed, precision):
+        _assert_dgamma_close(d, d_p)
+    p1, p2 = (d.contiguous() for d in mc.philox_draws(seed, S, T, B, kmax))
+    e7 = mc.energy_mc_fwd_rng(ws, bs, g, seed, kmax, S, precision)
+    assert torch.equal(e7, mc.energy_mc_fwd_rng(ws, bs, g, seed, kmax, S,
+                                                precision))
+    assert torch.equal(e7, mc.energy_mc_fwd(ws, bs, g, p1, p2, precision))
+    torch.testing.assert_close(
+        e7, mc.energy_mc_fwd_plain(ws, bs, g, p1, p2, precision), rtol=1e-5,
+        atol=0)
+
+
+@pytest.mark.gpu
+def test_mc_fused_optimizes_at_twelve_samples_on_gpu():
+    """``optimize_spline_batch`` at ``mc_fused`` with 12 samples runs on the
+    card (the backward kernels once refused more than 8): K8 every step,
+    K7 for the final energies, finite lengths, the curves move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.config import (EnergyConfig,
+                                                      GeodesicConfig)
+    from vae_latent_geometry_tpu_torch.io.artifacts import load_spline_batch
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch)
+
+    params = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"),
+                      "cuda")
+    art = load_spline_batch(os.path.join(
+        REPO, "experiment", "splines_init_model_seed42",
+        "spline_batch_init_entropy_20.npz"))
+    steps = 5
+    cfg = GeodesicConfig(steps=steps, lr=1e-3, lr_schedule="constant",
+                         batch_size=200, energy=EnergyConfig(
+                             num_t=256, mode="mc_fused", mc_samples=12,
+                             kernel_precision="f32x2"))
+    ef.reset_launch_counts()
+    out = optimize_spline_batch(params, art, cfg=cfg, device="cuda",
+                                log_every_chunk=False,
+                                generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert ef.LAUNCHES["energy_mc_bwd_rng"] == steps
+    assert ef.LAUNCHES["energy_mc_fwd_rng"] == 1
+    assert np.isfinite(out.geodesic_length).all()
+    assert not np.array_equal(out.omega_optimized, art.omega_init)
 
 
 @pytest.mark.gpu

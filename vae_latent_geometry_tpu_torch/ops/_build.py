@@ -49,6 +49,7 @@ SIGNATURES = {
                        _P, _P, _I, _P],
         "vlg_mc_bwd": [_I, _P, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U, _U, _P,
                        _P, _P, _P, _I, _P],
+        "vlg_mc_bwd_planes": [_I, _I, _I, _I, _P],
     },
     "energy_transposed": {
         "vlg_t_scratch_words": [_I, _I, _I],

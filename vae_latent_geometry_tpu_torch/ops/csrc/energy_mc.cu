@@ -4,7 +4,9 @@
 // Replaces the Pallas TPU kernels of
 // vae_latent_geometry_tpu/ops/energy_mc_pallas.py:
 //   K5  _fwd_kernel      (:473)  -> mc_segments + mc_sum_tiles, planes given
-//   K6  _bwd_kernel      (:548)  -> mc_segments (writing differences) + mc_chain
+//   K6  _bwd_kernel      (:548)  -> mc_select_mma + mc_chain_mma (f32x3,
+//       f32x2, bfloat16), mc_segments (writing differences) + mc_chain
+//       (float32)
 //   K7  _fwd_kernel_rng  (:166)  -> K5 with the draws made in the kernel
 //   K8  _bwd_kernel_rng  (:235)  -> K6 with the draws made in the kernel
 //
@@ -18,7 +20,9 @@
 //       dx_m(t) = (2/S) ct_b sum_s ([d2[s,t-1,b] = m] diff_s(t-1)
 //                                   - [d1[s,t,b] = m] diff_s(t)),
 //       back-propagated through the ReLU masks of decoder m's decode.
-// Point 0 has no left segment and point T-1 no right one.
+// Point 0 has no left segment and point T-1 no right one.  Any S >= 1: the
+// backward kernels stage the draws in sweeps of at most SMAX (CUDA cores)
+// or SMAX_MMA (tensor cores) samples.
 //
 // Draws.  K5/K6 read int32 planes d1, d2 (S, T-1, B).  K7/K8 make them:
 // Philox4x32-10 keyed by the step's 64-bit seed, counter (t, b, j / 4, 0)
@@ -37,9 +41,10 @@
 // Work (counted from the code, per point per decoder): the float32 decode is
 // 46 kFLOP at D=2, X=50 (energy_expected.cu), i.e. 1.8e11 FLOP per K5 call at
 // T=2000, B=200, M=10.  K6 at f32x2 is two two-pass decodes plus a
-// single-pass chain.  The index planes (6.4 MB at S=2) and K6's difference
-// planes (160 MB written and read once) are small beside that: all four
-// kernels are bound by operations, not bytes, on this card.
+// single-pass chain.  The index planes (6.4 MB at S=2) and K6's planes of
+// endpoints or differences (320 or 160 MB at S=2, written and read once)
+// are small beside that: all four kernels are bound by operations, not
+// bytes, on this card.
 //
 // Design for Hopper.  The TPU kernels stream T in chunks inside one program
 // with a one-row carry; here blocks run in no order.  mc_segments gives each
@@ -53,11 +58,19 @@
 // (56 registers); more samples take further sweeps.  Energies go to an
 // (n_tiles, B) buffer of per-tile partial sums that a second launch adds in
 // a fixed order: no float atomics, repeated runs are bitwise identical.
-// The backward is two launches, as K2: mc_segments writes the S difference
-// planes (S, T-1, B, X), then mc_chain re-decodes each decoder per tile of
-// 128 points, gathers dx from the planes and runs the masked chain.  This
-// decodes twice where the TPU kernel decodes once; the single decode with
-// kept masks is later work.
+// The backward is two launches, as K2.  At float32: mc_segments writes the S
+// difference planes (S, T-1, B, X), then mc_chain re-decodes each decoder
+// per tile of 128 points, gathers dx from the planes and runs the masked
+// chain.  At the reduced rungs both passes run on the tensor cores
+// (mma.sync m16n8k16 bf16, decode_mma.cuh) over flat tiles of 128 points of
+// the (T*B) curve, a warp's 16 points in the C-fragment layout:
+// mc_select_mma copies, where a draw names the decoder, the decoded point
+// into the endpoint planes L_s(t) = x_{d1[s,t]}(t) and R_s(t) =
+// x_{d2[s,t-1]}(t) (2S, T, B, X; no accumulators, no halo rows), and
+// mc_chain_mma forms dx in registers from diff_s(t) = R_s(t+1) - L_s(t),
+// the same single fp32 subtraction as mc_segments', in the same per-sample
+// order, then runs chain_mma.  Both decode twice where the TPU kernel
+// decodes once; the single decode with kept masks is later work.
 //
 // Any decoder.  The kernels above take the production shape D <= 4 -> 128 ->
 // 128 -> X <= 64; every other decoder (2 to 6 layers, hidden widths up to
@@ -68,6 +81,7 @@
 
 #include "decode_any.cuh"
 #include "decode_common.cuh"
+#include "decode_mma.cuh"
 
 namespace {
 
@@ -76,7 +90,7 @@ constexpr int MC_RUN = 8;                        // t-rows a thread group decode
 constexpr int MC_SEGS = MC_RUN - 1;              // segments it owns
 constexpr int MC_RUNS = TP / MC_RUN / MC_COLS;   // runs per spline per tile
 constexpr int MC_TILE_SEGS = MC_RUNS * MC_SEGS;  // segments per spline per tile
-constexpr int SMAX = 8;                          // most samples mc_chain stages
+constexpr int SMAX = 8;                          // samples a backward sweep stages
 
 template <class Base>
 struct McSmemOf : Base {
@@ -85,6 +99,13 @@ struct McSmemOf : Base {
 };
 using McSmem = McSmemOf<DecodeSmem>;
 using McSmemAny = McSmemOf<AnySmem>;
+
+// The tensor-core pair's: one decoder's bf16 planes and the sweep's draws,
+// of up to SMAX_MMA samples (the planes leave room for more than SMAX).
+constexpr int SMAX_MMA = 32;
+struct McMmaSmem : MmaSmem {
+  int idx[2 * SMAX_MMA * TP];
+};
 
 // Where the draws come from: planes in device memory (d1 != nullptr) or the
 // counter-based generator.
@@ -121,6 +142,41 @@ __device__ int draw(const Draws& dr, int S, int T, int B, int side, int smp, int
   const float k = dr.kmax[b];
   const float u = __fmul_rn((float)(bits >> 8), 1.f / 16777216.f);
   return min((int)floorf(__fmul_rn(u, k)), (int)k - 1);
+}
+
+// Stage the draws of samples s0 .. s0+sw-1 (sw <= CAP) for the backward's
+// tile of TP points from p0 of the flattened (T*B) curve: idx[(side * CAP +
+// k) * TP + p] holds, for sample s0 + k, d1 of the segment after point p
+// (side 0) or d2 of the segment before it (side 1); -1 where there is none.
+template <int CAP>
+__device__ void stage_draws(int* idx, const Draws& dr, int S, int T, int B, int p0, int s0,
+                            int sw) {
+  const int N = T * B;
+  for (int e = threadIdx.x; e < 2 * sw * TP; e += NT) {
+    const int p = e % TP, q = e / TP, side = q / sw, k = q % sw;
+    const int pg = p0 + p, t = pg / B, b = pg % B;
+    int v = -1;
+    if (pg < N && side == 0 && t < T - 1) v = draw(dr, S, T, B, 0, s0 + k, t, b);
+    if (pg < N && side == 1 && t > 0) v = draw(dr, S, T, B, 1, s0 + k, t - 1, b);
+    idx[(side * CAP + k) * TP + p] = v;
+  }
+}
+
+// f(s0, sw) for each sweep of sw <= CAP samples from s0.  Where S <= CAP the
+// caller staged the draws once, before its decoder loop; else each sweep
+// stages its own, between barriers.
+template <int CAP, class F>
+__device__ __forceinline__ void for_sweeps(int* idx, const Draws& dr, int S, int T, int B,
+                                           int p0, F&& f) {
+  for (int s0 = 0; s0 < S; s0 += CAP) {
+    const int sw = min(CAP, S - s0);
+    if (S > CAP) {
+      __syncthreads();
+      stage_draws<CAP>(idx, dr, S, T, B, p0, s0, sw);
+      __syncthreads();
+    }
+    f(s0, sw);
+  }
 }
 
 // Pass 1 of both directions.  Tile (by: segments t0..t0+27, bx: splines
@@ -254,9 +310,37 @@ __global__ void mc_sum_tiles(const float* __restrict__ partial, int n_tiles, int
   out[b] = e / (float)S;
 }
 
-// K6/K8, pass 2: per decoder, re-decode tile bx of 128 points of the
-// flattened (T*B) curve, gather dx from the difference planes and run the
-// masked cotangent chain back to dgamma (T*B, D).
+// dx[j] (feature tx+16j of point p = (t, b)) -/+= the difference rows of
+// samples s0 .. s0+sw-1 where their draws (staged in idx) name decoder m,
+// in sample order.
+template <int NJ>
+__device__ __forceinline__ void gather_dx(float (&dx)[NJ], const int* idx,
+                                          const float* __restrict__ diffs, int m, int p, int t,
+                                          int b, int s0, int sw, int T, int B, int X) {
+  const int tx = threadIdx.x & 15;
+  for (int k = 0; k < sw; ++k) {
+    const int smp = s0 + k;
+    if (idx[k * TP + p] == m) {
+      const float* row = diffs + (((size_t)smp * (T - 1) + t) * B + b) * X;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (tx + 16 * j < X) dx[j] = __fsub_rn(dx[j], row[tx + 16 * j]);
+    }
+    if (idx[(SMAX + k) * TP + p] == m) {
+      const float* row = diffs + (((size_t)smp * (T - 1) + t - 1) * B + b) * X;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        if (tx + 16 * j < X) dx[j] = __fadd_rn(dx[j], row[tx + 16 * j]);
+    }
+  }
+}
+
+// K6/K8 at float32 and on the generic decode, pass 2: per decoder,
+// re-decode tile bx of 128 points of the flattened (T*B) curve, gather dx
+// from the difference planes and run the masked cotangent chain back to
+// dgamma (T*B, D).  The draws are staged once where S <= SMAX, else per
+// decoder in sweeps of SMAX samples, dx carried between sweeps in a running
+// tile; either way each dx element takes its samples' updates in order.
 template <int R, class P>
 __device__ __forceinline__ void chain_body(McSmemOf<typename P::Smem>& s,
                                            const typename P::Ctx& c, int bx,
@@ -269,49 +353,51 @@ __device__ __forceinline__ void chain_body(McSmemOf<typename P::Smem>& s,
   constexpr int NJ = P::NJX;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int N = T * B, p0 = bx * TP;
+  const bool one_sweep = S <= SMAX;
   load_points(s, gamma, N, D, p0);
   for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
-  // idx[smp * TP + p]: d1 of the segment after point p; idx[(S + smp) * TP
-  // + p]: d2 of the segment before it
-  for (int e = tid; e < 2 * S * TP; e += NT) {
-    const int p = e % TP, q = e / TP, side = q / S, smp = q % S;
-    const int pg = p0 + p, t = pg / B, b = pg % B;
-    int v = -1;
-    if (pg < N && side == 0 && t < T - 1) v = draw(dr, S, T, B, 0, smp, t, b);
-    if (pg < N && side == 1 && t > 0) v = draw(dr, S, T, B, 1, smp, t - 1, b);
-    s.idx[e] = v;
-  }
+  if (one_sweep) stage_draws<SMAX>(s.idx, dr, S, T, B, p0, 0, S);
   const float two_over_s = 2.f / (float)S;
   for (int m = 0; m < M; ++m) {
     float x[8][NJ];
     typename P::Masks mk;
-    P::template decode<R>(s, c, m, D, X, x, mk);
+    P::template decode<R>(s, c, m, D, X, x, mk);  // the outputs are not needed
     // dx -> act[n][p] at the chain rung
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int p = ty * 8 + i, pg = p0 + p, pc = min(pg, N - 1);
-      const int t = pc / B, b = pc % B;
-      const float sc = pg < N ? __fmul_rn(two_over_s, ct[b]) : 0.f;
-      float dx[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) dx[j] = 0.f;
-      for (int smp = 0; smp < S; ++smp) {
-        if (s.idx[smp * TP + p] == m) {
-          const float* row = diffs + (((size_t)smp * (T - 1) + t) * B + b) * X;
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            if (tx + 16 * j < X) dx[j] = __fsub_rn(dx[j], row[tx + 16 * j]);
-        }
-        if (s.idx[(S + smp) * TP + p] == m) {
-          const float* row = diffs + (((size_t)smp * (T - 1) + t - 1) * B + b) * X;
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            if (tx + 16 * j < X) dx[j] = __fadd_rn(dx[j], row[tx + 16 * j]);
-        }
-      }
+    const auto put = [&](int i, const float (&dx)[NJ]) {
+      const int p = ty * 8 + i, pg = p0 + p;
+      const float sc = pg < N ? __fmul_rn(two_over_s, ct[min(pg, N - 1) % B]) : 0.f;
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
         if (tx + 16 * j < X) s.act[(tx + 16 * j) * S_ACT + p] = pack<C>(__fmul_rn(dx[j], sc));
+    };
+    if (one_sweep) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int p = ty * 8 + i, pc = min(p0 + p, N - 1);
+        float dx[NJ];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dx[j] = 0.f;
+        gather_dx(dx, s.idx, diffs, m, p, pc / B, pc % B, 0, S, T, B, X);
+        put(i, dx);
+      }
+    } else {
+      float run[8][NJ];
+      for_sweeps<SMAX>(s.idx, dr, S, T, B, p0, [&](int s0, int sw) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int p = ty * 8 + i, pc = min(p0 + p, N - 1);
+          float dx[NJ];
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) dx[j] = s0 == 0 ? 0.f : P::tile(run, c, i, j);
+          gather_dx(dx, s.idx, diffs, m, p, pc / B, pc % B, s0, sw, T, B, X);
+          if (s0 + sw < S) {
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) P::tile(run, c, i, j) = dx[j];
+          } else {
+            put(i, dx);
+          }
+        }
+      });
     }
     __syncthreads();
     P::template chain<C>(s, c, m, D, X, mk);
@@ -345,6 +431,156 @@ mc_chain_any(const float* __restrict__ gamma, int T, int B, int M, int S, AnyArg
   }
 }
 
+// The lane's row r (of its two) of a C-fragment tile to a row of X floats.
+__device__ __forceinline__ void store_row(float* __restrict__ row, const float (&x)[NJ3][4],
+                                          int r, int X) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NJ3; ++j) {
+    const int n = 8 * j + 2 * q;
+    if ((X & 1) == 0) {
+      if (n < X) *reinterpret_cast<float2*>(row + n) = make_float2(x[j][2 * r], x[j][2 * r + 1]);
+    } else {
+      if (n < X) row[n] = x[j][2 * r];
+      if (n + 1 < X) row[n + 1] = x[j][2 * r + 1];
+    }
+  }
+}
+
+// Lane columns 8j + 2q + {0, 1} of a row of X floats, zero beyond X or
+// where !use (a predicated load: no memory access then).
+__device__ __forceinline__ float2 lane_pair(const float* __restrict__ row, int j, bool use,
+                                            int X) {
+  const int n = 8 * j + 2 * (threadIdx.x & 3);
+  if ((X & 1) == 0)
+    return use && n < X ? *reinterpret_cast<const float2*>(row + n) : make_float2(0.f, 0.f);
+  return make_float2(use && n < X ? row[n] : 0.f, use && n + 1 < X ? row[n + 1] : 0.f);
+}
+
+// K6/K8 at a reduced rung, pass 1, on the tensor cores: per decoder, decode
+// the warp's 16 points and copy each point's output into the endpoint
+// planes ends (2S, T, B, X) where a draw names the decoder: plane s gets
+// L_s(t) = x_{d1[s,t]}(t), plane S + s gets R_s(t) = x_{d2[s,t-1]}(t).  An
+// entry (side, s, t) with a segment is written by exactly one decoder; L_s
+// at t = T-1 and R_s at t = 0 are never written nor read.
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+mc_select_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
+              Weights w, Draws dr, float* __restrict__ ends) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  McMmaSmem& s = *reinterpret_cast<McMmaSmem*>(smem_raw);
+  const int lane = threadIdx.x & 31;
+  const int N = T * B, p0 = blockIdx.x * TP;
+  const int p = (threadIdx.x >> 5) * 16 + (lane >> 2);  // rows p, p + 8
+  zero_w3_planes(s);
+  load_points_mma(s, gamma, N, D, p0);
+  if (S <= SMAX_MMA) stage_draws<SMAX_MMA>(s.idx, dr, S, T, B, p0, 0, S);
+  for (int m = 0; m < M; ++m) {
+    __syncthreads();
+    stage_weights_mma<R>(s, m, D, X, w);
+    __syncthreads();
+    float x[NJ3][4];
+    uint32_t m1[2], m2[2];
+    decode_mma<R>(s, D, X, x, m1, m2);
+    for_sweeps<SMAX_MMA>(s.idx, dr, S, T, B, p0, [&](int s0, int sw) {
+      for (int k = 0; k < sw; ++k)
+#pragma unroll
+        for (int side = 0; side < 2; ++side)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (s.idx[(side * SMAX_MMA + k) * TP + p + 8 * r] == m)
+              store_row(ends + ((size_t)(side * S + s0 + k) * N + p0 + p + 8 * r) * X, x, r, X);
+    });
+  }
+}
+
+// K6/K8 at a reduced rung, pass 2, on the tensor cores: per decoder,
+// re-decode the tile for its masks, form dx in registers from the endpoint
+// planes (each element's updates in mc_chain's order; where a draw does not
+// name the decoder the update is by zero, as in the plain version) and run
+// the masked chain (chain_mma, single-pass bf16).
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+mc_chain_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
+             Weights w, Draws dr, const float* __restrict__ ct,
+             const float* __restrict__ ends, float* __restrict__ dgamma) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  McMmaSmem& s = *reinterpret_cast<McMmaSmem*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, q = lane & 3;
+  const int N = T * B, p0 = blockIdx.x * TP;
+  const int p = (tid >> 5) * 16 + (lane >> 2);  // rows p, p + 8
+  zero_w3_planes(s);
+  load_points_mma(s, gamma, N, D, p0);
+  for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
+  if (S <= SMAX_MMA) stage_draws<SMAX_MMA>(s.idx, dr, S, T, B, p0, 0, S);
+  // per row: its point (clamped) and (2/S) ct_b, 0 past the end
+  int pc[2];
+  float sc[2];
+  const float two_over_s = 2.f / (float)S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pg = p0 + p + 8 * r;
+    pc[r] = min(pg, N - 1);
+    sc[r] = pg < N ? __fmul_rn(two_over_s, ct[pc[r] % B]) : 0.f;
+  }
+  for (int m = 0; m < M; ++m) {
+    __syncthreads();
+    stage_weights_mma<R>(s, m, D, X, w);
+    __syncthreads();
+    float dx[NJ3][4];
+    uint32_t m1[2], m2[2];
+    decode_mma<R>(s, D, X, dx, m1, m2);  // the outputs are not needed
+#pragma unroll
+    for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dx[j][c] = 0.f;
+    for_sweeps<SMAX_MMA>(s.idx, dr, S, T, B, p0, [&](int s0, int sw) {
+      for (int k = 0; k < sw; ++k) {
+        // the sample's differences at the lane's rows, zero where its draws
+        // do not name decoder m: every load of the sample in flight at once
+        const float* L = ends + (size_t)(s0 + k) * N * X;
+        const float* Rt = ends + (size_t)(S + s0 + k) * N * X;
+        const size_t up = (size_t)B * X;
+        float cur[2][NJ3][2], prv[2][NJ3][2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const size_t row = (size_t)pc[r] * X;
+          const bool a = s.idx[k * TP + p + 8 * r] == m;           // d1[s, t]
+          const bool b = s.idx[(SMAX_MMA + k) * TP + p + 8 * r] == m;  // d2[s, t-1]
+#pragma unroll
+          for (int j = 0; j < NJ3; ++j) {
+            const float2 rc = lane_pair(Rt + row + up, j, a, X), lc = lane_pair(L + row, j, a, X);
+            const float2 rp = lane_pair(Rt + row, j, b, X), lp = lane_pair(L + row - up, j, b, X);
+            cur[r][j][0] = __fsub_rn(rc.x, lc.x);
+            cur[r][j][1] = __fsub_rn(rc.y, lc.y);
+            prv[r][j][0] = __fsub_rn(rp.x, lp.x);
+            prv[r][j][1] = __fsub_rn(rp.y, lp.y);
+          }
+        }
+        // dx -= diff_s(t), then += diff_s(t-1): mc_chain's order
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              dx[j][2 * r + c] = __fadd_rn(__fsub_rn(dx[j][2 * r + c], cur[r][j][c]),
+                                           prv[r][j][c]);
+      }
+    });
+#pragma unroll
+    for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        dx[j][c] = 8 * j + 2 * q + (c & 1) < X ? __fmul_rn(dx[j][c], sc[c >> 1]) : 0.f;
+    uint32_t a[NK3][4];
+    to_a<false>(dx, a);
+    chain_mma(s, D, X, a, m1, m2);
+  }
+  __syncthreads();
+  store_dgamma(s, dgamma, N, D, p0);
+}
+
 int fwd_tiles(int T) { return T > 1 ? (T - 1 + MC_TILE_SEGS - 1) / MC_TILE_SEGS : 1; }
 
 template <int R>
@@ -365,6 +601,23 @@ cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, in
   cudaError_t err = launch_segments<R>(gamma, T, B, D, M, X, S, w, dr, partial, nullptr, st);
   if (err != cudaSuccess) return err;
   mc_sum_tiles<<<(B + 127) / 128, 128, 0, st>>>(partial, fwd_tiles(T), B, S, out);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_bwd_mma(const float* gamma, int T, int B, int D, int M, int X, int S,
+                           Weights w, Draws dr, const float* ct, float* ends, float* dgamma,
+                           cudaStream_t st) {
+  cudaError_t err = prepare<McMmaSmem>(mc_select_mma<R>);
+  if (err == cudaSuccess) err = prepare<McMmaSmem>(mc_chain_mma<R>);
+  if (err != cudaSuccess) return err;
+  const int n_blocks = (T * B + TP - 1) / TP;
+  mc_select_mma<R><<<n_blocks, NT, sizeof(McMmaSmem), st>>>(gamma, T, B, D, M, X, S, w, dr,
+                                                            ends);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mc_chain_mma<R><<<n_blocks, NT, sizeof(McMmaSmem), st>>>(gamma, T, B, D, M, X, S, w, dr, ct,
+                                                           ends, dgamma);
   return cudaGetLastError();
 }
 
@@ -444,12 +697,22 @@ int vlg_mc_fwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
   });
 }
 
+// (B, X) planes of the backward's scratch (`diffs` of vlg_mc_bwd): the
+// difference planes (S, T-1, B, X) of the FMA kernels, or the endpoint
+// planes (2S, T, B, X) of the tensor-core pair (the production shape at a
+// reduced rung); -1 for a decoder the kernels do not take.
+int vlg_mc_bwd_planes(int rung, int T, int S, int L, const int* widths) {
+  const float* none[LMAX] = {};
+  Decoder d;
+  if (!make_decoder(L, widths, none, none, d)) return -1;
+  return rung != F32 && fixed_shape(d) ? 2 * S * T : S * (T - 1);
+}
+
 int vlg_mc_bwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
                const int* widths, const float* const* Ws, const float* const* bs,
                const int* d1, const int* d2, const float* kmax, unsigned key0, unsigned key1,
                const float* ct, float* diffs, float* dgamma, void* scratch, int n_blocks,
                void* stream) {
-  if (S > SMAX) return cudaErrorInvalidValue;
   Decoder d;
   if (!make_decoder(L, widths, Ws, bs, d)) return cudaErrorInvalidValue;
   const Draws dr{d1, d2, kmax, key0, key1};
@@ -458,9 +721,13 @@ int vlg_mc_bwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
   const AnyArgs a{d, static_cast<uint32_t*>(scratch), any_scratch_words(d, 1)};
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
-    return fixed_shape(d)
-        ? launch_bwd<R>(gamma, T, B, D, M, X, S, fixed_weights(d), dr, ct, diffs, dgamma, st)
-        : launch_bwd_any<R>(gamma, T, B, M, S, a, n_blocks, dr, ct, diffs, dgamma, st);
+    if (!fixed_shape(d))
+      return launch_bwd_any<R>(gamma, T, B, M, S, a, n_blocks, dr, ct, diffs, dgamma, st);
+    if constexpr (R == F32)  // CUDA-core FMAs (TF32 is barred)
+      return launch_bwd<R>(gamma, T, B, D, M, X, S, fixed_weights(d), dr, ct, diffs, dgamma, st);
+    else  // tensor cores
+      return launch_bwd_mma<R>(gamma, T, B, D, M, X, S, fixed_weights(d), dr, ct, diffs, dgamma,
+                               st);
   });
 }
 

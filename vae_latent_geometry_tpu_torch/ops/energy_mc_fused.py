@@ -52,8 +52,6 @@ from vae_latent_geometry_tpu_torch.ops.energy_fused import (
     stack_weights,
 )
 
-MAX_MC_SAMPLES = 8   # most samples S the backward kernels take
-
 LAUNCHES.update({"energy_mc_fwd": 0, "energy_mc_bwd": 0,
                  "energy_mc_fwd_rng": 0, "energy_mc_bwd_rng": 0})
 
@@ -243,9 +241,6 @@ def _launch(name, backward, ws, bs, gamma, precision, S, d1, d2, kmax, seed,
     T, B, D, M, X = _check_cuda(ws, bs, gamma, None, extra)
     if T < 2:
         raise ValueError(f"a curve needs at least 2 points, got T={T}")
-    if backward and S > MAX_MC_SAMPLES:
-        raise ValueError(f"the backward kernels take at most "
-                         f"{MAX_MC_SAMPLES} samples, got mc_samples={S}")
     if ct is not None and tuple(ct.shape) != (B,):
         raise ValueError(f"ct must be (B,) = ({B},), got {tuple(ct.shape)}")
     lib = library("energy_mc")
@@ -257,9 +252,12 @@ def _launch(name, backward, ws, bs, gamma, precision, S, d1, d2, kmax, seed,
     head = [_RUNG[precision], gamma.data_ptr(), T, B, M, S, *dec, *draws]
     tail = [_ptr(scratch), n_blocks, _stream(dev)]
     if backward:
-        diffs = torch.empty((S, T - 1, B, X), dtype=torch.float32, device=dev)
+        # the kernels' difference or endpoint planes
+        n_planes = lib.vlg_mc_bwd_planes(_RUNG[precision], T, S, *dec[:2])
+        planes = torch.empty((n_planes, B, X), dtype=torch.float32,
+                             device=dev)
         out = torch.empty((T, B, D), dtype=torch.float32, device=dev)
-        err = lib.vlg_mc_bwd(*head, ct.data_ptr(), diffs.data_ptr(),
+        err = lib.vlg_mc_bwd(*head, ct.data_ptr(), planes.data_ptr(),
                              out.data_ptr(), *tail)
     else:
         partial = torch.empty((lib.vlg_mc_fwd_tiles(T), B),
@@ -285,7 +283,14 @@ def energy_mc_fwd(ws, bs, gamma, d1, d2, precision):
 
 
 def energy_mc_bwd(ws, bs, gamma, d1, d2, ct, precision):
-    """K6: dgamma (T, B, D) of sum_b ct_b E_b on the given planes."""
+    """K6: dgamma (T, B, D) of sum_b ct_b E_b on the given planes.
+
+    Any number of samples S.  On the card the call holds a scratch that
+    grows linearly with S: the endpoint planes (2S, T, B, X) float32 of the
+    tensor-core kernels (the production decoder at f32x3, f32x2, bfloat16)
+    or the difference planes (S, T-1, B, X) of the others.  At the
+    production chunk (T=2000, B=200, X=50) and S=16 that is 2.56 GB or
+    1.28 GB; only a failed allocation refuses a larger S."""
     _check_device(gamma)
     S = _check_planes(d1, d2, gamma)
     if gamma.device.type == "cpu":
@@ -309,7 +314,8 @@ def energy_mc_fwd_rng(ws, bs, gamma, seed, kmax, mc_samples, precision):
 
 
 def energy_mc_bwd_rng(ws, bs, gamma, seed, kmax, mc_samples, ct, precision):
-    """K8: K6 on the same in-kernel draws as K7."""
+    """K8: K6 on the same in-kernel draws as K7 (the same scratch as
+    :func:`energy_mc_bwd`'s)."""
     _check_device(gamma)
     _check_kmax(kmax, gamma, mc_samples)
     if gamma.device.type == "cpu":
