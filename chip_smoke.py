@@ -7,10 +7,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
 1. build   — compile the CUDA kernels from ``vae_latent_geometry_tpu_torch/
              ops/csrc`` with nvcc (sm_90a); card name, power limit, versions;
-             the tensor-core instructions (HMMA) in K2's and K6/K8's SASS:
-             present in the production shape's mma kernels at the reduced
-             rungs, absent at float32, in the forward MC kernels and in the
-             generic decode's kernels.
+             the tensor-core instructions (HMMA) in K2's, K3/K4's and
+             K6/K8's SASS: present in the production shape's mma kernels at
+             the reduced rungs, absent at float32, in the forward MC kernels
+             and in the generic decode's kernels.
 2. kernels — at full width (seed-42 10-decoder EVAE, the 190 seed-42 init
              curves padded to B=200, T=2000, S=2 MC samples): each kernel
              against its plain PyTorch version on the same inputs, every
@@ -19,7 +19,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
              second call of K2, K6 and K8 bitwise equal to the first;
              CUDA-event times of kernel and plain version.
              The stats kernels (K3/K4) on local shards of 10, 5 and 1
-             decoders with random smooth cotangents, and
+             decoders with random smooth cotangents, every rung, each call
+             repeated bitwise, and
              ``energy_expected_sharded`` on one shard of all ten against
              K1's energies and K2's gradient.
 3. main    — ``optimize_spline_batch`` (expected_fused, f32x2, 1000 Adam
@@ -31,8 +32,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
              through the unfused plain-PyTorch ``expected`` mode (float32,
              200 steps) as the end-to-end yardstick; profile — device time
              by kernel (torch.profiler): the two launches of K2, K6 and K8,
-             and 50 steps of the main path and of the MC main path with the
-             device's busy share.
+             and 50 steps of the main path, of the MC main path and of the
+             decoder-sharded path with the device's busy share (and K3's
+             and K4's ms per launch and share there).
 4. rung    — pairs 0, 42, 65, 164 through the same recipe at float32
              against the JAX package on the CPU at float32.
 5. mc_stats — the mean of the in-kernel-draw MC energy (K7) over 64 seeds
@@ -99,7 +101,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
 15. the ``kernels`` summary line (each kernel with its records on those
     shapes), the card line, and the result line.
 
-At the reduced rungs K2 and K6/K8 run on the tensor cores
+At the reduced rungs K2, K3/K4 and K6/K8 run on the tensor cores
 (``csrc/decode_mma.cuh``): the kernels phase also holds K2 on random
 decoders at X = 7 and 64 with a ragged tile, and every K2 call there is
 repeated and must be bitwise equal.
@@ -487,8 +489,9 @@ def smooth_cotangents(T, B, X, dev, seed):
 
 
 def stats_phase(ef, ws_all, bs_all, gamma, dev):
-    """K3/K4 against their plain versions on local shards; returns
-    (records by (M_loc, rung), times)."""
+    """K3/K4 against their plain versions on local shards, every call
+    repeated bitwise; returns (records by (M_loc, rung), times: the kernels'
+    ms at every rung, the plain versions' at float32 and f32x2)."""
     import torch
 
     T, B, _ = gamma.shape
@@ -511,6 +514,8 @@ def stats_phase(ef, ws_all, bs_all, gamma, dev):
             ref = ef.stats_fwd_plain(ws, bs, gamma, wmb, prec)
             g_k = ef.stats_bwd(ws, bs, gamma, wmb, dx0, dyb, dsq, prec)
             g_p = ef.stats_bwd_plain(ws, bs, gamma, wmb, dx0, dyb, dsq, prec)
+            again = (ef.stats_fwd(ws, bs, gamma, wmb, prec),
+                     ef.stats_bwd(ws, bs, gamma, wmb, dx0, dyb, dsq, prec))
             torch.cuda.synchronize()
             rec = {"phase": "kernels", "kernel": "stats", "M_loc": m_loc,
                    "shard": shard, "precision": prec,
@@ -518,7 +523,10 @@ def stats_phase(ef, ws_all, bs_all, gamma, dev):
                    **dgamma_stats(g_k, g_p, "stats_"),
                    "stats_finite": bool(
                        all(torch.isfinite(o).all() for o in out)
-                       and torch.isfinite(g_k).all())}
+                       and torch.isfinite(g_k).all()),
+                   "repeat_bitwise": bool(
+                       all(torch.equal(a, b) for a, b in zip(out, again[0]))
+                       and torch.equal(g_k, again[1]))}
             x_scale = float(ref[0].abs().max())
             for name, o, r in zip(("x0", "yb", "sq"), out, ref):
                 scale = max(float(r.abs().max()), 1e-30) if name == "sq" \
@@ -528,23 +536,27 @@ def stats_phase(ef, ws_all, bs_all, gamma, dev):
             if m_loc == 1 and (float(out[1].abs().max()) != 0.0
                                or float(out[2].abs().max()) != 0.0):
                 fail("K3 on a one-decoder shard wrote nonzero moments")
-            if na is None and m_loc > 1 and prec in ("float32", "f32x2"):
+            if na is None and m_loc > 1:
                 rec["stats_fwd_ms"] = time_ms(
                     lambda: ef.stats_fwd(ws, bs, gamma, wmb, prec), 5)
-                rec["stats_fwd_plain_ms"] = time_ms(
-                    lambda: ef.stats_fwd_plain(ws, bs, gamma, wmb, prec), 3)
                 rec["stats_bwd_ms"] = time_ms(
                     lambda: ef.stats_bwd(ws, bs, gamma, wmb, dx0, dyb, dsq,
                                          prec), 5)
-                rec["stats_bwd_plain_ms"] = time_ms(
-                    lambda: ef.stats_bwd_plain(ws, bs, gamma, wmb, dx0, dyb,
-                                               dsq, prec), 3)
+                if prec in ("float32", "f32x2"):
+                    rec["stats_fwd_plain_ms"] = time_ms(
+                        lambda: ef.stats_fwd_plain(ws, bs, gamma, wmb, prec),
+                        3)
+                    rec["stats_bwd_plain_ms"] = time_ms(
+                        lambda: ef.stats_bwd_plain(ws, bs, gamma, wmb, dx0,
+                                                   dyb, dsq, prec), 3)
                 times[(m_loc, prec)] = rec
             emit(rec)
             key = (m_loc, prec, "uniform" if na is None else "mixed")
             recs[key] = rec
             if not rec["stats_finite"]:
                 fail(f"K3/K4 non-finite output at {key}")
+            if not rec["repeat_bitwise"]:
+                fail(f"K3/K4: a second call differs from the first at {key}")
             for name in ("x0", "yb", "sq"):
                 tol = (STATS_SQ_RTOL if name == "sq" else STATS_X_RTOL)[prec]
                 if rec[f"{name}_max_rel"] > tol:
@@ -1207,12 +1219,13 @@ def launch_times(fn, calls):
             .split("(")[0]: v / calls / 1e3 for k, v in by.items()}
 
 
-def step_profile(params, art, cfg, dev, tag):
+def step_profile(params, art, cfg, dev, tag, mesh=None):
     """PROFILE_STEPS steps of ``optimize_splines`` at ``cfg`` (the first
-    chunk, final evaluation included) under torch.profiler: the device's
-    busy share between its first and last kernel and the kernels that take
-    the most of it (keys prefixed with ``tag``), and {kernel: device us}.
-    ({}, {}) for a trace without device events."""
+    chunk, final evaluation included; ``mesh`` for the decoder-sharded path)
+    under torch.profiler: the device's busy share between its first and last
+    kernel and the kernels that take the most of it (keys prefixed with
+    ``tag``), and {kernel: device us}.  ({}, {}) for a trace without device
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1227,7 +1240,8 @@ def step_profile(params, art, cfg, dev, tag):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         optimize_splines(params.decoders, art.omega_init[idx], art.a[idx],
                          art.b[idx], art.basis, pcfg, device=dev,
-                         generator=torch.Generator().manual_seed(0))
+                         generator=torch.Generator().manual_seed(0),
+                         mesh=mesh)
         torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - t0)
     steps, span = device_kernel_times(prof)
@@ -1248,10 +1262,14 @@ def step_profile(params, art, cfg, dev, tag):
 def profile_phase(ef, mc, params, art, cfg, dev, ws, bs, gamma, wmb, ct):
     """Device time by kernel from torch.profiler: K2 at f32x2 split into its
     two launches, K6 and K8 at f32x2 split into theirs, and PROFILE_STEPS
-    steps of the main path and of the MC main path (the device's busy share
-    between its first and last kernel).  A trace without device events is
-    reported as not measured."""
+    steps of the main path, of the MC main path and of the decoder-sharded
+    path on a 1 x 1 mesh (the device's busy share between its first and last
+    kernel; for the sharded path K3's and K4's ms per launch and share of
+    the span).  A trace without device events is reported as not
+    measured."""
     import torch
+
+    from vae_latent_geometry_tpu_torch.parallel.mesh import make_mesh
 
     k2 = launch_times(lambda: ef.energy_bwd(ws, bs, gamma, wmb, ct, "f32x2"),
                       PROFILE_K2_CALLS)
@@ -1271,8 +1289,12 @@ def profile_phase(ef, mc, params, art, cfg, dev, ws, bs, gamma, wmb, ct):
         cfg.energy, mode="mc_fused", mc_samples=MC_SAMPLES,
         mc_inkernel_rng=True))
     mc_main, mc_by = step_profile(params, art, mc_cfg, dev, "mc_main_")
+    ep_cfg = dataclasses.replace(cfg, energy=dataclasses.replace(
+        cfg.energy, ep_axis="ep"))
+    ep, ep_by = step_profile(params, art, ep_cfg, dev, "ep_",
+                             mesh=make_mesh(1, 1))
     rec = {"phase": "profile",
-           "measured": bool(k2 and k6 and k8 and main and mc_main)}
+           "measured": bool(k2 and k6 and k8 and main and mc_main and ep)}
     if rec["measured"]:
         def of(times, key):
             return sum(v for k, v in times.items() if key in k)
@@ -1290,7 +1312,15 @@ def profile_phase(ef, mc, params, art, cfg, dev, ws, bs, gamma, wmb, ct):
             **mc_main,
             "mc_main_k8_share_of_span": (of(mc_by, "mc_select_mma")
                                          + of(mc_by, "mc_chain_mma")) / 1e3
-            / mc_main["mc_main_device_span_ms"]})
+            / mc_main["mc_main_device_span_ms"],
+            **ep})
+        # each step launches the tensor-core K3 and K4 once (f32x2); the
+        # final energies K3 at float32 (k3_stats) once more
+        for name, key in (("k3", "k3_stats"), ("k4", "k4_stats_chain")):
+            rec[f"ep_{name}_mma_ms_per_launch"] = of(
+                ep_by, key + "_mma") / 1e3 / PROFILE_STEPS
+            rec[f"ep_{name}_share_of_span"] = of(ep_by, key) / 1e3 \
+                / ep["ep_device_span_ms"]
     emit(rec)
     return rec
 
@@ -1772,21 +1802,25 @@ def main() -> int:
              for l in log.splitlines() if "registers" in l or "spill" in l]
     hmma = sass_hmma(_build._target("energy_expected"), "k2_")
     mc_hmma = sass_hmma(_build._target("energy_mc"), "mc_")
+    stats_hmma = sass_hmma(_build._target("energy_stats"), "k[34]_")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     emit({"phase": "build", "seconds": build_s,
           "seconds_by_source": _build.BUILD_SECONDS, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc, "ptxas": ptxas, "k2_sass_hmma": hmma,
-          "mc_sass_hmma": mc_hmma})
-    # K2's and K6/K8's reduced rungs run on the tensor cores in the mma
-    # kernels of the production shape, their float32 rung does not (TF32 is
+          "mc_sass_hmma": mc_hmma, "stats_sass_hmma": stats_hmma})
+    # K2's, K3/K4's and K6/K8's reduced rungs run on the tensor cores in the
+    # mma kernels of the production shape, their float32 rung does not (TF32 is
     # barred), nor does the generic decode at any rung, nor the forward
     # energies' mc_segments (K5/K7) at any rung
     check_hmma(hmma, ("k2_xbar_mma", "k2_chain_mma"), ("k2_xbar", "k2_chain"),
                ("k2_xbar_any", "k2_chain_any"))
     check_hmma(mc_hmma, ("mc_select_mma", "mc_chain_mma"), ("mc_chain",),
                ("mc_segments", "mc_segments_any", "mc_chain_any"))
+    check_hmma(stats_hmma, ("k3_stats_mma", "k4_stats_chain_mma"),
+               ("k3_stats", "k4_stats_chain"),
+               ("k3_stats_any", "k4_stats_chain_any"))
 
     # 2. kernels vs plain versions at full width ----------------------------
     params = load_npz(MODEL, dev)
@@ -2323,6 +2357,22 @@ def main() -> int:
                 "bound_by": "operations" if bound[0] >= bound[1] else "bytes",
                 "library_ms": None}
 
+    def stats_extra(key):
+        """K3's or K4's design and its times at every rung, M_loc = 10 and
+        5, and per launch in the profiled ``ep`` steps."""
+        out = {"design": "mma.sync bf16 (reduced rungs): "
+                         + ("k3_stats_mma" if key == "stats_fwd"
+                            else "k4_stats_chain_mma") + "; FMA at float32"}
+        for m_loc in (M, M // 2):
+            for prec in ef.PRECISIONS:
+                if (m_loc, prec) != (M, "f32x2"):
+                    out[f"ms_M_loc{m_loc}_{prec}"] = \
+                        stats_times[(m_loc, prec)][key + "_ms"]
+        k = "k3" if key == "stats_fwd" else "k4"
+        out["ms_per_launch_ep_profile"] = prof_rec.get(
+            f"ep_{k}_mma_ms_per_launch")
+        return out
+
     def mc_bwd_extra(key):
         """K6's or K8's design, its times at the other rungs and at
         MC_SAMPLES_WIDE samples, and its pass split (phase profile)."""
@@ -2366,14 +2416,13 @@ def main() -> int:
         {**stats_kernel("stats_fwd (K3, f32x2 trajectory steps, M_loc=10)",
                         472, ep_rec["launches"]["stats_fwd"], "yb_max_abs",
                         "stats_fwd", k3_bound),
-         "ms_float32": stats_times[(M, "float32")]["stats_fwd_ms"],
+         **stats_extra("stats_fwd"),
          "bound_ms_float32": 1e3 * max(k3_bound_f32),
-         "ms_M_loc5": stats_times[(M // 2, "f32x2")]["stats_fwd_ms"],
          "bound_ms_M_loc5": 1e3 * max(k3_bound[0] / 2, k3_bound[1])},
         {**stats_kernel("stats_bwd (K4, f32x2 trajectory steps, M_loc=10)",
                         502, ep_rec["launches"]["stats_bwd"],
                         "stats_dgamma_max_abs", "stats_bwd", k4_bound),
-         "ms_M_loc5": stats_times[(M // 2, "f32x2")]["stats_bwd_ms"],
+         **stats_extra("stats_bwd"),
          "bound_ms_M_loc5": 1e3 * max(k4_bound[0] / 2, k4_bound[1])},
         {"name": "energy_t_fwd (K9, transposed layout, float32)",
          "route": "cuda",

@@ -156,7 +156,7 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
     for name in ("energy_expected", "energy_mc", "energy_stats",
                  "energy_transposed"):
         files = [p.name for p in _build.source_files(name)]
-        mma = name in ("energy_expected", "energy_mc")
+        mma = name in ("energy_expected", "energy_mc", "energy_stats")
         assert files == [f"{name}.cu"] + (["decode_mma.cuh"] if mma else []) \
             + ["decode_common.cuh", "decode_any.cuh"]
     for f in os.listdir(_build.CSRC):
@@ -174,7 +174,7 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
         f.write("// edited\n")
     after = {n: _build._target(n).name for n in _build.SIGNATURES}
     assert {n for n in before if before[n] != after[n]} == {
-        "energy_expected", "energy_mc"}
+        "energy_expected", "energy_mc", "energy_stats"}
     with open(tmp_path / "energy_mc.cu", "a") as f:
         f.write("// edited\n")
     assert _build._target("energy_mc").name != after["energy_mc"]
@@ -721,30 +721,42 @@ def test_mc_fused_optimizes_at_twelve_samples_on_gpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m_loc", [1, 3])
+@pytest.mark.parametrize("m_loc,D,X", [(1, 2, 50), (3, 2, 50)] + [
+    (m, d, x) for m in (1, 10, 16) for d in (1, 4) for x in (8, 50, 64)])
 @pytest.mark.parametrize("precision", ["float32", "f32x3", "f32x2",
                                        "bfloat16"])
-def test_stats_kernels_match_plain_versions_on_gpu(precision, m_loc):
-    """K3 and K4 against their plain versions on the card, small shapes
-    with a ragged tile edge, local weight rows of the second shard."""
+def test_stats_kernels_match_plain_versions_on_gpu(precision, m_loc, D, X):
+    """K3 and K4 against their plain versions on the card, T*B = 67*13 (a
+    ragged last tile), local weight rows of the second shard with mixed
+    per-spline decoder counts: the committed model's decoders (m_loc 1, 3)
+    and seeded random decoders at the edges of the tensor-core kernels'
+    layout (D = 1, 4; X = 8, 50, 64: layer 3 pads X to 8, the chain to 16;
+    M_loc up to 16, the JAX kernels' cap).  A second call of each is
+    bitwise equal to the first."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from vae_latent_geometry_tpu_torch.models.evae import load_npz
     from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
 
-    p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
-    ws, bs = ef.stack_weights(p.decoders)
-    ws = [w[m_loc:2 * m_loc].contiguous() for w in ws]
-    bs = [b[m_loc:2 * m_loc].contiguous() for b in bs]
     rng = np.random.default_rng(0)
-    T, B, X = 67, 13, 50
+    if (D, X) == (2, 50) and m_loc in (1, 3):
+        p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
+        ws, bs = ef.stack_weights(p.decoders)
+        ws = [w[m_loc:2 * m_loc].contiguous() for w in ws]
+        bs = [b[m_loc:2 * m_loc].contiguous() for b in bs]
+        m_total = 10
+    else:
+        ws, bs = _random_decoders(rng, m_loc, D, X, "cuda")
+        m_total = 2 * m_loc
+    T, B = 67, 13
 
     def dev(x):
         return torch.as_tensor(x.astype(np.float32), device="cuda")
 
-    g = dev(rng.normal(size=(T, B, 2)) * 2)
-    wmb = ef.active_weights_local(torch.as_tensor(rng.integers(1, 11, B)),
-                                  10, m_loc, B, 1, "cuda").contiguous()
+    g = dev(rng.normal(size=(T, B, D)) * 2)
+    wmb = ef.active_weights_local(
+        torch.as_tensor(rng.integers(1, m_total + 1, B)), m_total, m_loc, B,
+        1, "cuda").contiguous()
     cts = [dev(rng.normal(size=s)) for s in ((T, B, X), (T, B, X), (T, B))]
     out = ef.stats_fwd(ws, bs, g, wmb, precision)
     ref = ef.stats_fwd_plain(ws, bs, g, wmb, precision)
@@ -756,11 +768,16 @@ def test_stats_kernels_match_plain_versions_on_gpu(precision, m_loc):
     assert float((out[1] - ref[1]).abs().max()) <= x_tol * x_scale
     assert float((out[2] - ref[2]).abs().max()) <= sq_tol * max(
         float(ref[2].abs().max()), 1e-30)
+    if m_loc == 1:
+        assert not out[1].any() and not out[2].any()
     d = ef.stats_bwd(ws, bs, g, wmb, *cts, precision)
     d_p = ef.stats_bwd_plain(ws, bs, g, wmb, *cts, precision)
     err = ((d - d_p).abs() / d_p.abs().max()).flatten()
     assert float(err.median()) < 1e-4
     assert float(torch.quantile(err, 0.99)) < 1e-3
+    again = ef.stats_fwd(ws, bs, g, wmb, precision)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert torch.equal(d, ef.stats_bwd(ws, bs, g, wmb, *cts, precision))
 
 
 @pytest.mark.gpu

@@ -3,13 +3,18 @@ autograd Function) vs the JAX package's Pallas stats kernels, run in
 interpret mode on the CPU.
 
 Inputs from a numpy seed: narrow decoders 2 -> 16 -> 16 -> 10, M_loc of 4
-local decoders, smooth curves T=48, B=6.  float32: x0/yb/sq and dgamma at
+local decoders, smooth curves T=48, B=6; and the committed model's
+decoders at the production widths on a cut chunk (T=24, B=13), whose
+x0 and yb are judged at max|x0| (rtol 1e-5, 1e-4 at bfloat16) and sq at its
+own max, as chip_smoke.py judges the kernels.  float32: x0/yb/sq and dgamma at
 rtol 1e-5 (atol 1e-5 of the array's max: the statistics cross zero); the
 reduced rungs as ``tests/test_torch_energy_fused.py`` /
 ``test_torch_energy_grad.py``: values at rtol 1e-5 of the max, dgamma on the
 median (1e-4) and the 99th percentile (1e-3) of the error relative to
 max|dgamma|.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -151,6 +156,68 @@ def test_shards_cover_the_global_energy():
     diff = s1[1:] - s1[:-1]
     got = ((diff * diff).sum(-1) + var[1:] + var[:-1]).sum(0).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+MODEL = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "experiment", "model_seed42.npz")
+# the production chunk's 2000 x 200 points cut to 24 x 13 = 312, not a
+# multiple of the kernels' 128-point tile
+T_PROD, B_PROD = 24, 13
+
+
+@pytest.mark.parametrize("m_loc,shard", [(10, 0), (5, 1)])
+@pytest.mark.parametrize("precision", ["f32x3", "f32x2", "bfloat16"])
+def test_stats_at_production_widths_match_jax_kernels(precision, m_loc,
+                                                      shard):
+    """The plain K3/K4 on the committed model's decoders (2 -> 128 -> 128 ->
+    50, the widths the tensor-core kernels run at the reduced rungs), local
+    rows of mixed per-spline decoder counts, against the JAX stats kernels
+    in interpret mode under this file's tolerances: the function the
+    kernels are held to on the card."""
+    z = np.load(MODEL)
+    lo = shard * m_loc
+    layers = [(z[f"decoders/layers/{i}/w"][lo:lo + m_loc],
+               z[f"decoders/layers/{i}/b"][lo:lo + m_loc]) for i in range(3)]
+    tdec = torch_decoders(layers)
+    jdec = {"layers": [{"w": jnp.asarray(w), "b": jnp.asarray(b)}
+                       for w, b in layers]}
+    num_active = np.random.default_rng(4).integers(1, 11, size=B_PROD)
+    jw = jep.active_weights(jnp.asarray(num_active), 10, B_PROD)[lo:lo + m_loc]
+    tw = ef.active_weights_local(torch.from_numpy(num_active), 10, m_loc,
+                                 B_PROD, shard)
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    gamma = 2.0 * smooth_curves(T_PROD, B_PROD, seed=8)
+    rng = np.random.default_rng(10)
+    cts = [rng.normal(size=s).astype(np.float32)
+           for s in ((T_PROD, B_PROD, 50), (T_PROD, B_PROD, 50),
+                     (T_PROD, B_PROD))]
+
+    ref, vjp = jax.vjp(
+        lambda g: jep.ensemble_stats_fused(jdec, g, jw, precision),
+        jnp.asarray(gamma))
+    (dref,) = vjp(tuple(jnp.asarray(c) for c in cts))
+    dref = np.asarray(dref)
+    g = torch.from_numpy(gamma).requires_grad_(True)
+    out = ef.ensemble_stats_fused(tdec, g, tw, precision)
+    (dout,) = torch.autograd.grad(
+        sum((o * torch.from_numpy(c)).sum() for o, c in zip(out, cts)), g)
+
+    # x0 and yb at the decoder outputs' scale max|x0| (yb is a deviation of
+    # a few units that carries the rounding of outputs of ~60), sq at its
+    # own, as chip_smoke.py judges the kernels; at bfloat16 a one-ulp
+    # summation-order difference flips a bf16 rounding of an activation
+    # (measured 3.4e-5 here, 2e-3 between the kernel and its plain version
+    # on the card)
+    rtol = 1e-4 if precision == "bfloat16" else 1e-5
+    x_scale = np.abs(np.asarray(ref[0])).max()
+    for name, o, r in zip(("x0", "yb", "sq"), out, ref):
+        r = np.asarray(r)
+        scale = np.abs(r).max() if name == "sq" else x_scale
+        np.testing.assert_allclose(o.detach().numpy(), r, rtol=0,
+                                   atol=rtol * scale, err_msg=name)
+    err = np.abs(dout.numpy() - dref) / np.abs(dref).max()
+    assert np.median(err) < 1e-4, np.median(err)
+    assert np.quantile(err, 0.99) < 1e-3, np.quantile(err, 0.99)
 
 
 def test_stats_wrappers_check_their_arguments():
