@@ -10,13 +10,15 @@ Phases, each printing one JSON line; any failure exits nonzero:
              the tensor-core instructions (HMMA) in K2's, K3/K4's and
              K6/K8's SASS: present in the production shape's mma kernels at
              the reduced rungs, absent at float32, in the forward MC kernels
-             and in the generic decode's kernels.
+             and in the generic decode's kernels; none, no stack and no
+             spill in the float32 forward kernels on decode_f32.cuh
+             (``k1_fwd_fma``, ``mc_fwd_fma``).
 2. kernels — at full width (seed-42 10-decoder EVAE, the 190 seed-42 init
              curves padded to B=200, T=2000, S=2 MC samples): each kernel
              against its plain PyTorch version on the same inputs, every
              precision rung, M=10 and M=1, and once with mixed per-spline
              decoder counts, and K5-K8 at S=12 (float32 and f32x2); a
-             second call of K2, K6 and K8 bitwise equal to the first;
+             second call of K1, K2 and K5-K8 bitwise equal to the first;
              CUDA-event times of kernel and plain version.
              The stats kernels (K3/K4) on local shards of 10, 5 and 1
              decoders with random smooth cotangents, every rung, each call
@@ -462,6 +464,33 @@ def check_hmma(hmma, mma_kernels, fma_kernels, any_kernels):
             if hmma.get(f"{name}<{rung}>") != 0:
                 fail(f"SASS of {name}<{rung}>: "
                      f"{hmma.get(f'{name}<{rung}>')} HMMA instructions")
+
+
+# the float32 forward-energy kernels on decode_f32.cuh: (source, kernel)
+FWD_FMA = (("energy_expected", "k1_fwd_fma"), ("energy_mc", "mc_fwd_fma"))
+
+
+def ptxas_of(log, kernel):
+    """Registers, stack and spill bytes that ``nvcc -Xptxas -v`` reported
+    for the instantiation of ``kernel`` in a build log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S+?)'?(?: for|$)", line.strip())
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None or f"{len(kernel)}{kernel}I" not in fn:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out["stack_bytes"] = int(m.group(1))
+            out["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out["registers"] = int(m.group(1))
+    return out
 
 
 def decode_flops(D, H, X, passes):
@@ -1801,6 +1830,7 @@ def main() -> int:
     ptxas = [l.strip() for log in _build.BUILD_LOG.values()
              for l in log.splitlines() if "registers" in l or "spill" in l]
     hmma = sass_hmma(_build._target("energy_expected"), "k2_")
+    k1_hmma = sass_hmma(_build._target("energy_expected"), "k1_")
     mc_hmma = sass_hmma(_build._target("energy_mc"), "mc_")
     stats_hmma = sass_hmma(_build._target("energy_stats"), "k[34]_")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
@@ -1809,7 +1839,10 @@ def main() -> int:
           "seconds_by_source": _build.BUILD_SECONDS, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc, "ptxas": ptxas, "k2_sass_hmma": hmma,
-          "mc_sass_hmma": mc_hmma, "stats_sass_hmma": stats_hmma})
+          "k1_sass_hmma": k1_hmma, "mc_sass_hmma": mc_hmma,
+          "stats_sass_hmma": stats_hmma,
+          "fwd_fma_ptxas": {k: ptxas_of(_build.BUILD_LOG[src], k)
+                            for src, k in FWD_FMA}})
     # K2's, K3/K4's and K6/K8's reduced rungs run on the tensor cores in the
     # mma kernels of the production shape, their float32 rung does not (TF32 is
     # barred), nor does the generic decode at any rung, nor the forward
@@ -1821,6 +1854,16 @@ def main() -> int:
     check_hmma(stats_hmma, ("k3_stats_mma", "k4_stats_chain_mma"),
                ("k3_stats", "k4_stats_chain"),
                ("k3_stats_any", "k4_stats_chain_any"))
+    # the float32 forward energies (K1, K5/K7) on decode_f32.cuh: FMAs only,
+    # no stack, no spill
+    for key, n in (("k1_fwd_fma<0>", k1_hmma.get("k1_fwd_fma<0>")),
+                   ("mc_fwd_fma<0>", mc_hmma.get("mc_fwd_fma<0>"))):
+        if n != 0:
+            fail(f"SASS of {key}: {n} HMMA instructions")
+    for src, k in FWD_FMA:
+        r = ptxas_of(_build.BUILD_LOG[src], k)
+        if r.get("spill_bytes") != 0 or r.get("stack_bytes") != 0:
+            fail(f"ptxas of {k}: {r}")
 
     # 2. kernels vs plain versions at full width ----------------------------
     params = load_npz(MODEL, dev)
@@ -1872,6 +1915,10 @@ def main() -> int:
         torch.cuda.synchronize()
         return {
             "mc_samples": S,
+            "k5_repeat_bitwise": bool(torch.equal(e5, mc.energy_mc_fwd(
+                ws, bs, gamma, d1, d2, prec))),
+            "k7_repeat_bitwise": bool(torch.equal(e7, mc.energy_mc_fwd_rng(
+                ws, bs, gamma, mc_seed, kmax, S, prec))),
             "k6_repeat_bitwise": bool(torch.equal(g6, mc.energy_mc_bwd(
                 ws, bs, gamma, d1, d2, mc_ct, prec))),
             "k8_repeat_bitwise": bool(torch.equal(g8, mc.energy_mc_bwd_rng(
@@ -1944,6 +1991,8 @@ def main() -> int:
                    **dgamma_stats(g_k, g_p),
                    "finite": bool(torch.isfinite(e_k).all()
                                   and torch.isfinite(g_k).all()),
+                   "k1_repeat_bitwise": bool(torch.equal(
+                       e_k, ef.energy_fwd(ws, bs, gamma, wmb, prec))),
                    "k2_repeat_bitwise": bool(torch.equal(
                        g_k, ef.energy_bwd(ws, bs, gamma, wmb, ct, prec)))}
             rec.update(mc_check(ws, bs, M, prec, None))
@@ -1992,6 +2041,12 @@ def main() -> int:
                           MC_SAMPLES_WIDE)}
         d1, d2, kmax, _, _ = mc_inputs(ws_all[0].shape[0], None,
                                        MC_SAMPLES_WIDE)
+        if prec == "float32":   # K5/K7: one decode per drawn decoder
+            rec["mc_fwd_ms"] = time_ms(lambda: mc.energy_mc_fwd(
+                ws_all, bs_all, gamma, d1, d2, prec), 2)
+            rec["mc_rng_fwd_ms"] = time_ms(lambda: mc.energy_mc_fwd_rng(
+                ws_all, bs_all, gamma, mc_seed, kmax, MC_SAMPLES_WIDE, prec),
+                2)
         rec["mc_bwd_ms"] = time_ms(lambda: mc.energy_mc_bwd(
             ws_all, bs_all, gamma, d1, d2, mc_ct, prec), 2)
         rec["mc_rng_bwd_ms"] = time_ms(lambda: mc.energy_mc_bwd_rng(
@@ -2386,6 +2441,13 @@ def main() -> int:
                 f"ms_{wide}_float32": errors[(wide, "float32")][key + "_ms"],
                 "ms_by_launch_f32x2": prof_rec.get(key + "_ms_by_launch")}
 
+    def mc_fwd_extra(key):
+        """K5's or K7's design and its time at MC_SAMPLES_WIDE samples."""
+        wide = f"S{MC_SAMPLES_WIDE}"
+        return {"design": "mc_fwd_fma (decode_f32.cuh, float32): selective "
+                          "decode of the drawn decoders",
+                f"ms_{wide}": errors[(wide, "float32")][key + "_ms"]}
+
     kernels = [
         {"name": "energy_fwd (K1, float32 final re-evaluation)",
          "route": "cuda",
@@ -2396,7 +2458,9 @@ def main() -> int:
          "ms": times["float32"]["fwd_ms"],
          "plain_ms": times["float32"]["fwd_plain_ms"],
          "bound_ms": 1e3 * k1_bound, "bound_by": "operations",
-         "library_ms": None},
+         "library_ms": None,
+         "design": "k1_fwd_fma (decode_f32.cuh, float32): cp.async-staged "
+                   "weights, 128-row tiles of one spline"},
         {"name": "energy_bwd (K2, f32x2 trajectory steps)",
          "route": "cuda",
          "source": "vae_latent_geometry_tpu_torch/ops/csrc/energy_expected.cu",
@@ -2452,17 +2516,20 @@ def main() -> int:
          "library_ms": None,
          "ms_float32": t_times["float32"]["k10_ms"],
          "k2_ms_same_call": t_times["f32x2"]["k2_ms"]},
-        mc_kernel("energy_mc_fwd (K5, float32 final evaluation, planes)", 473,
-                  ext_launches["energy_mc_fwd"], "mc_energy_max_abs",
-                  "mc_fwd", "float32", mc_bounds["k5"]),
+        {**mc_kernel("energy_mc_fwd (K5, float32 final evaluation, planes)",
+                     473, ext_launches["energy_mc_fwd"], "mc_energy_max_abs",
+                     "mc_fwd", "float32", mc_bounds["k5"]),
+         **mc_fwd_extra("mc_fwd")},
         {**mc_kernel("energy_mc_bwd (K6, f32x2 trajectory steps, planes)",
                      548, ext_launches["energy_mc_bwd"], "mc_dgamma_max_abs",
                      "mc_bwd", "f32x2", mc_bounds["k6"]),
          **mc_bwd_extra("mc_bwd")},
-        mc_kernel("energy_mc_fwd_rng (K7, float32 final evaluation, "
-                  "in-kernel draws)", 166,
-                  rep_launches["energy_mc_fwd_rng"], "mc_rng_energy_max_abs",
-                  "mc_rng_fwd", "float32", mc_bounds["k7"]),
+        {**mc_kernel("energy_mc_fwd_rng (K7, float32 final evaluation, "
+                     "in-kernel draws)", 166,
+                     rep_launches["energy_mc_fwd_rng"],
+                     "mc_rng_energy_max_abs", "mc_rng_fwd", "float32",
+                     mc_bounds["k7"]),
+         **mc_fwd_extra("mc_rng_fwd")},
         {**mc_kernel("energy_mc_bwd_rng (K8, f32x2 trajectory steps, "
                      "in-kernel draws)", 235, mc_launches["energy_mc_bwd_rng"],
                      "mc_rng_dgamma_max_abs", "mc_rng_bwd", "f32x2",
@@ -2512,8 +2579,9 @@ def main() -> int:
                 and r["k8_equals_k6_on_philox_planes"]):
             fail(f"K7/K8 do not equal K5/K6 on the philox planes at M={m} "
                  f"{prec}")
-        if not (r["k6_repeat_bitwise"] and r["k8_repeat_bitwise"]):
-            fail(f"K6/K8: a second call on the same input differs at M={m} "
+        if not (r["k5_repeat_bitwise"] and r["k6_repeat_bitwise"]
+                and r["k7_repeat_bitwise"] and r["k8_repeat_bitwise"]):
+            fail(f"K5-K8: a second call on the same input differs at M={m} "
                  f"{prec}")
         if "finite" not in r:        # the mixed-count case holds K5-K8 only
             continue
@@ -2529,8 +2597,8 @@ def main() -> int:
         if r["dgamma_rel_median"] > DG_MED or r["dgamma_rel_p99"] > DG_P99:
             fail(f"K2 dgamma median/p99 err {r['dgamma_rel_median']:.3g}/"
                  f"{r['dgamma_rel_p99']:.3g} at M={m} {prec}")
-        if not r["k2_repeat_bitwise"]:
-            fail(f"K2: a second call on the same input differs at M={m} "
+        if not (r["k1_repeat_bitwise"] and r["k2_repeat_bitwise"]):
+            fail(f"K1/K2: a second call on the same input differs at M={m} "
                  f"{prec}")
     n_chunks = -(-len(art) // B)
     if launches["energy_bwd"] < STEPS * n_chunks:

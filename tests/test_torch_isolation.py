@@ -157,8 +157,10 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
                  "energy_transposed"):
         files = [p.name for p in _build.source_files(name)]
         mma = name in ("energy_expected", "energy_mc", "energy_stats")
+        f32 = name in ("energy_expected", "energy_mc")
         assert files == [f"{name}.cu"] + (["decode_mma.cuh"] if mma else []) \
-            + ["decode_common.cuh", "decode_any.cuh"]
+            + ["decode_common.cuh"] + (["decode_f32.cuh"] if f32 else []) \
+            + ["decode_any.cuh"]
     for f in os.listdir(_build.CSRC):
         (tmp_path / f).write_bytes((_build.CSRC / f).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -175,6 +177,13 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
     after = {n: _build._target(n).name for n in _build.SIGNATURES}
     assert {n for n in before if before[n] != after[n]} == {
         "energy_expected", "energy_mc", "energy_stats"}
+    # and the float32 forward decode those of K1 and K5/K7
+    before = after
+    with open(tmp_path / "decode_f32.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build._target(n).name for n in _build.SIGNATURES}
+    assert {n for n in before if before[n] != after[n]} == {
+        "energy_expected", "energy_mc"}
     with open(tmp_path / "energy_mc.cu", "a") as f:
         f.write("// edited\n")
     assert _build._target("energy_mc").name != after["energy_mc"]
@@ -813,3 +822,64 @@ def test_transposed_kernels_match_plain_versions_on_gpu(precision, T, B):
     assert float(torch.quantile(err, 0.99)) < 1e-3
     assert torch.equal(e, eft.energy_t_fwd(ws, bs, g, precision))
     assert torch.equal(d, eft.energy_t_bwd(ws, bs, g, ct, precision))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B,M,D,X", [
+    (2000, 200, 10, 2, 50),   # the production chunk, the committed model
+    (300, 3, 10, 2, 50),      # T - 1 a multiple of neither tile
+    (2, 3, 10, 2, 50),
+    (67, 1, 1, 1, 8),
+    (129, 3, 16, 3, 64),
+    (40, 3, 3, 4, 50),
+    (128, 1, 16, 1, 64),
+    (255, 3, 10, 4, 8),
+])
+def test_fwd_f32_kernels_match_plain_versions_on_gpu(T, B, M, D, X):
+    """The float32 forward kernels on the CUDA cores (K1's k1_fwd_fma, K5/
+    K7's selective-decode mc_fwd_fma over ``csrc/decode_f32.cuh``) against
+    their plain versions at rtol 1e-5: the committed model on the
+    production chunk and random decoders at the widths they take, per-spline
+    decoder counts 1, 3 and M in turn, S = 1, 2, 3, 12, 16 on both draw
+    routes; every call repeated bitwise, K7 = K5 on the planes of
+    ``philox_draws``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+
+    rng = np.random.default_rng([T, B, M, D, X])
+    if (T, B) == (2000, 200):
+        p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
+        ws, bs = ef.stack_weights(p.decoders)
+    else:
+        ws, bs = _random_decoders(rng, M, D, X, "cuda")
+    g = torch.as_tensor(rng.normal(size=(T, B, D)).astype(np.float32) * 2,
+                        device="cuda")
+    counts = torch.as_tensor([min((1, 3, M)[b % 3], M) for b in range(B)],
+                             device="cuda")
+    wmb = ef.active_weights(counts, M, B, "cuda").contiguous()
+    e1 = ef.energy_fwd(ws, bs, g, wmb, "float32")
+    torch.testing.assert_close(
+        e1, ef.energy_fwd_plain(ws, bs, g, wmb, "float32"), rtol=1e-5, atol=0)
+    assert torch.equal(e1, ef.energy_fwd(ws, bs, g, wmb, "float32"))
+    kmax = counts.float()
+    for S in (1, 2, 3, 12, 16):
+        d1, d2 = mc.sample_decoder_indices(
+            torch.Generator(device="cuda").manual_seed(S), T, B, M, S, counts)
+        e5 = mc.energy_mc_fwd(ws, bs, g, d1, d2, "float32")
+        torch.testing.assert_close(
+            e5, mc.energy_mc_fwd_plain(ws, bs, g, d1, d2, "float32"),
+            rtol=1e-5, atol=0)
+        assert torch.equal(e5, mc.energy_mc_fwd(ws, bs, g, d1, d2, "float32"))
+        seed = (1 << 40) + S
+        e7 = mc.energy_mc_fwd_rng(ws, bs, g, seed, kmax, S, "float32")
+        p1, p2 = (d.contiguous() for d in mc.philox_draws(seed, S, T, B,
+                                                          kmax))
+        torch.testing.assert_close(
+            e7, mc.energy_mc_fwd_plain(ws, bs, g, p1, p2, "float32"),
+            rtol=1e-5, atol=0)
+        assert torch.equal(e7, mc.energy_mc_fwd_rng(ws, bs, g, seed, kmax, S,
+                                                    "float32"))
+        assert torch.equal(e7, mc.energy_mc_fwd(ws, bs, g, p1, p2, "float32"))

@@ -38,13 +38,15 @@ _DEC = [_I, _P, _P, _P]
 SIGNATURES = {
     "energy_expected": {
         "vlg_energy_fwd_tiles": [_I],
+        "vlg_f32_scratch_words": [_I, _I, _I, _P],
         "vlg_energy_fwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _I, _P],
         "vlg_energy_bwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _P, _I,
                            _P],
         "vlg_mma_selftest": [_I, _P, _P, _P, _I, _P],
     },
     "energy_mc": {
-        "vlg_mc_fwd_tiles": [_I],
+        "vlg_mc_fwd_tiles": [_I, _I, _I, _I, _I, _P],
+        "vlg_f32_scratch_words": [_I, _I, _I, _P],
         "vlg_mc_fwd": [_I, _P, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U, _U, _P,
                        _P, _P, _I, _P],
         "vlg_mc_bwd": [_I, _P, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U, _U, _P,

@@ -1,7 +1,8 @@
 // Expected ensemble curve energy and its gradient, for sm_90a (H100).
 //
 // Replaces the Pallas TPU kernels of vae_latent_geometry_tpu/ops/energy_pallas.py:
-//   K1  _fwd_kernel (:254)  -> k1_energy_tiles + k1_sum_tiles
+//   K1  _fwd_kernel (:254)  -> k1_fwd_fma (float32) or k1_energy_tiles
+//       (f32x3, f32x2, bfloat16), + k1_sum_tiles
 //   K2  _bwd_kernel (:325)  -> k2_xbar_mma + k2_chain_mma (f32x3, f32x2,
 //       bfloat16), k2_xbar + k2_chain (float32)
 //       (with _backprop_chain_masked :406 and _center_masks :426)
@@ -19,7 +20,9 @@
 //
 // The FMA decode, the cotangent chain and the precision rungs are shared
 // with the Monte-Carlo kernels (decode_common.cuh); the tensor-core decode
-// and chain of K2's reduced rungs are in decode_mma.cuh.
+// and chain of K2's reduced rungs are in decode_mma.cuh; K1's float32
+// decode (staged asynchronously, vector operands; also K5/K7's) is in
+// decode_f32.cuh.
 //
 // Work (counted from the code, per point per decoder): the float32 decode is
 // 2*D*128 + 2*128*128 + 2*128*X = 46 kFLOP at D=2, X=50, i.e. 1.8e11 FLOP
@@ -61,6 +64,7 @@
 
 #include "decode_any.cuh"
 #include "decode_common.cuh"
+#include "decode_f32.cuh"
 #include "decode_mma.cuh"
 
 namespace {
@@ -171,6 +175,124 @@ k1_energy_tiles(const float* __restrict__ gamma, int T, int B, int D, int M, int
   extern __shared__ __align__(16) unsigned char smem_raw[];
   k1_body<R, FixedDecode>(*reinterpret_cast<Smem*>(smem_raw), FixedDecode::Ctx{w}, blockIdx.x,
                           blockIdx.y, gamma, T, B, D, M, X, wmb, partial);
+}
+
+// K1, pass 1, at float32 on the production decoder: the decode of
+// decode_f32.cuh over tiles of 128 t-rows of ONE spline (127 owned
+// segments: 0.8% of the rows decoded twice), one chunk of 128 points per
+// staged decoder, the next decoder's weights in flight meanwhile.  The
+// running statistics x0, ybar and the lane's share of sum_m w_m ||x_m -
+// x0||^2 stay in the registers of the lane whose layer-3 tile holds them;
+// after the last decoder xbar (over the activation tile) and var go through
+// shared memory to the segments, two threads a segment.
+constexpr int K1F_ROWS = 128;
+constexpr int K1F_SEGS = K1F_ROWS - 1;
+constexpr int F_SX = XMAX + 4;   // xbar row stride (floats)
+using K1Lane = F32Lane<4>;
+
+struct K1F32Smem : F32Smem<4> {
+  float g[K1F_ROWS * DMAX];      // the tile's points
+  float vpart[K1F_ROWS * 2];     // var's two column halves
+  float var[K1F_ROWS];
+  float seg[K1F_ROWS];
+};
+static_assert(K1F_ROWS * F_SX <= H * F32Smem<4>::SA, "xbar fits the activation tile");
+
+int k1f_tiles(int T) { return T > 1 ? (T - 1 + K1F_SEGS - 1) / K1F_SEGS : 1; }
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k1_fwd_fma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, F32Weights fw,
+           const float* __restrict__ wmb, float* __restrict__ partial) {
+  static_assert(R == F32, "the reduced rungs keep k1_energy_tiles");
+  constexpr int PL = K1Lane::PL3;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  K1F32Smem& s = *reinterpret_cast<K1F32Smem*>(smem_raw);
+  const int tid = threadIdx.x, b = blockIdx.x, t0 = blockIdx.y * K1F_SEGS;
+  const int n_rows = min(K1F_ROWS, T - t0);
+  for (int e = tid; e < K1F_ROWS * DMAX; e += NT) {
+    const int r = e / DMAX, d = e % DMAX;
+    s.g[e] = d < D ? gamma[((size_t)min(t0 + r, T - 1) * B + b) * D + d] : 0.f;
+  }
+  f32_zero_pads(s, X);
+  f32_prologue(s, fw, 0, D, X);
+  cp_wait<2>();
+  __syncthreads();
+  const int p3 = K1Lane::p3(), n3 = K1Lane::n3();
+  float x0[PL][4], yb[PL][4], sq[PL];
+  NoMid mid;
+  for (int m = 0; m < M; ++m) {
+    const float wm = wmb[(size_t)m * B + b];
+    float x[PL][4];
+    f32_decode_chunk(s, fw, s.g, nullptr, 0, n_rows, D, X, m & 1, m + 1 < M ? m + 1 : -1, mid,
+                     x);
+#pragma unroll
+    for (int i = 0; i < PL; ++i) {
+      if (m == 0) {
+        sq[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          x0[i][j] = x[i][j];
+          yb[i][j] = 0.f;
+        }
+      } else {
+        float q = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float y = x[i][j] - x0[i][j];
+          yb[i][j] = yb[i][j] + wm * y;
+          q += y * y;
+        }
+        sq[i] = sq[i] + wm * q;
+      }
+    }
+  }
+  // xbar = x0 + ybar over the activation tile; the lane's share of var,
+  // summed over the 8 lanes of its column quads, then the two halves
+  float* xbar = s.act;
+  const bool live = K1Lane::live(n_rows);
+#pragma unroll
+  for (int i = 0; i < PL; ++i) {
+    float v = sq[i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0[i][j] += yb[i][j];
+      v -= yb[i][j] * yb[i][j];
+    }
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    if (live) {
+      const int r = p3 + i;
+      *reinterpret_cast<float4*>(xbar + r * F_SX + n3) =
+          make_float4(x0[i][0], x0[i][1], x0[i][2], x0[i][3]);
+      if ((tid & 7) == 0) s.vpart[r * 2 + K1Lane::wc()] = v;
+    }
+  }
+  __syncthreads();
+  if (tid < n_rows) s.var[tid] = M > 1 ? s.vpart[tid * 2] + s.vpart[tid * 2 + 1] : 0.f;
+  __syncthreads();
+  // segment r (rows r, r + 1): two threads, alternate features
+  {
+    const int r = tid >> 1;
+    float sd = 0.f;
+    if (r < K1F_SEGS && r + 1 < n_rows)
+      for (int n = tid & 1; n < X; n += 2) {
+        const float d = xbar[(r + 1) * F_SX + n] - xbar[r * F_SX + n];
+        sd += d * d;
+      }
+    sd += __shfl_xor_sync(0xffffffffu, sd, 1);
+    if ((tid & 1) == 0 && r < K1F_SEGS)
+      s.seg[r] = t0 + r + 1 < T ? (sd + s.var[r + 1]) + s.var[r] : 0.f;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    float e = 0.f;
+    for (int r = tid; r < K1F_SEGS; r += 32) e += s.seg[r];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) e += __shfl_xor_sync(0xffffffffu, e, o);
+    if (tid == 0) partial[(size_t)blockIdx.y * B + b] = e;
+  }
 }
 
 // K1, pass 1, any decoder: persistent blocks take the (gx x gy) tiles in a
@@ -489,12 +611,25 @@ k_mma_selftest(int trans, const float* __restrict__ h, const float* __restrict__
 
 template <int R>
 cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, Weights w,
-                       const float* wmb, float* partial, float* out, cudaStream_t st) {
-  cudaError_t err = prepare<Smem>(k1_energy_tiles<R>);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = T > 1 ? (T - 1 + K1_SEGS - 1) / K1_SEGS : 1;
-  dim3 grid((B + K1_COLS - 1) / K1_COLS, n_tiles);
-  k1_energy_tiles<R><<<grid, NT, sizeof(Smem), st>>>(gamma, T, B, D, M, X, w, wmb, partial);
+                       const float* wmb, float* partial, float* out, float* w3p,
+                       cudaStream_t st) {
+  cudaError_t err;
+  int n_tiles;
+  if constexpr (R == F32) {  // the float32 decode of decode_f32.cuh
+    if (!f32_aligned(w)) return cudaErrorMisalignedAddress;
+    err = f32_prepare_w3(w.W3, M, X, w3p, st);
+    if (err == cudaSuccess) err = prepare<K1F32Smem>(k1_fwd_fma<R>);
+    if (err != cudaSuccess) return err;
+    n_tiles = k1f_tiles(T);
+    k1_fwd_fma<R><<<dim3(B, n_tiles), NT, sizeof(K1F32Smem), st>>>(
+        gamma, T, B, D, M, X, F32Weights{w, w3p}, wmb, partial);
+  } else {
+    err = prepare<Smem>(k1_energy_tiles<R>);
+    if (err != cudaSuccess) return err;
+    n_tiles = T > 1 ? (T - 1 + K1_SEGS - 1) / K1_SEGS : 1;
+    dim3 grid((B + K1_COLS - 1) / K1_COLS, n_tiles);
+    k1_energy_tiles<R><<<grid, NT, sizeof(Smem), st>>>(gamma, T, B, D, M, X, w, wmb, partial);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   k1_sum_tiles<<<(B + 127) / 128, 128, 0, st>>>(partial, n_tiles, B, out);
@@ -566,14 +701,17 @@ cudaError_t launch_bwd_any(const float* gamma, int T, int B, int M, const AnyArg
 
 extern "C" {
 
-// Tile count of K1's (n_tiles, B) partial-energy buffer.
+// Row count of K1's (n_tiles, B) partial-energy buffer: the reduced rungs'
+// and the generic kernels' tiles of 31 segments; the float32 kernel's tiles
+// of 127 fill fewer of its rows.
 int vlg_energy_fwd_tiles(int T) { return T > 1 ? (T - 1 + K1_SEGS - 1) / K1_SEGS : 1; }
 
 // The decoder comes as L layers: widths[0..L] (D first, X last) and the
 // per-layer weight (M, in, out) and bias (M, out) pointers.  The fixed shape
-// (D <= 4 -> 128 -> 128 -> X <= 64) takes the fixed kernels; every other
-// decoder the generic ones, with n_blocks persistent blocks and `scratch`
-// of n_blocks x vlg_any_scratch_words(L, widths, 1) words.
+// (D <= 4 -> 128 -> 128 -> X <= 64) takes the fixed kernels, at float32
+// with `scratch` of vlg_f32_scratch_words floats; every other decoder the
+// generic ones, with n_blocks persistent blocks and `scratch` of n_blocks x
+// vlg_any_scratch_words(L, widths, 1) words.
 int vlg_energy_fwd(int rung, const float* gamma, int T, int B, int M, int L, const int* widths,
                    const float* const* Ws, const float* const* bs, const float* wmb,
                    float* partial, float* out, void* scratch, int n_blocks, void* stream) {
@@ -585,7 +723,8 @@ int vlg_energy_fwd(int rung, const float* gamma, int T, int B, int M, int L, con
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
     return fixed_shape(d)
-        ? launch_fwd<R>(gamma, T, B, D, M, X, fixed_weights(d), wmb, partial, out, st)
+        ? launch_fwd<R>(gamma, T, B, D, M, X, fixed_weights(d), wmb, partial, out,
+                        static_cast<float*>(scratch), st)
         : launch_fwd_any<R>(gamma, T, B, M, a, n_blocks, wmb, partial, out, st);
   });
 }

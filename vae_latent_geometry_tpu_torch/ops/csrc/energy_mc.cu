@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernels of
 // vae_latent_geometry_tpu/ops/energy_mc_pallas.py:
-//   K5  _fwd_kernel      (:473)  -> mc_segments + mc_sum_tiles, planes given
+//   K5  _fwd_kernel      (:473)  -> mc_fwd_fma (float32) or mc_segments
+//       (f32x3, f32x2, bfloat16), + mc_sum_tiles, planes given
 //   K6  _bwd_kernel      (:548)  -> mc_select_mma + mc_chain_mma (f32x3,
 //       f32x2, bfloat16), mc_segments (writing differences) + mc_chain
 //       (float32)
@@ -72,6 +73,11 @@
 // order, then runs chain_mma.  Both decode twice where the TPU kernel
 // decodes once; the single decode with kept masks is later work.
 //
+// At float32 the forward is mc_fwd_fma on decode_f32.cuh instead: selective
+// decode (only the (point, decoder) pairs that the draws name, 3.44 of 10 a
+// point at S=2), the differences of every sample in shared memory, so one
+// decode of a point serves all its samples (below).
+//
 // Any decoder.  The kernels above take the production shape D <= 4 -> 128 ->
 // 128 -> X <= 64; every other decoder (2 to 6 layers, hidden widths up to
 // 512, X <= 128) takes mc_segments_any and mc_chain_any: the same bodies
@@ -79,8 +85,12 @@
 // persistent blocks, one sample per decode sweep (8 output columns a thread
 // leave no registers for a second).
 
+#include <algorithm>
+#include <cmath>
+
 #include "decode_any.cuh"
 #include "decode_common.cuh"
+#include "decode_f32.cuh"
 #include "decode_mma.cuh"
 
 namespace {
@@ -297,6 +307,223 @@ mc_segments_any(const float* __restrict__ gamma, int T, int B, int M, int S, Any
     segments_body<R, AnyDecode>(s, c, item % gx, item / gx, gamma, T, B, D, M, X, S, dr,
                                 partial, diffs);
     __syncthreads();
+  }
+}
+
+// K5/K7, pass 1, at float32 on the production decoder: selective decode.
+// A block owns `segs` consecutive segments of ONE spline (rows t0 .. t0 +
+// segs) and samples s0 .. s0 + sw - 1 of the S.  It stages those draws,
+// marks the decoders they name, and for each marked decoder m lists the rows
+// that need it (decoder m at row r where d1[s, t0+r] = m or d2[s, t0+r-1] =
+// m: at most 2S of M) by a ballot prefix sum, then decodes only those rows,
+// in chunks of 64 (decode_f32.cuh; the next decoder's list is built inside
+// the chunk that is its decoder's last).  Each decoded point goes straight
+// from the registers of its layer-3 tile into the per-sample differences in
+// shared memory, diff[k][r][n] for sample s0 + k, 4 features a lane: first
+// every -x_{d1}(t) update, then, after a barrier, every +x_{d2}(t+1) one,
+// so each element is written by one lane at a time.  Each
+// element receives exactly one subtraction and one addition from 0, so it
+// ends as fl(R - L) whichever decoder comes first: the differences equal
+// mc_segments' bit for bit, and one decode of a point serves every sample.
+// The sum of squares over the block goes, in a fixed order, to partial[(z *
+// gridDim.y + y) * B + b]; mc_sum_tiles adds the rows.  Tile and sweep sizes
+// come from mc_f32_tile: about 56 expected rows per decoder list, as many
+// segments as the differences leave room for.
+constexpr int MCF_RMAX = NT;     // rows per tile: one per thread in the list scan
+constexpr int MCF_SEGMIN = 16;   // fewer segments per tile: split the samples
+
+using McLane = F32Lane<2>;
+constexpr int MCF_FC = F32Smem<2>::FC;
+
+struct McF32Smem : F32Smem<2> {
+  float g[MCF_RMAX * DMAX];      // the tile's points
+  int list[2][MCF_RMAX];         // rows of the current and the next decoder
+  int wcnt[2][NT / 32];          // their warps' counts
+  float red[NT / 32];
+};
+// dynamic tail: float diff[sw][segs][XP]; int idx[2][sw][segs]; uint32_t
+// used[(M + 31) / 32].  XP = X rounded up to 4: a lane updates 4 features
+// at a time; the padding features decode to 0 and stay 0.
+
+struct McTile {
+  int segs, sw, n_t, n_s;
+  size_t smem;
+};
+
+size_t mc_f32_fixed(int M) { return sizeof(McF32Smem) + 4 * (size_t)((M + 31) / 32); }
+
+McTile mc_f32_tile(int T, int M, int X, int S) {
+  const size_t budget = SMEM_MAX - mc_f32_fixed(M);
+  const double per = 4.0 * ((X + 3) & ~3) + 8.0;  // bytes per sample and segment
+  // share of (row, decoder) pairs drawn with uniform decoder counts
+  const double p = M > 1 ? 1.0 - std::pow(1.0 - 1.0 / M, 2.0 * S) : 1.0;
+  int segs = std::min(MCF_RMAX - 1, std::max(1, (int)(56.0 / p)));
+  segs = std::min(segs, std::max(MCF_SEGMIN, (int)(budget / (S * per))));
+  segs = std::max(1, std::min(segs, T - 1));
+  McTile t;
+  t.segs = segs;
+  t.sw = std::min(S, (int)(budget / (segs * per)));
+  t.n_t = (T - 1 + segs - 1) / segs;
+  t.n_s = (S + t.sw - 1) / t.sw;
+  t.smem = mc_f32_fixed(M) + 4 * (size_t)t.sw * segs * (2 + ((X + 3) & ~3));
+  return t;
+}
+
+__device__ __forceinline__ int next_used(const uint32_t* used, int m, int M) {
+  for (int j = m + 1; j < M; ++j)
+    if ((used[j >> 5] >> (j & 31)) & 1u) return j;
+  return -1;
+}
+
+// The rows of the tile that need decoder m: row r (thread r) where a staged
+// draw names it; before(): the warp's count, after() (past a barrier): the
+// row at its offset.
+struct McList {
+  const int* idx;
+  int* list;
+  int* wcnt;
+  int m, sw, segs;
+  bool on;
+  uint32_t ballot;
+  __device__ void before() {
+    if (!on) return;
+    const int r = threadIdx.x;
+    bool need = false;
+    for (int k = 0; k < sw; ++k) {
+      if (r < segs) need |= idx[k * segs + r] == m;
+      if (r >= 1 && r <= segs) need |= idx[(sw + k) * segs + r - 1] == m;
+    }
+    ballot = __ballot_sync(0xffffffffu, need);
+    if ((threadIdx.x & 31) == 0) wcnt[threadIdx.x >> 5] = __popc(ballot);
+  }
+  __device__ void after() {
+    if (!on) return;
+    const int lane = threadIdx.x & 31;
+    if (!((ballot >> lane) & 1u)) return;
+    int off = __popc(ballot & ((1u << lane) - 1u));
+    for (int v = 0; v < (int)(threadIdx.x >> 5); ++v) off += wcnt[v];
+    list[off] = threadIdx.x;
+  }
+};
+
+__device__ __forceinline__ int list_len(const int* wcnt) {
+  int n = 0;
+  for (int v = 0; v < NT / 32; ++v) n += wcnt[v];
+  return n;
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+mc_fwd_fma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
+           F32Weights fw, Draws dr, int segs, int sw, float* __restrict__ partial) {
+  static_assert(R == F32, "the reduced rungs keep mc_segments");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  McF32Smem& s = *reinterpret_cast<McF32Smem*>(smem_raw);
+  const int XP = (X + 3) & ~3;
+  float* diff = reinterpret_cast<float*>(smem_raw + sizeof(McF32Smem));
+  int* idx = reinterpret_cast<int*>(diff + sw * segs * XP);
+  uint32_t* used = reinterpret_cast<uint32_t*>(idx + 2 * sw * segs);
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const int t0 = blockIdx.y * segs, s0 = blockIdx.z * sw, nsw = min(sw, S - s0);
+  const int rows = segs + 1;
+  for (int e = tid; e < (M + 31) / 32; e += NT) used[e] = 0u;
+  for (int e = tid; e < sw * segs * XP; e += NT) diff[e] = 0.f;
+  for (int e = tid; e < rows * DMAX; e += NT) {
+    const int r = e / DMAX, d = e % DMAX;
+    s.g[e] = d < D ? gamma[((size_t)min(t0 + r, T - 1) * B + b) * D + d] : 0.f;
+  }
+  f32_zero_pads(s, X);
+  __syncthreads();
+  // idx[(side * sw + k) * segs + r]: d1 (side 0) or d2 (side 1) of segment
+  // t0 + r in sample s0 + k; -1 past the curve or the samples
+  for (int e = tid; e < 2 * sw * segs; e += NT) {
+    const int r = e % segs, q = e / segs, side = q / sw, k = q % sw, t = t0 + r;
+    const int v = k < nsw && t < T - 1 ? draw(dr, S, T, B, side, s0 + k, t, b) : -1;
+    idx[e] = v;
+    if (v >= 0 && v < M) atomicOr(&used[v >> 5], 1u << (v & 31));
+  }
+  __syncthreads();
+  const int first = next_used(used, -1, M);
+  if (first < 0) {  // no segment in the tile: nothing to sum
+    if (tid == 0) partial[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * B + b] = 0.f;
+    return;
+  }
+  f32_prologue(s, fw, first, D, X);
+  McList lst{idx, s.list[0], s.wcnt[0], first, sw, segs, true, 0u};
+  lst.before();
+  __syncthreads();
+  lst.after();
+  cp_wait<2>();
+  __syncthreads();
+  const int p3 = McLane::p3(), n3 = McLane::n3();
+  int par = 0;
+  for (int m = first; m >= 0;) {
+    const int nx = next_used(used, m, M);
+    const int* list = s.list[par];
+    const int L = list_len(s.wcnt[par]), n_ch = (L + MCF_FC - 1) / MCF_FC;
+    for (int ch = 0; ch < n_ch; ++ch) {
+      const int n_c = min(MCF_FC, L - MCF_FC * ch);
+      const bool last = ch == n_ch - 1;
+      McList nl{idx, s.list[par ^ 1], s.wcnt[par ^ 1], nx, sw, segs, last && nx >= 0, 0u};
+      float x[McLane::PL3][4];
+      f32_decode_chunk(s, fw, s.g, list + MCF_FC * ch, 0, n_c, D, X, par, last ? nx : -1, nl,
+                       x);
+      const bool live = McLane::live(n_c);
+      // -x_m(t) where d1[s, t] = m (the segment after row r) ...
+      if (live && n3 < XP)
+#pragma unroll
+        for (int i = 0; i < McLane::PL3; ++i) {
+          const int c = p3 + i;
+          if (c >= n_c) break;
+          const int r = list[MCF_FC * ch + c];
+          if (r >= segs) continue;
+          for (int k = 0; k < nsw; ++k)
+            if (idx[k * segs + r] == m) {
+              float4* q = reinterpret_cast<float4*>(diff + ((size_t)k * segs + r) * XP + n3);
+              float4 v = *q;
+              v.x = __fsub_rn(v.x, x[i][0]);
+              v.y = __fsub_rn(v.y, x[i][1]);
+              v.z = __fsub_rn(v.z, x[i][2]);
+              v.w = __fsub_rn(v.w, x[i][3]);
+              *q = v;
+            }
+        }
+      __syncthreads();
+      // ... then +x_m(t+1) where d2[s, t] = m (the segment before row r)
+      if (live && n3 < XP)
+#pragma unroll
+        for (int i = 0; i < McLane::PL3; ++i) {
+          const int c = p3 + i;
+          if (c >= n_c) break;
+          const int r = list[MCF_FC * ch + c];
+          if (r < 1) continue;
+          for (int k = 0; k < nsw; ++k)
+            if (idx[(sw + k) * segs + r - 1] == m) {
+              float4* q = reinterpret_cast<float4*>(diff + ((size_t)k * segs + r - 1) * XP + n3);
+              float4 v = *q;
+              v.x = __fadd_rn(v.x, x[i][0]);
+              v.y = __fadd_rn(v.y, x[i][1]);
+              v.z = __fadd_rn(v.z, x[i][2]);
+              v.w = __fadd_rn(v.w, x[i][3]);
+              *q = v;
+            }
+        }
+    }
+    par ^= 1;
+    m = nx;
+  }
+  __syncthreads();
+  // features >= X and rows past the curve hold no difference
+  float e = 0.f;
+  for (int i = tid; i < nsw * segs * XP; i += NT) e += diff[i] * diff[i];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) e += __shfl_xor_sync(0xffffffffu, e, o);
+  if ((tid & 31) == 0) s.red[tid >> 5] = e;
+  __syncthreads();
+  if (tid == 0) {
+    float t = 0.f;
+    for (int v = 0; v < NT / 32; ++v) t += s.red[v];
+    partial[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * B + b] = t;
   }
 }
 
@@ -597,10 +824,29 @@ cudaError_t launch_segments(const float* gamma, int T, int B, int D, int M, int 
 
 template <int R>
 cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, int S,
-                       Weights w, Draws dr, float* partial, float* out, cudaStream_t st) {
-  cudaError_t err = launch_segments<R>(gamma, T, B, D, M, X, S, w, dr, partial, nullptr, st);
+                       Weights w, Draws dr, float* partial, float* out, float* w3p,
+                       cudaStream_t st) {
+  cudaError_t err;
+  int n_tiles;
+  if constexpr (R == F32) {  // selective decode on decode_f32.cuh
+    if (!f32_aligned(w)) return cudaErrorMisalignedAddress;
+    const McTile tl = mc_f32_tile(T, M, X, S);
+    if (tl.smem > SMEM_MAX) return cudaErrorInvalidValue;
+    err = f32_prepare_w3(w.W3, M, X, w3p, st);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(mc_fwd_fma<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)tl.smem);
+    if (err != cudaSuccess) return err;
+    mc_fwd_fma<R><<<dim3(B, tl.n_t, tl.n_s), NT, tl.smem, st>>>(
+        gamma, T, B, D, M, X, S, F32Weights{w, w3p}, dr, tl.segs, tl.sw, partial);
+    n_tiles = tl.n_t * tl.n_s;
+    err = cudaGetLastError();
+  } else {
+    err = launch_segments<R>(gamma, T, B, D, M, X, S, w, dr, partial, nullptr, st);
+    n_tiles = fwd_tiles(T);
+  }
   if (err != cudaSuccess) return err;
-  mc_sum_tiles<<<(B + 127) / 128, 128, 0, st>>>(partial, fwd_tiles(T), B, S, out);
+  mc_sum_tiles<<<(B + 127) / 128, 128, 0, st>>>(partial, n_tiles, B, S, out);
   return cudaGetLastError();
 }
 
@@ -672,13 +918,22 @@ cudaError_t launch_bwd_any(const float* gamma, int T, int B, int M, int S, const
 
 extern "C" {
 
-// Tile count of the forward's (n_tiles, B) partial-energy buffer.
-int vlg_mc_fwd_tiles(int T) { return fwd_tiles(T); }
+// Row count of the forward's (n_tiles, B) partial-energy buffer for the
+// kernel that vlg_mc_fwd picks at this rung, decoder and sample count.
+int vlg_mc_fwd_tiles(int rung, int T, int M, int S, int L, const int* widths) {
+  const float* none[LMAX] = {};
+  Decoder d;
+  if (!make_decoder(L, widths, none, none, d)) return -1;
+  if (rung != F32 || !fixed_shape(d)) return fwd_tiles(T);
+  const McTile tl = mc_f32_tile(T, M, d.width[L], S);
+  return tl.n_t * tl.n_s;
+}
 
 // d1 == nullptr: the draws are made in the kernel from (key0, key1) and kmax
 // (K7, K8); else from the planes d1, d2 (K5, K6).  The decoder as arrays, as
 // vlg_energy_fwd (energy_expected.cu); the generic kernels' scratch is
-// n_blocks x vlg_any_scratch_words(L, widths, 1) words.
+// n_blocks x vlg_any_scratch_words(L, widths, 1) words, the forward's at
+// float32 on the production shape vlg_f32_scratch_words floats.
 int vlg_mc_fwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
                const int* widths, const float* const* Ws, const float* const* bs,
                const int* d1, const int* d2, const float* kmax, unsigned key0, unsigned key1,
@@ -692,7 +947,8 @@ int vlg_mc_fwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
     return fixed_shape(d)
-        ? launch_fwd<R>(gamma, T, B, D, M, X, S, fixed_weights(d), dr, partial, out, st)
+        ? launch_fwd<R>(gamma, T, B, D, M, X, S, fixed_weights(d), dr, partial, out,
+                        static_cast<float*>(scratch), st)
         : launch_fwd_any<R>(gamma, T, B, M, S, a, n_blocks, dr, partial, out, st);
   });
 }

@@ -289,6 +289,19 @@ def _any_scratch(lib, widths, n_areas, dev, n_blocks=None):
                        device=dev), n_blocks
 
 
+def _fwd_scratch(lib, precision, widths, M, dev):
+    """(scratch, n_blocks) of the forward kernels: the generic decode's
+    (:func:`_any_scratch`), or at float32 on the production shape the
+    float32 kernels' copy of W3 padded to 64 columns."""
+    scratch, n_blocks = _any_scratch(lib, widths, 1, dev)
+    if scratch is None:
+        words = lib.vlg_f32_scratch_words(_RUNG[precision], M, len(widths) - 1,
+                                          _int_array(widths))
+        if words > 0:
+            scratch = torch.empty((words,), dtype=torch.float32, device=dev)
+    return scratch, n_blocks
+
+
 def _ptr(x):
     return None if x is None else x.data_ptr()
 
@@ -310,7 +323,7 @@ def energy_fwd(ws, bs, gamma, wmb, precision):
     T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb)
     lib = library("energy_expected")
     widths, dec = _decoder_args(ws, bs)
-    scratch, n_blocks = _any_scratch(lib, widths, 1, gamma.device)
+    scratch, n_blocks = _fwd_scratch(lib, precision, widths, M, gamma.device)
     partial = torch.empty((lib.vlg_energy_fwd_tiles(T), B),
                           dtype=torch.float32, device=gamma.device)
     out = torch.empty((B,), dtype=torch.float32, device=gamma.device)

@@ -44,6 +44,7 @@ from vae_latent_geometry_tpu_torch.ops.energy_fused import (
     _check_cuda,
     _decode_plain,
     _decoder_args,
+    _fwd_scratch,
     _mp_matmul,
     _ptr,
     _stream,
@@ -248,7 +249,8 @@ def _launch(name, backward, ws, bs, gamma, precision, S, d1, d2, kmax, seed,
     key = _seed_key(seed)
     draws = [_ptr(d1), _ptr(d2), _ptr(kmax), *key]
     widths, dec = _decoder_args(ws, bs)
-    scratch, n_blocks = _any_scratch(lib, widths, 1, dev)
+    scratch, n_blocks = (_any_scratch(lib, widths, 1, dev) if backward else
+                         _fwd_scratch(lib, precision, widths, M, dev))
     head = [_RUNG[precision], gamma.data_ptr(), T, B, M, S, *dec, *draws]
     tail = [_ptr(scratch), n_blocks, _stream(dev)]
     if backward:
@@ -260,7 +262,8 @@ def _launch(name, backward, ws, bs, gamma, precision, S, d1, d2, kmax, seed,
         err = lib.vlg_mc_bwd(*head, ct.data_ptr(), planes.data_ptr(),
                              out.data_ptr(), *tail)
     else:
-        partial = torch.empty((lib.vlg_mc_fwd_tiles(T), B),
+        partial = torch.empty((lib.vlg_mc_fwd_tiles(_RUNG[precision], T, M,
+                                                    S, *dec[:2]), B),
                               dtype=torch.float32, device=dev)
         out = torch.empty((B,), dtype=torch.float32, device=dev)
         err = lib.vlg_mc_fwd(*head, partial.data_ptr(), out.data_ptr(), *tail)
