@@ -468,6 +468,8 @@ def check_hmma(hmma, mma_kernels, fma_kernels, any_kernels):
 
 # the float32 forward-energy kernels on decode_f32.cuh: (source, kernel)
 FWD_FMA = (("energy_expected", "k1_fwd_fma"), ("energy_mc", "mc_fwd_fma"))
+# K9's and K10's tensor-core kernels (energy_transposed.cu)
+T_MMA = ("k9_tiles_mma", "k10_mma")
 
 
 def ptxas_of(log, kernel):
@@ -984,6 +986,26 @@ def numerics_gate(decoders, dev):
                     decoders, g, "float32"))}
 
 
+def float64_function(plain, ws, bs, *tensors):
+    """``plain(ws, bs, *tensors, "float32")``, a plain version at its float32
+    rung, in float64 with its weight shipping (a cast to float32) skipped:
+    the function itself, against which a rung's rounding is judged."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+
+    d = torch.float64
+    ship = ef.ship_weights, mc.ship_weights
+    ef.ship_weights = mc.ship_weights = lambda w, _: w
+    try:
+        return plain([w.to(d) for w in ws], [b.to(d) for b in bs],
+                     *[t.to(d) if t.is_floating_point() else t
+                       for t in tensors], "float32")
+    finally:
+        ef.ship_weights, mc.ship_weights = ship
+
+
 def transposed_phase(params, ws_all, bs_all, gamma, dev):
     """K9/K10 against their plain versions (M=10 and M=1, every rung) and
     against K1/K2; the numerics gate; CUDA-event times.  The op's own path
@@ -1015,16 +1037,28 @@ def transposed_phase(params, ws_all, bs_all, gamma, dev):
                    **dgamma_stats(d, d_p),
                    "finite": bool(torch.isfinite(e).all()
                                   and torch.isfinite(d).all())}
+            if M == 1 and prec in ("f32x3", "f32x2"):
+                # printed beside the limit: without the variance term the
+                # energy is a sum of squared adjacent-sample differences,
+                # which shows a decode's rounding ~2000 times larger
+                truth = float64_function(ef.energy_fwd_plain, ws, bs, gamma,
+                                         wmb)
+                for key, x in (("vs_float64", e), ("plain_vs_float64", e_p)):
+                    rel = (x.double() - truth).abs() / truth.abs()
+                    rec[key + "_max_rel"] = float(rel.max())
+                    rec[key + "_median_rel"] = float(rel.median())
             if M > 1 and prec in ("float32", "f32x3", "f32x2"):
-                # K10 is an FMA kernel of K2's function: at f32x3 and f32x2
-                # it holds the tensor-core K2 against an independent
-                # implementation
+                # K9/K10 against K1/K2, the same functions: since K9/K10 run
+                # the tensor-core decode of decode_mma.cuh at the reduced
+                # rungs (and K9 K1's own kernel at float32) this is no longer
+                # an independent implementation; the plain versions above
+                # remain the independent check
                 e1 = ef.energy_fwd(ws, bs, gamma, wmb, prec)
                 d2 = ef.energy_bwd(ws, bs, gamma, wmb, ct, prec)
                 rec["vs_k1_energy_max_rel"] = float(
                     ((e - e1).abs() / e1.abs()).max())
                 rec.update(dgamma_stats(d, d2, "vs_k2_"))
-            if M > 1 and prec in ("float32", "f32x2", "f32x3"):
+            if M > 1:
                 tr = {"k9_ms": time_ms(lambda: eft.energy_t_fwd(
                           ws, bs, gamma, prec), 3),
                       "k10_ms": time_ms(lambda: eft.energy_t_bwd(
@@ -1059,8 +1093,9 @@ def transposed_phase(params, ws_all, bs_all, gamma, dev):
     path = {"phase": "transposed_path", "gate_medrel": gate,
             "op_energy_finite": bool(torch.isfinite(e).all()),
             "op_grad_finite": bool(torch.isfinite(g.grad).all()),
-            "spans_fwd": eft.pick_spans(T, B, n_sm, 1),
-            "spans_bwd": eft.pick_spans(T, B, n_sm, 2),
+            # (K9 on this decoder takes tiles, not spans) the tensor-core
+            # K10 at f32x2: tiles that add 31 rows, one halo row
+            "spans_bwd": eft.pick_spans(T, B, n_sm, 1, eft.SPAN_ROWS - 1),
             "launches": launches}
     emit(path)
     return recs, times, path
@@ -1796,6 +1831,324 @@ def shapes_optimize(params, art, cfg, dev, ef):
     return recs
 
 
+# Phase big: the shapes past the kernels' former cap.  (a) Every kernel on
+# decoder BIG_DIMS (D = 5, a 1024-unit layer, 7 layers, X = 200 in two
+# column slices; K1-K8: the transposed op takes 3 layers) and on the 3-layer
+# BIG_WIDE (K1-K10), M = BIG_M seeded members, BIG_T x BIG_B seeded random
+# points, at every rung against its plain version under the shapes phase's
+# limits, each call repeated bitwise.  Two exceptions, each printed beside
+# its readings:
+# - bfloat16 energies in BIG_BF16_E: the two summation orders' bf16 rounding
+#   flips compound over seven layers or a 1024-unit product, and these read
+#   past the shapes phase's limits from their plain versions (H100, this
+#   phase: K1 7.47e-5 on BIG_DIMS and 1.13e-5 on BIG_WIDE against 1e-5, K7
+#   6.23e-5 on BIG_DIMS against 5e-5).  They are held to BIG_BF16_E_RTOL of
+#   their plain versions (twice the largest reading) and to the function in
+#   float64 as K2 at M = 1 is: their largest and median relative errors
+#   from it within K2_M1_FLOAT64 of the plain version's.
+# - K2/K4/K6 at a reduced rung on BIG_DIMS: a launch takes at most MAX_X
+#   output columns, and the chain rounds each slice's cotangents to bf16
+#   apart, so the kernels' dgamma is the slices' sum, 1-3e-3 of the largest
+#   element from the whole-X chain's (the plain versions on the CPU), past
+#   DG_MED and DG_P99.  They are held to the sum over the slices of the plain
+#   version under the shapes phase's limits, and to the float32 dgamma: their
+#   median and 99th-percentile errors from it within SLICED_CHAIN of the
+#   whole-X chain's (the plain slices' sum read 0.72-1.04 of it on the CPU).
+# (b) The whole 133-class matrix as one chunk, T = 2000, B = WHOLE_B (past
+# the 32-bit index at 128-unit layers: two launches a call): every kernel
+# K1-K10 on the committed model at float32 and f32x2 against its plain
+# version on splines WHOLE_TAKE, and WHOLE_STEPS steps of expected_fused and
+# mc_fused on the init blob tiled to WHOLE_B pairs, the four splines'
+# lengths against the plain modes' run on those four (main's limits; mc's
+# for mc_fused, whose draws differ from the plain mode's).
+BIG_DIMS = (5, 1024, 24, 24, 24, 24, 24, 200)
+BIG_WIDE = (2, 1024, 64, 50)
+BIG_M, BIG_T, BIG_B = 3, 64, 13
+BIG_BF16_E = {("big", "K1"), ("big", "K7"), ("wide", "K1")}
+BIG_BF16_E_RTOL = 1.5e-4
+SLICED_CHAIN = 1.25
+WHOLE_B = 8778
+WHOLE_TAKE = (0, 4000, 8388, 8777)
+WHOLE_STEPS = 5
+
+
+def big_decoders(dims, dev):
+    """BIG_M seeded members of a decoder of widths ``dims`` (as
+    tests/test_torch_isolation.py builds them)."""
+    import torch
+
+    rng = np.random.default_rng(7)
+    layers = [((rng.normal(size=(BIG_M, i, o)) / np.sqrt(i)).astype(np.float32),
+               (0.1 * rng.normal(size=(BIG_M, o))).astype(np.float32))
+              for i, o in zip(dims[:-1], dims[1:])]
+    return ([torch.as_tensor(w, device=dev) for w, _ in layers],
+            [torch.as_tensor(b, device=dev) for _, b in layers])
+
+
+def big_kernel_table(ef, mc, eft, ws, bs, g, wmb, ct, cts, planes, kmax,
+                     with_t, take=None):
+    """{kernel: (kind, kernel(prec), plain(prec, ws, bs, c0, c1) on the
+    splines ``take`` (the decoder and the cotangents' output columns c0..c1
+    default to the whole), the energies' function in float64 or None)};
+    the kernel outputs are cut to ``take``."""
+    import torch
+
+    idx = slice(None) if take is None else torch.as_tensor(take,
+                                                            device=g.device)
+
+    def on(x):
+        if isinstance(x, tuple):
+            return tuple(on(o) for o in x)
+        return x[idx] if x.dim() == 1 else x[:, idx].contiguous()
+
+    T, B = g.shape[:2]
+    X = ws[-1].shape[-1]
+    seed = (1 << 40) + 3
+    d1, d2 = planes
+    r1, r2 = mc.philox_draws(seed, d1.shape[0], T, B, kmax)
+    gc, wc, cc = on(g), on(wmb), on(ct)
+    ctc = [on(c) for c in cts]
+    p1, p2, q1, q2 = (x[:, :, idx].contiguous() for x in (d1, d2, r1, r2))
+    S = d1.shape[0]
+    uc = ef.uniform_weights(ws[0].shape[0], gc.shape[1], g.device)
+
+    def cols(x, c0, c1):
+        return x[..., c0:c1].contiguous()
+
+    table = {
+        "K1": ("energy", lambda p: on(ef.energy_fwd(ws, bs, g, wmb, p)),
+               lambda p, w=ws, b=bs, c0=0, c1=X: ef.energy_fwd_plain(
+                   w, b, gc, wc, p),
+               lambda: float64_function(ef.energy_fwd_plain, ws, bs, gc, wc)),
+        "K2": ("dgamma", lambda p: on(ef.energy_bwd(ws, bs, g, wmb, ct, p)),
+               lambda p, w=ws, b=bs, c0=0, c1=X: ef.energy_bwd_plain(
+                   w, b, gc, wc, cc, p), None),
+        "K3": ("stats", lambda p: on(ef.stats_fwd(ws, bs, g, wmb, p)),
+               lambda p, w=ws, b=bs, c0=0, c1=X: ef.stats_fwd_plain(
+                   w, b, gc, wc, p), None),
+        "K4": ("dgamma", lambda p: on(ef.stats_bwd(ws, bs, g, wmb, *cts, p)),
+               lambda p, w=ws, b=bs, c0=0, c1=X: ef.stats_bwd_plain(
+                   w, b, gc, wc, cols(ctc[0], c0, c1), cols(ctc[1], c0, c1),
+                   ctc[2], p), None),
+        "K5": ("mc_energy", lambda p: on(mc.energy_mc_fwd(ws, bs, g, d1, d2,
+                                                          p)),
+               lambda p, w=ws, b=bs, c0=0, c1=X: mc.energy_mc_fwd_plain(
+                   w, b, gc, p1, p2, p),
+               lambda: float64_function(mc.energy_mc_fwd_plain, ws, bs, gc,
+                                        p1, p2)),
+        "K6": ("dgamma", lambda p: on(mc.energy_mc_bwd(ws, bs, g, d1, d2, ct,
+                                                       p)),
+               lambda p, w=ws, b=bs, c0=0, c1=X: mc.energy_mc_bwd_plain(
+                   w, b, gc, p1, p2, cc, p), None),
+        "K7": ("mc_energy", lambda p: on(mc.energy_mc_fwd_rng(
+                   ws, bs, g, seed, kmax, S, p)),
+               lambda p, w=ws, b=bs, c0=0, c1=X: mc.energy_mc_fwd_plain(
+                   w, b, gc, q1, q2, p),
+               lambda: float64_function(mc.energy_mc_fwd_plain, ws, bs, gc,
+                                        q1, q2)),
+        "K8": ("dgamma", lambda p: on(mc.energy_mc_bwd_rng(
+                   ws, bs, g, seed, kmax, S, ct, p)),
+               lambda p, w=ws, b=bs, c0=0, c1=X: mc.energy_mc_bwd_plain(
+                   w, b, gc, q1, q2, cc, p), None)}
+    if with_t:
+        table["K9"] = ("energy", lambda p: on(eft.energy_t_fwd(ws, bs, g, p)),
+                       lambda p, w=ws, b=bs, c0=0, c1=X:
+                       eft.energy_t_fwd_plain(w, b, gc, p),
+                       lambda: float64_function(ef.energy_fwd_plain, ws, bs,
+                                                gc, uc))
+        table["K10"] = ("dgamma", lambda p: on(eft.energy_t_bwd(ws, bs, g, ct,
+                                                                p)),
+                        lambda p, w=ws, b=bs, c0=0, c1=X:
+                        eft.energy_t_bwd_plain(w, b, gc, cc, p), None)
+    return table
+
+
+def big_kernels(ef, rec, table, ws, bs, rungs, launches):
+    """Each kernel of ``table`` at each rung: twice (bitwise) against its
+    plain version (shape_kernel_check), in ``launches`` launches a call (X
+    slices times spline ranges; None: not counted), with the two exceptions
+    above (BIG_BF16_E, SLICED_CHAIN).  Fails on the first disagreement."""
+    import torch
+
+    sliced = len(ef.x_slices(ws, bs)) > 1
+    for kname, (kind, fn, fn_p, truth) in table.items():
+        for prec in rungs:
+            ef.reset_launch_counts()
+            got = fn(prec)
+            n_launched = sum(ef.LAUNCHES.values())
+            again = fn(prec)
+            if kind == "dgamma" and sliced and prec != "float32":
+                ref = ef.sum_slices(ws, bs, lambda w, b, c0, c1: fn_p(
+                    prec, w, b, c0, c1))
+            else:
+                ref = fn_p(prec)
+            ok, f = shape_kernel_check(kind, got, again, ref, prec)
+            if truth is not None and prec == "bfloat16":
+                t = truth()
+                for key, x in (("vs_float64", got), ("plain_vs_float64", ref)):
+                    rel = (x.double() - t).abs() / t.abs()
+                    f[key + "_max_rel"] = float(rel.max())
+                    f[key + "_median_rel"] = float(rel.median())
+                if (rec["case"], kname) in BIG_BF16_E:
+                    ok = (f["repeat_bitwise"]
+                          and bool(torch.isfinite(got).all())
+                          and f["energy_max_rel"] <= BIG_BF16_E_RTOL
+                          and all(f[f"vs_float64_{k}_rel"] <= K2_M1_FLOAT64
+                                  * f[f"plain_vs_float64_{k}_rel"]
+                                  for k in ("max", "median")))
+            if kind == "dgamma" and sliced and prec != "float32":
+                f32, whole = fn_p("float32"), fn_p(prec)
+                f["vs_whole_chain"] = dgamma_stats(got, whole)   # a reading
+                f["vs_float32"] = dgamma_stats(got, f32)
+                f["whole_chain_vs_float32"] = dgamma_stats(whole, f32)
+                ok = ok and all(
+                    f["vs_float32"][f"dgamma_rel_{k}"] <= SLICED_CHAIN
+                    * f["whole_chain_vs_float32"][f"dgamma_rel_{k}"]
+                    for k in ("median", "p99"))
+            f["launches_per_call"] = n_launched
+            rec.setdefault(kname, {})[prec] = f
+            if launches is not None and n_launched != launches:
+                emit(rec)
+                fail(f"big: {kname} at {rec['case']} {prec}: {n_launched} "
+                     f"launches a call, expected {launches}")
+            if not ok:
+                emit(rec)
+                fail(f"big: {kname} at {rec['case']} {prec} disagrees with "
+                     "its plain version or is not repeated bitwise")
+
+
+def big_phase(params, art, cfg, dev, ef, mc, eft):
+    """Phase big (a) and (b): records of the kernels and of the optimizer
+    runs; fails on a disagreement."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.io.artifacts import SplineBatchArtifact
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch)
+
+    out = []
+    on_card = dev.type == "cuda"   # (the CPU runs the plain versions)
+    # (a) other shapes, every rung
+    rng = np.random.default_rng(2)
+
+    def rnd(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+
+    for case, dims in (("big", BIG_DIMS), ("wide", BIG_WIDE)):
+        ws, bs = big_decoders(dims, dev)
+        T, B, M, X = BIG_T, BIG_B, BIG_M, dims[-1]
+        g = rnd(T, B, dims[0])
+        ct = torch.as_tensor(rng.uniform(0.5, 2, B).astype(np.float32),
+                             device=dev)
+        counts = torch.as_tensor(rng.integers(1, M + 1, B))
+        wmb = ef.active_weights(counts, M, B, dev).contiguous()
+        cts = [rnd(T, B, X), rnd(T, B, X), rnd(T, B)]
+        planes = mc.sample_decoder_indices(
+            torch.Generator(device=dev).manual_seed(5), T, B, M, MC_SAMPLES,
+            counts.to(dev))
+        kmax = torch.full((B,), float(M), device=dev)
+        rec = {"phase": "big", "case": case, "dims": list(dims), "M": M,
+               "T": T, "B": B}
+        table = big_kernel_table(ef, mc, eft, ws, bs, g, wmb, ct, cts, planes,
+                                 kmax, len(dims) == 4)
+        big_kernels(ef, rec, table, ws, bs, ef.PRECISIONS,
+                    len(ef.x_slices(ws, bs)) if on_card else None)
+        emit(rec)
+        out.append(rec)
+    # (b) the whole matrix as one chunk: kernels
+    ws, bs = ef.stack_weights(params.decoders)
+    M, T, B = ws[0].shape[0], cfg.energy.num_t, WHOLE_B
+    X = ws[-1].shape[-1]
+    reps = np.arange(B) % len(art)
+    tiled = SplineBatchArtifact(**{
+        **{f.name: getattr(art, f.name)
+           for f in dataclasses.fields(SplineBatchArtifact)},
+        "a": art.a[reps], "b": art.b[reps],
+        "omega_init": art.omega_init[reps],
+        "pair_indices": art.pair_indices[reps], "valid": art.valid[reps],
+        "pair_labels": [art.pair_labels[i] for i in reps]})
+    from vae_latent_geometry_tpu_torch.geometry.spline import (
+        design_matrix, eval_spline_design, t_grid)
+
+    t = t_grid(T, dev)
+    phi = design_matrix(t, art.basis, art.n_poly)
+    g = eval_spline_design(
+        torch.as_tensor(tiled.omega_init, device=dev),
+        torch.as_tensor(tiled.a, device=dev),
+        torch.as_tensor(tiled.b, device=dev), phi, t).contiguous()
+    ct = torch.linspace(0.5, 2.0, B, device=dev)
+    wmb = ef.uniform_weights(M, B, dev)
+    cts = list(smooth_cotangents(T, B, X, dev, seed=11))
+    planes = mc.sample_decoder_indices(
+        torch.Generator(device=dev).manual_seed(5), T, B, M, MC_SAMPLES, None)
+    kmax = torch.full((B,), float(M), device=dev)
+    rec = {"phase": "big", "case": "whole", "T": T, "B": B, "M": M,
+           "splines": list(WHOLE_TAKE),
+           "spline_ranges": ef.spline_ranges(T, B, [2, 128, 128, X])}
+    table = big_kernel_table(ef, mc, eft, ws, bs, g, wmb, ct, cts, planes,
+                             kmax, True, WHOLE_TAKE)
+    big_kernels(ef, rec, table, ws, bs, ("float32", "f32x2"),
+                len(rec["spline_ranges"]) if on_card else None)
+    emit(rec)
+    out.append(rec)
+    del table, cts, planes, g
+    torch.cuda.empty_cache()
+    # (b) the whole matrix as one chunk: the optimizer, fused and plain
+    take = np.asarray(WHOLE_TAKE)
+    few = SplineBatchArtifact(**{
+        **{f.name: getattr(tiled, f.name)
+           for f in dataclasses.fields(SplineBatchArtifact)},
+        "a": tiled.a[take], "b": tiled.b[take],
+        "omega_init": tiled.omega_init[take],
+        "pair_indices": tiled.pair_indices[take], "valid": tiled.valid[take],
+        "pair_labels": [tiled.pair_labels[i] for i in take]})
+    rec = {"phase": "big", "case": "whole_optimize", "T": T, "B": B,
+           "steps": WHOLE_STEPS, "steps_per_s": {}, "launches": {},
+           "len_rel_max": {}}
+    for fused, plain, limit in (("expected_fused", "expected", LEN_MAX),
+                                ("mc_fused", "mc", MC_LEN_MAX)):
+        lengths = {}
+        for mode, batch, n in ((fused, tiled, B), (plain, few, len(take))):
+            rcfg = dataclasses.replace(
+                cfg, steps=WHOLE_STEPS, batch_size=n,
+                energy=dataclasses.replace(cfg.energy, mode=mode,
+                                           mc_samples=MC_SAMPLES))
+            torch.cuda.synchronize()
+            ef.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = optimize_spline_batch(
+                params, batch, cfg=rcfg, device=dev, log_every_chunk=False,
+                generator=torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            if mode == fused:
+                rec["steps_per_s"][mode] = WHOLE_STEPS / (
+                    time.perf_counter() - t0)
+                rec["launches"][mode] = {k: v for k, v in ef.LAUNCHES.items()
+                                         if v}
+            lengths[mode] = np.asarray(res.geodesic_length, np.float64)
+        n = len(ef.spline_ranges(T, B, [2, 128, 128, X]))
+        want = ({"energy_bwd": n * WHOLE_STEPS, "energy_fwd": n}
+                if fused == "expected_fused" else
+                {"energy_mc_bwd_rng": n * WHOLE_STEPS, "energy_mc_fwd_rng": n})
+        if on_card and rec["launches"][fused] != want:
+            emit(rec)
+            fail(f"big: {fused} at B={B} launched {rec['launches'][fused]}, "
+                 f"expected {want}")
+        mine = lengths[fused][take]
+        rel = np.abs(mine / lengths[plain] - 1)
+        rec["len_rel_max"][fused] = float(rel.max())
+        if not (np.isfinite(lengths[fused]).all() and rel.max() <= limit):
+            emit(rec)
+            fail(f"big: {fused} at B={B}: lengths of splines {WHOLE_TAKE} "
+                 f"{rel.max():.3g} from the {plain} mode's (limit {limit})")
+        del lengths
+        torch.cuda.empty_cache()
+    emit(rec)
+    out.append(rec)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1833,6 +2186,7 @@ def main() -> int:
     k1_hmma = sass_hmma(_build._target("energy_expected"), "k1_")
     mc_hmma = sass_hmma(_build._target("energy_mc"), "mc_")
     stats_hmma = sass_hmma(_build._target("energy_stats"), "k[34]_")
+    t_hmma = sass_hmma(_build._target("energy_transposed"), "k(?:1|9|10)_")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     emit({"phase": "build", "seconds": build_s,
@@ -1840,9 +2194,11 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc, "ptxas": ptxas, "k2_sass_hmma": hmma,
           "k1_sass_hmma": k1_hmma, "mc_sass_hmma": mc_hmma,
-          "stats_sass_hmma": stats_hmma,
+          "stats_sass_hmma": stats_hmma, "transposed_sass_hmma": t_hmma,
           "fwd_fma_ptxas": {k: ptxas_of(_build.BUILD_LOG[src], k)
-                            for src, k in FWD_FMA}})
+                            for src, k in FWD_FMA},
+          "transposed_mma_ptxas": {k: ptxas_of(_build.BUILD_LOG[
+              "energy_transposed"], k) for k in T_MMA}})
     # K2's, K3/K4's and K6/K8's reduced rungs run on the tensor cores in the
     # mma kernels of the production shape, their float32 rung does not (TF32 is
     # barred), nor does the generic decode at any rung, nor the forward
@@ -1854,6 +2210,14 @@ def main() -> int:
     check_hmma(stats_hmma, ("k3_stats_mma", "k4_stats_chain_mma"),
                ("k3_stats", "k4_stats_chain"),
                ("k3_stats_any", "k4_stats_chain_any"))
+    # K9/K10: the tensor-core kernels at the reduced rungs, K1's float32
+    # kernel (K9) and k10_dgamma<0> at float32, the generic decode's none
+    check_hmma(t_hmma, T_MMA, ("k1_fwd_fma", "k10_dgamma"),
+               ("k9_energy_spans_any", "k10_dgamma_any"))
+    for k in T_MMA:
+        r = ptxas_of(_build.BUILD_LOG["energy_transposed"], k)
+        if r.get("spill_bytes") != 0 or r.get("stack_bytes") != 0:
+            fail(f"ptxas of {k}: {r}")
     # the float32 forward energies (K1, K5/K7) on decode_f32.cuh: FMAs only,
     # no stack, no spill
     for key, n in (("k1_fwd_fma<0>", k1_hmma.get("k1_fwd_fma<0>")),
@@ -2332,6 +2696,9 @@ def main() -> int:
     shape_chunk = shapes_kernels_chunk(ef, mc, eft, dev, gamma)
     shapes_vs_jax(ef, mc, dev)
     shape_runs = shapes_optimize(params, art, cfg, dev, ef)
+    # 14b. the shapes past the former cap: X > 128, D > 4, any width and
+    # depth, a batch past the 32-bit index
+    big_recs = big_phase(params, art, cfg, dev, ef, mc, eft)
 
     # 15. kernels line ------------------------------------------------------
     P = T * B
@@ -2500,7 +2867,12 @@ def main() -> int:
          "plain_ms": t_times["float32"]["k9_plain_ms"],
          "bound_ms": 1e3 * max(k9_bound), "bound_by": bound_by(k9_bound),
          "library_ms": None,
-         "ms_f32x2": t_times["f32x2"]["k9_ms"],
+         "design": "k1_fwd_fma (K1's float32 kernel, decode_f32.cuh) on the "
+                   "uniform weight plane; k9_tiles_mma (mma.sync bf16, "
+                   "tiles of 32 rows x 4 splines, one row of overlap) at "
+                   "the reduced rungs",
+         **{f"ms_{p}": t_times[p]["k9_ms"]
+            for p in ("f32x3", "f32x2", "bfloat16")},
          "k1_ms_same_call": t_times["float32"]["k1_ms"]},
         {"name": "energy_t_bwd (K10, transposed layout, f32x2, one decode)",
          "route": "cuda",
@@ -2514,7 +2886,13 @@ def main() -> int:
          "plain_ms": t_times["f32x2"]["k10_plain_ms"],
          "bound_ms": 1e3 * max(k10_bound), "bound_by": bound_by(k10_bound),
          "library_ms": None,
-         "ms_float32": t_times["float32"]["k10_ms"],
+         "design": "k10_mma (mma.sync bf16, decode_mma.cuh): one staging "
+                   "per tile and decoder serves the chain of tile k-1 and "
+                   "the decode of tile k; outputs and masks in the block's "
+                   "scratch, prefetched by cp.async; k10_dgamma<0> (FMA) at "
+                   "float32",
+         **{f"ms_{p}": t_times[p]["k10_ms"]
+            for p in ("float32", "f32x3", "bfloat16")},
          "k2_ms_same_call": t_times["f32x2"]["k2_ms"]},
         {**mc_kernel("energy_mc_fwd (K5, float32 final evaluation, planes)",
                      473, ext_launches["energy_mc_fwd"], "mc_energy_max_abs",

@@ -104,11 +104,13 @@ def test_kernel_shape_checks_raise(setup):
         ef._check_cuda(ws, bs, g, ef.uniform_weights(3, B + 1))
     with pytest.raises(ValueError, match="float32"):
         ef._check_cuda(ws, bs, g.double(), wmb)
-    # the kernels take X up to 128 (the JAX kernels' limit), not beyond
+    # the kernels take X up to 128 in one launch and wider outputs in column
+    # slices, and any latent width
     assert ef._check_cuda([ws[0], ws[1], torch.zeros(3, 128, 80)],
                           [bs[0], bs[1], torch.zeros(3, 80)], g, wmb)[4] == 80
-    with pytest.raises(ValueError, match="unsupported"):
-        ef._check_cuda([ws[0], ws[1], torch.zeros(3, 128, 129)],
-                       [bs[0], bs[1], torch.zeros(3, 129)], g, wmb)
+    assert ef._check_cuda([ws[0], ws[1], torch.zeros(3, 128, 129)],
+                          [bs[0], bs[1], torch.zeros(3, 129)], g, wmb)[4] == 129
+    ws5 = [torch.zeros(3, 5, ws[0].shape[2]), *ws[1:]]
+    assert ef._check_cuda(ws5, bs, torch.zeros(T, B, 5), wmb)[2] == 5
     with pytest.raises(ValueError, match="D=5"):
         ef._check_cuda(ws, bs, torch.zeros(T, B, 5), wmb)

@@ -135,9 +135,9 @@ def _code(path):
 
 
 def test_float32_decode_holds_no_tensor_core_instruction():
-    header = _code("decode_f32.cuh")
-    assert not TENSOR_CORE.findall(header)
-    for src, kernel in (("energy_expected.cu", "k1_fwd_fma"),
+    for header in ("decode_f32.cuh", "k1_fwd_f32.cuh"):
+        assert not TENSOR_CORE.findall(_code(header)), header
+    for src, kernel in (("k1_fwd_f32.cuh", "k1_fwd_fma"),
                         ("energy_mc.cu", "mc_fwd_fma")):
         body = _body(_code(src), kernel)
         assert "f32_decode_chunk" in body

@@ -153,37 +153,34 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
     that it includes, so an edited header cannot load a stale library."""
     from vae_latent_geometry_tpu_torch.ops import _build
 
-    for name in ("energy_expected", "energy_mc", "energy_stats",
-                 "energy_transposed"):
+    headers = {
+        "energy_expected": {"decode_mma.cuh", "decode_common.cuh",
+                            "decode_f32.cuh", "decode_any.cuh",
+                            "k1_fwd_f32.cuh"},
+        "energy_mc": {"decode_mma.cuh", "decode_common.cuh", "decode_f32.cuh",
+                      "decode_any.cuh"},
+        "energy_stats": {"decode_mma.cuh", "decode_common.cuh",
+                         "decode_any.cuh"},
+        "energy_transposed": {"decode_mma.cuh", "decode_common.cuh",
+                              "decode_f32.cuh", "decode_any.cuh",
+                              "k1_fwd_f32.cuh"}}
+    for name, want in headers.items():
         files = [p.name for p in _build.source_files(name)]
-        mma = name in ("energy_expected", "energy_mc", "energy_stats")
-        f32 = name in ("energy_expected", "energy_mc")
-        assert files == [f"{name}.cu"] + (["decode_mma.cuh"] if mma else []) \
-            + ["decode_common.cuh"] + (["decode_f32.cuh"] if f32 else []) \
-            + ["decode_any.cuh"]
+        assert files[0] == f"{name}.cu" and set(files[1:]) == want
+        assert len(files) == len(want) + 1
     for f in os.listdir(_build.CSRC):
         (tmp_path / f).write_bytes((_build.CSRC / f).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = {n: _build._target(n).name for n in _build.SIGNATURES}
-    for header in ("decode_common.cuh", "decode_any.cuh"):
+    # each header renames exactly the libraries that include it
+    for header in ("decode_common.cuh", "decode_any.cuh", "decode_mma.cuh",
+                   "decode_f32.cuh", "k1_fwd_f32.cuh"):
         with open(tmp_path / header, "a") as f:
             f.write("// edited\n")
         after = {n: _build._target(n).name for n in _build.SIGNATURES}
-        assert all(before[n] != after[n] for n in before)
+        assert {n for n in before if before[n] != after[n]} == {
+            n for n, want in headers.items() if header in want}, header
         before = after
-    # the tensor-core header renames the libraries that include it only
-    with open(tmp_path / "decode_mma.cuh", "a") as f:
-        f.write("// edited\n")
-    after = {n: _build._target(n).name for n in _build.SIGNATURES}
-    assert {n for n in before if before[n] != after[n]} == {
-        "energy_expected", "energy_mc", "energy_stats"}
-    # and the float32 forward decode those of K1 and K5/K7
-    before = after
-    with open(tmp_path / "decode_f32.cuh", "a") as f:
-        f.write("// edited\n")
-    after = {n: _build._target(n).name for n in _build.SIGNATURES}
-    assert {n for n in before if before[n] != after[n]} == {
-        "energy_expected", "energy_mc"}
     with open(tmp_path / "energy_mc.cu", "a") as f:
         f.write("// edited\n")
     assert _build._target("energy_mc").name != after["energy_mc"]
@@ -202,7 +199,8 @@ def test_console_script_and_package_data_in_pyproject():
     assert "ops/csrc/*.cuh" in data["vae_latent_geometry_tpu_torch"]
     for src in ("energy_expected.cu", "energy_mc.cu", "energy_stats.cu",
                 "energy_transposed.cu", "decode_common.cuh",
-                "decode_mma.cuh", "decode_any.cuh"):
+                "decode_mma.cuh", "decode_any.cuh", "decode_f32.cuh",
+                "k1_fwd_f32.cuh"):
         assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
     from setuptools import find_packages
 
@@ -883,3 +881,315 @@ def test_fwd_f32_kernels_match_plain_versions_on_gpu(T, B, M, D, X):
         assert torch.equal(e7, mc.energy_mc_fwd_rng(ws, bs, g, seed, kmax, S,
                                                     "float32"))
         assert torch.equal(e7, mc.energy_mc_fwd(ws, bs, g, p1, p2, "float32"))
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its limits and float64_function)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_limits", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _dgamma_errs(out, ref):
+    err = ((out - ref).abs() / ref.abs().max()).flatten()
+    return float(err.median()), float(torch.quantile(err, 0.99))
+
+
+def _held_on_gpu(pairs):
+    """pairs: (kind, kernel output, plain output): energies rtol 1e-5,
+    dgamma median 1e-4 and 99th percentile 1e-3 of its largest element,
+    the statistics at chip_smoke.py's STATS_X_RTOL / STATS_SQ_RTOL (the
+    limits of the other-shapes test above; 5e-5 for energies and 1e-2 /
+    5e-2 for statistics at bfloat16 come with its ``bf16`` kinds).  Two
+    kinds follow chip_smoke.py's phase big: ``energy_f64`` (plain, float64
+    function): within chip_smoke.BIG_BF16_E_RTOL of the plain version, and
+    its largest and median errors from the float64 function within
+    chip_smoke.K2_M1_FLOAT64 of the plain version's; ``dgamma_sliced``
+    (slices' sum of the plain version, whole-X chain, float32 dgamma): the
+    dgamma limits against the slices' sum, and its median and 99th
+    percentile errors from the float32 dgamma within
+    chip_smoke.SLICED_CHAIN of the whole-X chain's."""
+    smoke = None
+    for kind, out, ref in pairs:
+        if kind in ("energy_f64", "dgamma_sliced") and smoke is None:
+            smoke = _chip_smoke()
+        if kind == "energy_f64":
+            ref, truth = ref
+            torch.testing.assert_close(out, ref, rtol=smoke.BIG_BF16_E_RTOL,
+                                       atol=0)
+            err_k = ((out.double() - truth).abs() / truth.abs())
+            err_p = ((ref.double() - truth).abs() / truth.abs())
+            for stat in (torch.max, torch.median):
+                assert float(stat(err_k)) <= smoke.K2_M1_FLOAT64 * float(
+                    stat(err_p)), (kind, float(stat(err_k)),
+                                   float(stat(err_p)))
+        elif kind in ("energy", "energy_bf16"):
+            rtol = 5e-5 if kind == "energy_bf16" else 1e-5
+            torch.testing.assert_close(out, ref, rtol=rtol, atol=0)
+        elif kind in ("dgamma", "dgamma_sliced"):
+            if kind == "dgamma_sliced":
+                ref, whole, f32 = ref
+                got_f32, whole_f32 = (_dgamma_errs(x, f32)
+                                      for x in (out, whole))
+                for a, b in zip(got_f32, whole_f32):
+                    assert a <= smoke.SLICED_CHAIN * b, (kind, a, b)
+            med, p99 = _dgamma_errs(out, ref)
+            assert med < 1e-4, kind
+            assert p99 < 1e-3, kind
+        else:
+            x_tol, sq_tol = (1e-2, 5e-2) if kind == "stats_bf16" else (5e-5, 5e-4)
+            x_scale = float(ref[0].abs().max())
+            assert float((out[0] - ref[0]).abs().max()) <= x_tol * x_scale
+            assert float((out[1] - ref[1]).abs().max()) <= x_tol * x_scale
+            assert float((out[2] - ref[2]).abs().max()) <= sq_tol * max(
+                float(ref[2].abs().max()), 1e-30)
+
+
+def _every_kernel(ws, bs, g, wmb, ct, cts, planes, seed, kmax, precision,
+                  transposed, take=None, float64_energies=()):
+    """(kind, kernel output, plain output) of K1-K8 (and K9/K10 where
+    ``transposed``) on the card, every kernel call repeated and required
+    bitwise equal; ``take``: the splines the plain versions run on (the
+    kernel outputs are cut to them).  ``float64_energies``: the kernels
+    among K1, K5, K7 whose energies are held as chip_smoke.py's phase big
+    holds its BIG_BF16_E (kind ``energy_f64``); past MAX_X output columns
+    at a reduced rung the dgamma of K2, K4, K6 and K8 are held as its
+    sliced chains are (kind ``dgamma_sliced``)."""
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+    from vae_latent_geometry_tpu_torch.ops._research import (
+        energy_fused_t as eft)
+
+    idx = take if take is not None else slice(None)
+    cut = (lambda x: x) if take is None else (
+        lambda x: x[:, take].contiguous() if x.dim() > 1 else x[take].contiguous())
+    bf = precision == "bfloat16"
+    d1, d2 = planes
+    r1, r2 = mc.philox_draws(seed, d1.shape[0], g.shape[0], g.shape[1], kmax)
+
+    def same(fn):
+        out, again = fn(), fn()
+        outs = out if isinstance(out, tuple) else (out,)
+        agains = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(o, a) for o, a in zip(outs, agains))
+        return out
+
+    def on(out):
+        if isinstance(out, tuple):
+            return tuple(on(o) for o in out)
+        return out[..., idx] if out.dim() == 1 else out[:, idx]
+
+    gc, wc, cc = cut(g), cut(wmb), cut(ct)
+    p1, p2 = (d[:, :, idx].contiguous() for d in (d1, d2))
+    q1, q2 = (d[:, :, idx].contiguous() for d in (r1, r2))
+    ctc = [cut(c) for c in cts]
+    sliced = precision != "float32" and len(ef.x_slices(ws, bs)) > 1
+
+    def dgamma(out, plain):
+        """plain(w, b, c0, c1, precision): the kernel's plain version on
+        decoder (w, b), K4's cotangents cut to output columns c0..c1."""
+        X = ws[-1].shape[-1]
+        if not sliced:
+            return ("dgamma", out, plain(ws, bs, 0, X, precision))
+        return ("dgamma_sliced", out, (
+            ef.sum_slices(ws, bs, lambda w, b, c0, c1: plain(
+                w, b, c0, c1, precision)),
+            plain(ws, bs, 0, X, precision), plain(ws, bs, 0, X, "float32")))
+
+    def cols(x, c0, c1):
+        return x[..., c0:c1].contiguous()
+
+    e_kind = "energy_bf16" if bf else "energy"
+    out = [
+        (e_kind, on(same(lambda: ef.energy_fwd(ws, bs, g, wmb, precision))),
+         ef.energy_fwd_plain(ws, bs, gc, wc, precision)),
+        dgamma(on(same(lambda: ef.energy_bwd(ws, bs, g, wmb, ct, precision))),
+               lambda w, b, c0, c1, p: ef.energy_bwd_plain(w, b, gc, wc, cc,
+                                                           p)),
+        ("stats_bf16" if bf else "stats",
+         on(same(lambda: ef.stats_fwd(ws, bs, g, wmb, precision))),
+         ef.stats_fwd_plain(ws, bs, gc, wc, precision)),
+        dgamma(on(same(lambda: ef.stats_bwd(ws, bs, g, wmb, *cts,
+                                            precision))),
+               lambda w, b, c0, c1, p: ef.stats_bwd_plain(
+                   w, b, gc, wc, cols(ctc[0], c0, c1), cols(ctc[1], c0, c1),
+                   ctc[2], p)),
+        (e_kind, on(same(lambda: mc.energy_mc_fwd(ws, bs, g, d1, d2,
+                                                  precision))),
+         mc.energy_mc_fwd_plain(ws, bs, gc, p1, p2, precision)),
+        dgamma(on(same(lambda: mc.energy_mc_bwd(ws, bs, g, d1, d2, ct,
+                                                precision))),
+               lambda w, b, c0, c1, p: mc.energy_mc_bwd_plain(
+                   w, b, gc, p1, p2, cc, p)),
+        (e_kind, on(same(lambda: mc.energy_mc_fwd_rng(
+            ws, bs, g, seed, kmax, d1.shape[0], precision))),
+         mc.energy_mc_fwd_plain(ws, bs, gc, q1, q2, precision)),
+        dgamma(on(same(lambda: mc.energy_mc_bwd_rng(
+            ws, bs, g, seed, kmax, d1.shape[0], ct, precision))),
+               lambda w, b, c0, c1, p: mc.energy_mc_bwd_plain(
+                   w, b, gc, q1, q2, cc, p)),
+    ]
+    if float64_energies:
+        f64 = _chip_smoke().float64_function
+        truths = {"K1": (0, lambda: f64(ef.energy_fwd_plain, ws, bs, gc,
+                                        wc)),
+                  "K5": (4, lambda: f64(mc.energy_mc_fwd_plain, ws, bs, gc,
+                                        p1, p2)),
+                  "K7": (6, lambda: f64(mc.energy_mc_fwd_plain, ws, bs, gc,
+                                        q1, q2))}
+        for name in float64_energies:
+            i, truth = truths[name]
+            out[i] = ("energy_f64", out[i][1], (out[i][2], truth()))
+    if transposed:
+        out += [
+            (e_kind, on(same(lambda: eft.energy_t_fwd(ws, bs, g, precision))),
+             eft.energy_t_fwd_plain(ws, bs, gc, precision)),
+            ("dgamma", on(same(lambda: eft.energy_t_bwd(ws, bs, g, ct,
+                                                        precision))),
+             eft.energy_t_bwd_plain(ws, bs, gc, cc, precision)),
+        ]
+    return out
+
+
+# D = 5, a 1024-unit layer, 7 layers, X = 200 (tests/test_torch_big_shapes.py)
+BIG = (5, 1024, 24, 24, 24, 24, 24, 200)
+
+
+def _seeded_decoders(dims, M, seed, device):
+    rng = np.random.default_rng(seed)
+    layers = [((rng.normal(size=(M, i, o)) / np.sqrt(i)).astype(np.float32),
+               (0.1 * rng.normal(size=(M, o))).astype(np.float32))
+              for i, o in zip(dims[:-1], dims[1:])]
+    return ([torch.as_tensor(w, device=device) for w, _ in layers],
+            [torch.as_tensor(b, device=device) for _, b in layers])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [BIG, (2, 1024, 64, 50)],
+                         ids=["big", "wide3"])
+@pytest.mark.parametrize("precision", ["float32", "f32x3", "f32x2",
+                                       "bfloat16"])
+def test_every_kernel_matches_its_plain_version_on_big_shapes_on_gpu(
+        precision, dims):
+    """K1-K8 at the shapes past the former cap (X = 200 in two column
+    slices, D = 5, a 1024-unit layer, 7 layers) and K1-K10 at a 3-layer
+    decoder with a 1024-unit layer (the transposed op takes only 3 layers,
+    D <= 2), against their plain versions under the other-shapes test's
+    limits; T = 64, B = 13, mixed decoder counts, every call repeated
+    bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+
+    M, T, B = 3, 64, 13
+    ws, bs = _seeded_decoders(dims, M, 7, "cuda")
+    rng = np.random.default_rng(2)
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device="cuda")
+
+    g = dev(rng.normal(size=(T, B, dims[0])))
+    ct = dev(rng.uniform(0.5, 2, B))
+    counts = torch.as_tensor(rng.integers(1, M + 1, B))
+    wmb = ef.active_weights(counts, M, B, "cuda").contiguous()
+    X = dims[-1]
+    cts = [dev(rng.normal(size=s)) for s in ((T, B, X), (T, B, X), (T, B))]
+    planes = mc.sample_decoder_indices(
+        torch.Generator(device="cuda").manual_seed(5), T, B, M, 2,
+        counts.to("cuda"))
+    kmax = torch.full((B,), float(M), device="cuda")
+    ef.reset_launch_counts()
+    # at bfloat16 the kernels' and the plain versions' bf16 rounding flips
+    # compound over the seven layers: K1 and K7 read past 5e-5 there and are
+    # held as chip_smoke.py's phase big holds its BIG_BF16_E (the same
+    # decoders and inputs)
+    f64 = ("K1", "K7") if precision == "bfloat16" and len(dims) > 4 else ()
+    pairs = _every_kernel(ws, bs, g, wmb, ct, cts, planes, (1 << 40) + 3,
+                          kmax, precision, len(dims) == 4,
+                          float64_energies=f64)
+    # the big decoder's X = 200 runs in two column slices per call
+    assert ef.LAUNCHES["energy_fwd"] == 2 * (2 if X > 128 else 1)
+    _held_on_gpu(pairs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["float32", "f32x2"])
+def test_every_kernel_takes_the_whole_matrix_on_gpu(precision):
+    """T = 2000, B = 8,778 (the 133-class matrix as one chunk: past the
+    32-bit index at 128-unit layers, two launches per call), the committed
+    model: every kernel K1-K10 against its plain version on splines 0,
+    4,000, 8,388 and 8,777 (the MC planes cut to them; K7/K8 through the
+    planes of ``philox_draws``), every call repeated bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+
+    T, B, M = 2000, 8778, 10
+    p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
+    ws, bs = ef.stack_weights(p.decoders)
+    assert len(ef.spline_ranges(T, B, [2, 128, 128, 50])) == 2
+    rng = np.random.default_rng(4)
+    t = torch.linspace(0, 1, T, device="cuda")[:, None, None]
+    a, b = (torch.as_tensor(rng.normal(size=(1, B, 2)).astype(np.float32) * 2,
+                            device="cuda") for _ in range(2))
+    g = ((1 - t) * a + t * b + 0.2 * torch.sin(6 * t + a)).contiguous()
+    ct = torch.as_tensor(rng.uniform(0.5, 2, B).astype(np.float32),
+                         device="cuda")
+    wmb = ef.uniform_weights(M, B, "cuda")
+    cts = [torch.randn(s, generator=torch.Generator(device="cuda")
+                       .manual_seed(i), device="cuda")
+           for i, s in enumerate(((T, B, 50), (T, B, 50), (T, B)))]
+    planes = mc.sample_decoder_indices(
+        torch.Generator(device="cuda").manual_seed(5), T, B, M, 2, None)
+    kmax = torch.full((B,), float(M), device="cuda")
+    take = torch.tensor([0, 4000, 8388, 8777], device="cuda")
+    _held_on_gpu(_every_kernel(ws, bs, g, wmb, ct, cts, planes, 99, kmax,
+                               precision, True, take))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B,M,D,X", [
+    (200, 13, 1, 1, 8),       # one decoder, the narrowest output
+    (200, 7, 3, 2, 50),       # T - 1 a multiple of neither 31 nor 32
+    (2000, 13, 10, 2, 64),    # spans of several tiles, the widest output
+    (96, 5, 16, 1, 50),       # sixteen decoders, a ragged spline group
+    (400, 201, 10, 2, 50),    # more work items than blocks
+])
+@pytest.mark.parametrize("precision", ["float32", "f32x3", "f32x2",
+                                       "bfloat16"])
+def test_transposed_kernels_on_the_tensor_cores_on_gpu(precision, T, B, M, D,
+                                                       X):
+    """K9 and K10 on the production decoder shape (D <= 2 -> 128 -> 128 ->
+    X <= 64): at the reduced rungs the tensor-core kernels (k9_tiles_mma,
+    k10_mma), at float32 K1's k1_fwd_fma and k10_dgamma<0>, against their
+    plain versions under the transposed test's limits, every call repeated
+    bitwise; seeded random decoders and points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.ops._research import (
+        energy_fused_t as eft)
+
+    ws, bs = _seeded_decoders((D, 128, 128, X), M, 3 + M, "cuda")
+    rng = np.random.default_rng(T + B)
+    g = torch.as_tensor(rng.normal(size=(T, B, D)).astype(np.float32) * 1.5,
+                        device="cuda")
+    ct = torch.as_tensor(rng.uniform(0.5, 2, B).astype(np.float32),
+                         device="cuda")
+    e = eft.energy_t_fwd(ws, bs, g, precision)
+    e_p = eft.energy_t_fwd_plain(ws, bs, g, precision)
+    rtol = 5e-5 if precision == "bfloat16" else 1e-5
+    torch.testing.assert_close(e, e_p, rtol=rtol, atol=0)
+    d = eft.energy_t_bwd(ws, bs, g, ct, precision)
+    d_p = eft.energy_t_bwd_plain(ws, bs, g, ct, precision)
+    err = ((d - d_p).abs() / d_p.abs().max()).flatten()
+    assert float(err.median()) < 1e-4
+    assert float(torch.quantile(err, 0.99)) < 1e-3
+    assert torch.equal(e, eft.energy_t_fwd(ws, bs, g, precision))
+    assert torch.equal(d, eft.energy_t_bwd(ws, bs, g, ct, precision))

@@ -226,27 +226,40 @@ def test_shape_check_accepts_every_shape_in_the_table(name):
 
 
 def test_shape_check_accepts_the_cap_edge():
-    """The stated cap: 6 layers, hidden layers of 512 units, X = 128, D = 4."""
-    dims = (4,) + (ef.MAX_WIDTH,) * (ef.MAX_LAYERS - 1) + (ef.MAX_X,)
+    """The former cap's edge (6 layers, hidden layers of 512 units, X = 128,
+    D = 4) still passes, and so does everything past it: X = 128 is the
+    widest output of one launch, wider ones run in column slices."""
+    dims = (4,) + (512,) * 5 + (ef.MAX_X,)
     ws, bs = _decoder(dims, 1, "meta")
     g = torch.empty((T, B, 4), device="meta")
     assert ef._check_cuda(ws, bs, g) == (T, B, 4, 1, ef.MAX_X)
-    assert (ef.MAX_LAYERS, ef.MAX_WIDTH, ef.MAX_X, ef.MAX_D) == (6, 512, 128, 4)
+    assert ef.MAX_X == 128
+    assert [c1 - c0 for *_, c0, c1 in ef.x_slices(ws, bs)] == [128]
 
 
 @pytest.mark.parametrize("case", ["x129", "d5", "bias", "width", "depth",
                                   "int32"])
 def test_shape_check_refuses_naming_the_plain_modes(case):
-    """Beyond the cap, or malformed, the check raises before any launch and
-    the message names the plain modes."""
+    """A malformed decoder (a bias that does not match its weight) raises
+    before any launch and the message names the plain modes; the shapes past
+    the former cap (X > 128, D > 4, a hidden layer wider than 512, more than
+    6 layers, T * B * width >= 2^31) pass: the kernels take them."""
     dims = {"x129": (2, 64, 129), "d5": (5, 64, 10), "bias": (2, 64, 10),
-            "width": (2, ef.MAX_WIDTH + 1, 10), "depth": (2,) + (16,) * 6 + (10,),
-            "int32": (2, ef.MAX_WIDTH, 10)}[case]
+            "width": (2, 513, 10), "depth": (2,) + (16,) * 6 + (10,),
+            "int32": (2, 512, 10)}[case]
     ws, bs = _decoder(dims, 2, "meta")
     if case == "bias":
         bs[0] = torch.zeros((2, 63), device="meta")
-    n = 2**31 // ef.MAX_WIDTH if case == "int32" else T
-    g = torch.empty((n, 1, dims[0]), device="meta")
-    with pytest.raises(ValueError, match="run the plain mode instead"):
-        ef._check_cuda(ws, bs, g)
+    # int32: a batch past the 32-bit index at this T
+    n_b = 2**31 // (512 * T) + 1 if case == "int32" else 1
+    g = torch.empty((T, n_b, dims[0]), device="meta")
+    if case == "bias":
+        with pytest.raises(ValueError, match="run the plain mode instead"):
+            ef._check_cuda(ws, bs, g)
+    else:
+        assert ef._check_cuda(ws, bs, g) == (*g.shape, 2, dims[-1])
+    if case == "int32":
+        ranges = ef.spline_ranges(T, g.shape[1], dims)
+        assert len(ranges) == 2 and ranges[-1][1] == g.shape[1]
+        assert all(T * (b1 - b0) * 512 < ef.INDEX_LIMIT for b0, b1 in ranges)
     assert not any(ef.LAUNCHES.values())

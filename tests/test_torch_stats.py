@@ -236,12 +236,11 @@ def test_stats_wrappers_check_their_arguments():
     x0, yb, sq = ef.stats_fwd(ws, bs, g, w, "float32")
     with pytest.raises(ValueError, match="dsq must be"):
         ef.stats_bwd(ws, bs, g, w, x0, yb, x0, "float32")
-    # the CUDA path's checks: the kernels take the narrow decoders, not a
-    # hidden layer wider than their cap
+    # the CUDA path's checks: the kernels take the narrow decoders and a
+    # hidden layer of any width
     assert ef._check_cuda(ws, bs, g, w)[3] == 2
-    wide = [torch.zeros(2, ws[0].shape[1], ef.MAX_WIDTH + 1),
-            torch.zeros(2, ef.MAX_WIDTH + 1, ws[1].shape[2]), *ws[2:]]
-    wide_b = [torch.zeros(2, ef.MAX_WIDTH + 1), *bs[1:]]
-    with pytest.raises(ValueError, match="unsupported"):
-        ef._check_cuda(wide, wide_b, g, w)
+    wide = [torch.zeros(2, ws[0].shape[1], 1025),
+            torch.zeros(2, 1025, ws[1].shape[2]), *ws[2:]]
+    wide_b = [torch.zeros(2, 1025), *bs[1:]]
+    assert ef._check_cuda(wide, wide_b, g, w)[3] == 2
     assert ef.LAUNCHES["stats_fwd"] == 0 and ef.LAUNCHES["stats_bwd"] == 0

@@ -47,18 +47,22 @@ SIGNATURES = {
     "energy_mc": {
         "vlg_mc_fwd_tiles": [_I, _I, _I, _I, _I, _P],
         "vlg_f32_scratch_words": [_I, _I, _I, _P],
-        "vlg_mc_fwd": [_I, _P, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U, _U, _P,
-                       _P, _P, _I, _P],
-        "vlg_mc_bwd": [_I, _P, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U, _U, _P,
+        "vlg_mc_fwd": [_I, _P, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U, _U, _I,
                        _P, _P, _P, _I, _P],
+        "vlg_mc_bwd": [_I, _P, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U, _U, _I,
+                       _P, _P, _P, _P, _I, _P],
         "vlg_mc_bwd_planes": [_I, _I, _I, _I, _P],
     },
     "energy_transposed": {
         "vlg_t_scratch_words": [_I, _I, _I],
+        "vlg_t_chunk_rows": [_I, _I, _P, _I],
+        "vlg_t_fwd_rows": [_I, _I, _I, _I, _P],
+        "vlg_f32_scratch_words": [_I, _I, _I, _P],
         "vlg_energy_t_fwd": [_I, _P, _I, _I, _I, _I, _I, _I, *_DEC, _P, _P,
-                             _P, _P],
+                             _P, _P, _P],
+        "vlg_t_plane_words": [_I],
         "vlg_energy_t_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, *_DEC, _P, _P,
-                             _P, _P, _P, _P, _P, _P],
+                             _P, _P, _P, _P, _P, _P, _P],
     },
     "energy_stats": {
         "vlg_stats_fwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _P, _I,
@@ -68,7 +72,7 @@ SIGNATURES = {
     },
 }
 # exported by every library (csrc/decode_any.cuh)
-COMMON = {"vlg_any_scratch_words": [_I, _P, _I]}
+COMMON = {"vlg_any_scratch_words": [_I, _P, _I], "vlg_any_head_words": [_I]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}   # nvcc output (register / spill report)

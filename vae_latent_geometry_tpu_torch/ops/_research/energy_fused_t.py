@@ -42,7 +42,9 @@ from vae_latent_geometry_tpu_torch.ops.energy_fused import (
     _mp_matmul,
     _n_sm,
     _ptr,
+    _splines,
     _stream,
+    by_splines,
     check_precision,
     energy_fwd_plain,
     ship_weights,
@@ -75,7 +77,7 @@ def fused_t_fits(T, B, D, X, M, num_active=None, wmb=None,
     """The op's shape rule, the same booleans as the JAX package's: uniform
     weights only, the 3-layer reference decoder, D <= 2, X <= 128, M <= 16,
     and T must split into 8-aligned chunks of at most 40 rows (``_pick_tc``).
-    The CUDA kernels take hidden widths up to ``MAX_WIDTH`` besides."""
+    The CUDA kernels take these at any hidden width and any B."""
     if num_active is not None or wmb is not None or n_layers != 3:
         return False
     if D > 2 or X > 128 or M > 16:
@@ -147,18 +149,19 @@ def energy_t_bwd_plain(ws, bs, gamma, ct, precision):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def pick_spans(T: int, B: int, n_sm: int, halo: int):
+def pick_spans(T: int, B: int, n_sm: int, halo: int,
+               rows: int = SPAN_ROWS):
     """(span, G): the T-span each block walks and the number of spans per
     spline.  Blocks are persistent, one per SM, and take the
-    ceil(B / 4) * G (spline group, span) items in a fixed stride; G
-    minimises rounds x chunks per span (a span decodes ``halo`` extra
-    points), the smaller G on a tie."""
+    ceil(B / 4) * G (spline group, span) items in a fixed stride; a span's
+    chunks add ``rows`` curve rows each and it decodes ``halo`` extra
+    points; G minimises rounds x chunks per span, the smaller G on a tie."""
     groups = -(-B // SPAN_SPLINES)
     best = None
-    for G in range(1, -(-T // SPAN_ROWS) + 1):
+    for G in range(1, -(-T // rows) + 1):
         span = -(-T // G)
         g_eff = -(-T // span)
-        cost = (-(-groups * g_eff // n_sm)) * (-(-(span + halo) // SPAN_ROWS))
+        cost = (-(-groups * g_eff // n_sm)) * (-(-(span + halo) // rows))
         if best is None or cost < best[0]:
             best = (cost, span, g_eff)
     return best[1], best[2]
@@ -182,26 +185,40 @@ def energy_t_fwd(ws, bs, gamma, precision):
     from vae_latent_geometry_tpu_torch.ops._build import check, library
 
     shipped, T, B, D, M, X = _prepare_cuda(ws, bs, gamma, precision)
-    n_sm = _n_sm(gamma.device)
-    span, G = pick_spans(T, B, n_sm, 1)
-    n_items = G * -(-B // SPAN_SPLINES)
-    n_blocks = min(n_items, n_sm)
     lib = library("energy_transposed")
     widths, dec = _decoder_args(shipped, bs)
-    scratch, _ = _any_scratch(lib, widths, 1, gamma.device, n_blocks)
-    partial = torch.empty((G, B), dtype=torch.float32, device=gamma.device)
-    out = torch.empty((B,), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_energy_t_fwd(_RUNG[precision], gamma.data_ptr(), T, B, M,
-                               span, G, n_blocks, *dec, partial.data_ptr(),
-                               out.data_ptr(), _ptr(scratch),
-                               _stream(gamma.device)),
-          "energy_t_fwd")
-    LAUNCHES["energy_t_fwd"] += 1
-    return out
+
+    rung = _RUNG[precision]
+
+    def launch(b0, b1):
+        g, Bc = _splines(gamma, b0, b1), b1 - b0
+        n_sm = _n_sm(g.device)
+        span, G = pick_spans(T, Bc, n_sm, 1)
+        n_blocks = min(G * -(-Bc // SPAN_SPLINES), n_sm)
+        scratch, _ = _any_scratch(lib, widths, 1, g.device, n_blocks)
+        if scratch is None:      # K1's float32 kernel: W3 padded to 64
+            words = lib.vlg_f32_scratch_words(rung, M, *dec[:2])
+            if words > 0:
+                scratch = torch.empty((words,), dtype=torch.float32,
+                                      device=g.device)
+        wmb = uniform_weights(M, Bc, g.device)
+        partial = torch.empty((lib.vlg_t_fwd_rows(rung, T, G, *dec[:2]), Bc),
+                              dtype=torch.float32, device=g.device)
+        out = torch.empty((Bc,), dtype=torch.float32, device=g.device)
+        check(lib.vlg_energy_t_fwd(rung, g.data_ptr(), T, Bc, M, span, G,
+                                   n_blocks, *dec, wmb.data_ptr(),
+                                   partial.data_ptr(), out.data_ptr(),
+                                   _ptr(scratch), _stream(g.device)),
+              "energy_t_fwd")
+        LAUNCHES["energy_t_fwd"] += 1
+        return out
+
+    return by_splines(T, B, shipped, launch)
 
 
 def energy_t_bwd(ws, bs, gamma, ct, precision):
-    """K10: dgamma (T, B, D) of sum_b ct_b E_b, one launch."""
+    """K10: dgamma (T, B, D) of sum_b ct_b E_b: one launch of the kernel
+    (after one that prepares its bf16 weight planes at the reduced rungs)."""
     if gamma.device.type == "cpu":
         _check_fits(ws, gamma)
         return energy_t_bwd_plain(ws, bs, gamma, ct, precision)
@@ -214,25 +231,34 @@ def energy_t_bwd(ws, bs, gamma, ct, precision):
                                            (ct, w1))
     if tuple(ct.shape) != (B,):
         raise ValueError(f"ct must be (B,) = ({B},), got {tuple(ct.shape)}")
-    n_sm = _n_sm(gamma.device)
-    span, G = pick_spans(T, B, n_sm, 2)
-    n_items = G * -(-B // SPAN_SPLINES)
-    n_blocks = min(n_items, n_sm)
     lib = library("energy_transposed")
-    scratch = [torch.empty((n_blocks * lib.vlg_t_scratch_words(M, X, k),),
-                           dtype=torch.float32 if k != 1 else torch.int32,
-                           device=gamma.device) for k in range(3)]
     widths, dec = _decoder_args(shipped, bs)
-    any_scratch, _ = _any_scratch(lib, widths, 2 * M, gamma.device, n_blocks)
-    dgamma = torch.empty((T, B, D), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_energy_t_bwd(_RUNG[precision], gamma.data_ptr(), T, B, M,
-                               span, G, n_blocks, *dec, w1.data_ptr(),
-                               ct.data_ptr(), *(x.data_ptr() for x in scratch),
-                               _ptr(any_scratch), dgamma.data_ptr(),
-                               _stream(gamma.device)),
-          "energy_t_bwd")
-    LAUNCHES["energy_t_bwd"] += 1
-    return dgamma
+
+    def launch(b0, b1):
+        g, Bc = _splines(gamma, b0, b1), b1 - b0
+        n_sm = _n_sm(g.device)
+        rows = lib.vlg_t_chunk_rows(_RUNG[precision], *dec[:2], 1)
+        span, G = pick_spans(T, Bc, n_sm, 2 if rows == SPAN_ROWS else 1, rows)
+        n_blocks = min(G * -(-Bc // SPAN_SPLINES), n_sm)
+        scratch = [torch.empty((n_blocks * lib.vlg_t_scratch_words(M, X, k),),
+                               dtype=torch.float32 if k != 1 else torch.int32,
+                               device=g.device) for k in range(3)]
+        any_scratch, _ = _any_scratch(lib, widths, 2 * M, g.device, n_blocks)
+        # the tensor-core kernel's bf16 weight planes, prepared per call
+        planes = torch.empty((lib.vlg_t_plane_words(M),), dtype=torch.int32,
+                             device=g.device) if rows != SPAN_ROWS else None
+        dgamma = torch.empty((T, Bc, D), dtype=torch.float32, device=g.device)
+        check(lib.vlg_energy_t_bwd(_RUNG[precision], g.data_ptr(), T, Bc, M,
+                                   span, G, n_blocks, *dec, w1.data_ptr(),
+                                   ct[b0:b1].contiguous().data_ptr(),
+                                   *(x.data_ptr() for x in scratch),
+                                   _ptr(any_scratch), dgamma.data_ptr(),
+                                   _ptr(planes), _stream(g.device)),
+              "energy_t_bwd")
+        LAUNCHES["energy_t_bwd"] += 1
+        return dgamma
+
+    return by_splines(T, B, shipped, launch)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,16 @@
 // The decode of a decoder of any depth and widths, for sm_90a (H100): the
 // second decode policy of the energy kernels' bodies, beside FixedDecode
-// (decode_common.cuh), which keeps the production shape D -> 128 -> 128 ->
+// (decode_common.cuh), which keeps the production shape D <= 4 -> 128 -> 128 ->
 // X <= 64.
 //
-// A decoder here is L ReLU layers width[0] = D -> width[1] -> ... ->
-// width[L] = X with 2 <= L <= LMAX, hidden widths up to WMAX and X up to
+// A decoder here is L >= 2 ReLU layers width[0] = D -> width[1] -> ... ->
+// width[L] = X, of any depth, any hidden width and any D, with X up to
 // XMAX_ANY: every decoder the JAX package's kernels take
 // (vae_latent_geometry_tpu/ops/energy_pallas.py:237-246 loop over
-// n_layers), widths capped for the card.  The rungs are decode_common.cuh's:
-// operands packed by pack<R>, fp32 FMAs on the CUDA cores, fp32
-// accumulation; the chain runs at CHAIN_RUNG<R>; no TF32.
+// n_layers).  A wider output is run by the wrappers in column slices of at
+// most XMAX_ANY (every energy and dgamma is a sum over output features).  The
+// rungs are decode_common.cuh's: operands packed by pack<R>, fp32 FMAs on the
+// CUDA cores, fp32 accumulation; the chain runs at CHAIN_RUNG<R>; no TF32.
 //
 // Where the fixed decode keeps a layer in shared memory and its ReLU masks in
 // registers, a 512-wide layer of 128 points (256 KB) fits neither, so:
@@ -28,30 +29,37 @@
 //     go to a mask area in the scratch, one uint2 per thread (the chain
 //     produces the same (point, unit) positions, so it reads its own bits).
 //     A body that keeps several decoders' masks asks for several areas.
-// The decoder's description is copied to shared memory, so that the layer
-// loop indexes shared memory, not the kernel's parameters.
-
+//   - The description.  The decoder's widths and per-layer pointers are
+//     copied by the entry point into the head of the scratch (any_args), and
+//     the kernels read them from there, so no depth is capped by a fixed
+//     array; shared memory keeps only the pointers to them.
+//   - Latents.  Up to DMAX = 4 the tile's points and dgamma accumulators sit
+//     in shared memory as in the fixed decode; a wider D keeps them, D floats
+//     a point, in two areas of the block's scratch.
 #pragma once
+
+#include <cstring>
+#include <vector>
 
 #include "decode_common.cuh"
 
 namespace {
 
-constexpr int LMAX = 6;                  // most layers
-constexpr int WMAX = 512;                // widest hidden layer
-constexpr int XMAX_ANY = 128;            // widest output
+constexpr int XMAX_ANY = 128;            // widest output (of one column slice)
 constexpr int NJA = XMAX_ANY / 16;       // output columns a thread holds
 constexpr int CT = 128;                  // units per column tile
 constexpr int KC = 32;                   // input rows per staged chunk
 constexpr int S_WC = CT + 1;             // odd stride: conflict-free reads
 
 // A decoder ensemble: layer l maps width[l] -> width[l + 1] with weights
-// W[l] (M, width[l], width[l + 1]) and biases b[l] (M, width[l + 1]).
+// W[l] (M, width[l], width[l + 1]) and biases b[l] (M, width[l + 1]).  The
+// arrays are the entry point's on the host, the copy in the scratch's head
+// on the device.
 struct Decoder {
-  int L;
-  int width[LMAX + 1];
-  const float* W[LMAX];
-  const float* b[LMAX];
+  int L, D, X;               // layers, width[0], width[L]
+  const int* width;          // L + 1
+  const float* const* W;     // L
+  const float* const* b;     // L
 };
 
 __host__ __device__ inline int col_tiles(int w) { return (w + CT - 1) / CT; }
@@ -75,16 +83,26 @@ __host__ __device__ inline int mask_area_words(const Decoder& d) {
 // fit beside the decode's (K4's sum of cotangents, K10's xbar).
 constexpr int PRIV_WORDS = 8 * NJA * NT;
 
-// 32-bit words of one block's scratch with n_areas mask areas.
+// Floats a point of the tile's points and of its dgamma accumulators: in
+// shared memory (DMAX) up to D = DMAX, else in the scratch (D).
+__host__ __device__ inline int g_stride(int D) { return D > DMAX ? D : DMAX; }
+
+// 32-bit words of the areas of one block's scratch: the activation planes,
+// n_areas mask areas, the points and dgamma of a D > DMAX, the private tiles.
 inline size_t any_scratch_words(const Decoder& d, int n_areas) {
+  const int D = d.D;
   return 2 * (size_t)widest_hidden(d) * S_ACT + 2 * (size_t)n_areas * mask_area_words(d) +
-         PRIV_WORDS;
+         (D > DMAX ? 2 * (size_t)TP * D : 0) + PRIV_WORDS;
 }
+
+// 32-bit words of the scratch's head: the decoder's weight and bias
+// pointers and its widths, rounded to 16 bytes.
+inline size_t any_head_words(int L) { return ((size_t)4 * L + L + 1 + 3) / 4 * 4; }
 
 // The decoder the fixed kernels take: they keep it, every other shape takes
 // the kernels on this header.
 inline bool fixed_shape(const Decoder& d) {
-  return d.L == 3 && d.width[1] == H && d.width[2] == H && d.width[3] <= XMAX;
+  return d.L == 3 && d.D <= DMAX && d.width[1] == H && d.width[2] == H && d.X <= XMAX;
 }
 
 // What the generic decode keeps in shared memory; a kernel's own struct
@@ -93,8 +111,8 @@ struct AnySmem {
   uint32_t act[XMAX_ANY * S_ACT];  // the output cotangent dx[n][p] (chain rung)
   uint32_t ia[KC * S_ACT];         // staged input rows of a product
   uint32_t wc[KC * S_WC];          // staged weight chunk [k][n], packed
-  float g[TP * DMAX];              // the tile's curve points
-  float dg[TP * DMAX];             // dgamma accumulators of the chain
+  float g[TP * DMAX];              // the tile's curve points (D <= DMAX)
+  float dg[TP * DMAX];             // dgamma accumulators of the chain (D <= DMAX)
   Decoder dec;
 };
 
@@ -110,18 +128,22 @@ __device__ void gemm_any(AnySmem& s, const uint32_t* in, const float* W, int ldw
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < NJA; ++j) acc[i][j] = 0.f;
+  // the rows come from shared memory (the output cotangent) or a plane of
+  // the scratch, and the weights from the decoder's arrays, whose pointers
+  // the kernel reads from device memory: the loads say which space they use
+  const bool in_global = __isGlobal(in);
   for (int k0 = 0; k0 < K; k0 += KC) {
     const int kc = min(KC, K - k0);
     __syncthreads();
     for (int e = tid; e < kc * (TP / 4); e += NT) {
       const int kk = e / (TP / 4), q = e % (TP / 4);
-      reinterpret_cast<uint4*>(s.ia + kk * S_ACT)[q] =
-          reinterpret_cast<const uint4*>(in + (size_t)(k0 + kk) * S_ACT)[q];
+      const uint4* row = reinterpret_cast<const uint4*>(in + (size_t)(k0 + kk) * S_ACT) + q;
+      reinterpret_cast<uint4*>(s.ia + kk * S_ACT)[q] = in_global ? __ldcg(row) : *row;
     }
     for (int e = tid; e < kc * CT; e += NT) {
       const int kk = TRANS ? e % kc : e / CT, nn = TRANS ? e / kc : e % CT, n = n0 + nn;
       const size_t at = TRANS ? (size_t)n * ldw + k0 + kk : (size_t)(k0 + kk) * ldw + n;
-      s.wc[kk * S_WC + nn] = n < N ? pack<R>(W[at]) : 0u;
+      s.wc[kk * S_WC + nn] = n < N ? pack<R>(__ldg(W + at)) : 0u;
     }
     __syncthreads();
     gemm<R, NJA, false, 1>(s.ia, s.wc, S_WC, kc, acc);   // 64 FMAs a k-step: no unroll
@@ -166,13 +188,18 @@ struct AnyCtx {
   int area;            // uint2 words per mask area
   float* priv;         // [64][NT]: element e of thread t at priv[e * NT + t]
   __device__ uint32_t* plane(int i) const { return planes + i * plane_words; }
+  // D > DMAX: the tile's points [p][d] and their dgamma accumulators, just
+  // below the private tiles (computed, so that no register holds them)
+  __device__ float* gx(int D) const { return priv - 2 * TP * D; }
+  __device__ float* dgx(int D) const { return priv - TP * D; }
 };
 
 // Kernel arguments of the generic instantiations.
 struct AnyArgs {
-  Decoder dec;
-  uint32_t* scratch;   // n_blocks x any_scratch_words(dec, n_areas)
+  Decoder dec;         // its arrays in the scratch's head
+  uint32_t* scratch;   // n_blocks x block_words, after the head
   size_t block_words;
+  int n_areas;
 };
 
 // At kernel start: the decoder to shared memory, this block's scratch.
@@ -196,10 +223,10 @@ template <int R>
 __device__ void decode_any(AnySmem& s, const AnyCtx& c, int m, int area, float (&x)[8][NJA]) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const Decoder& d = s.dec;
-  const int L = d.L, D = d.width[0];
+  const int L = d.L, D = d.D;
   uint2* mk = c.masks + (size_t)area * c.area + threadIdx.x;
   float h[8][NJA];
-  __syncthreads();   // the body's writes of s.g
+  __syncthreads();   // the body's writes of the points
 
   // layer 0: D -> width[1], fp32 FMAs from the points
   {
@@ -207,17 +234,35 @@ __device__ void decode_any(AnySmem& s, const AnyCtx& c, int m, int area, float (
     const float* W = d.W[0] + (size_t)m * D * N;
     const float* b = d.b[0] + (size_t)m * N;
     for (int n0 = 0; n0 < N; n0 += CT, mk += NT) {
+      if (D <= DMAX) {   // the points in shared memory
 #pragma unroll
-      for (int j = 0; j < NJA; ++j) {
-        const int n = n0 + tx + 16 * j;
+        for (int j = 0; j < NJA; ++j) {
+          const int n = n0 + tx + 16 * j;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          float v = 0.f;
-          if (n < N) {
-            v = b[n];
-            for (int dd = 0; dd < D; ++dd) v = v + s.g[(ty * 8 + i) * DMAX + dd] * W[dd * N + n];
+          for (int i = 0; i < 8; ++i) {
+            float v = 0.f;
+            if (n < N) {
+              v = __ldg(b + n);
+              for (int dd = 0; dd < D; ++dd)
+                v = v + s.g[(ty * 8 + i) * DMAX + dd] * __ldg(W + dd * N + n);
+            }
+            h[i][j] = v;
           }
-          h[i][j] = v;
+        }
+      } else {           // D > DMAX: in the block's scratch
+        const float* g = c.gx(D);
+#pragma unroll
+        for (int j = 0; j < NJA; ++j) {
+          const int n = n0 + tx + 16 * j;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            float v = 0.f;
+            if (n < N) {
+              v = __ldg(b + n);
+              for (int dd = 0; dd < D; ++dd) v = v + g[(ty * 8 + i) * D + dd] * __ldg(W + dd * N + n);
+            }
+            h[i][j] = v;
+          }
         }
       }
       relu_tile(h, mk);
@@ -234,7 +279,7 @@ __device__ void decode_any(AnySmem& s, const AnyCtx& c, int m, int area, float (
 #pragma unroll
       for (int j = 0; j < NJA; ++j) {
         const int n = n0 + tx + 16 * j;
-        const float bn = n < N ? b[n] : 0.f;
+        const float bn = n < N ? __ldg(b + n) : 0.f;
 #pragma unroll
         for (int i = 0; i < 8; ++i) h[i][j] = h[i][j] + bn;
       }
@@ -244,14 +289,14 @@ __device__ void decode_any(AnySmem& s, const AnyCtx& c, int m, int area, float (
   }
   // output layer L-1: width[L-1] -> X, no ReLU
   {
-    const int K = d.width[L - 1], X = d.width[L];
+    const int K = d.width[L - 1], X = d.X;
     const float* W = d.W[L - 1] + (size_t)m * K * X;
     const float* b = d.b[L - 1] + (size_t)m * X;
     gemm_any<R, false>(s, c.plane((L - 2) & 1), W, X, K, 0, X, x);
 #pragma unroll
     for (int j = 0; j < NJA; ++j) {
       const int n = tx + 16 * j;
-      const float bn = n < X ? b[n] : 0.f;
+      const float bn = n < X ? __ldg(b + n) : 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) x[i][j] = x[i][j] + bn;
     }
@@ -268,7 +313,7 @@ template <int C>
 __device__ void chain_any(AnySmem& s, const AnyCtx& c, int m, int area, const float* W1) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const Decoder& d = s.dec;
-  const int L = d.L, D = d.width[0];
+  const int L = d.L, D = d.D;
   const uint2* mk_area = c.masks + (size_t)area * c.area + threadIdx.x;
   float q[8][DMAX];
 #pragma unroll
@@ -296,6 +341,21 @@ __device__ void chain_any(AnySmem& s, const AnyCtx& c, int m, int area, const fl
         }
       if (l > 1) {
         put_tile<C>(out, n0, N, acc);
+      } else if (D > DMAX) {     // this tile's share of each dgamma, summed over tx
+        const float* w1 = W1 + (size_t)m * D * N;
+        for (int dd = 0; dd < D; ++dd) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            float v = 0.f;
+#pragma unroll
+            for (int j = 0; j < NJA; ++j) {
+              const int n = n0 + tx + 16 * j;
+              if (n < N) v += acc[i][j] * __ldg(w1 + dd * N + n);
+            }
+            v = sum16(v);
+            if (tx == 0) c.dgx(D)[(ty * 8 + i) * D + dd] += v;
+          }
+        }
       } else {
         const float* w1 = W1 + (size_t)m * D * N;
 #pragma unroll
@@ -305,7 +365,7 @@ __device__ void chain_any(AnySmem& s, const AnyCtx& c, int m, int area, const fl
 #pragma unroll
           for (int dd = 0; dd < DMAX; ++dd) {
             if (dd >= D) continue;
-            const float w = w1[dd * N + n];
+            const float w = __ldg(w1 + dd * N + n);
 #pragma unroll
             for (int i = 0; i < 8; ++i) q[i][dd] += acc[i][j] * w;
           }
@@ -315,6 +375,7 @@ __device__ void chain_any(AnySmem& s, const AnyCtx& c, int m, int area, const fl
     in = out;
     if (l > 1) off -= col_tiles(d.width[l - 1]);
   }
+  if (D > DMAX) return;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -353,25 +414,45 @@ struct AnyDecode {
   __device__ static float& tile(float (&)[8][NJ], const Ctx& c, int i, int j) {
     return c.priv[(i * NJ + j) * NT + threadIdx.x];
   }
+  // the tile's points and dgamma accumulators, g_stride(D) floats a point
+  __device__ static float* points(Smem& s, const Ctx& c, int D) { return D > DMAX ? c.gx(D) : s.g; }
+  __device__ static float* dgs(Smem& s, const Ctx& c, int D) { return D > DMAX ? c.dgx(D) : s.dg; }
+  __device__ static int gstride(int D) { return g_stride(D); }
 };
 
 // The decoder given to an entry point as arrays (L layers, widths[0..L],
-// per-layer weight and bias pointers); false if the kernels do not take it.
+// per-layer weight and bias pointers, which may be null where only the
+// shape is asked for); false if the kernels do not take it.
 inline bool make_decoder(int L, const int* widths, const float* const* Ws,
                          const float* const* bs, Decoder& d) {
-  if (L < 2 || L > LMAX) return false;
-  d = Decoder{};
-  d.L = L;
-  for (int l = 0; l <= L; ++l) d.width[l] = widths[l];
-  for (int l = 0; l < L; ++l) {
-    d.W[l] = Ws[l];
-    d.b[l] = bs[l];
-  }
-  if (d.width[0] < 1 || d.width[0] > DMAX || d.width[L] < 1 || d.width[L] > XMAX_ANY)
-    return false;
-  for (int l = 1; l < L; ++l)
-    if (d.width[l] < 1 || d.width[l] > WMAX) return false;
+  if (L < 2) return false;
+  d = Decoder{L, widths[0], widths[L], widths, Ws, bs};
+  if (d.X > XMAX_ANY) return false;
+  for (int l = 0; l <= L; ++l)
+    if (d.width[l] < 1) return false;
   return true;
+}
+
+// The generic kernels' arguments: the decoder's arrays copied into the head
+// of `scratch` on stream st (from the host, before the call returns), the
+// blocks' areas after it.
+inline cudaError_t any_args(const Decoder& d, void* scratch, int n_areas, cudaStream_t st,
+                            AnyArgs& a) {
+  const int L = d.L;
+  uint32_t* head = static_cast<uint32_t*>(scratch);
+  std::vector<uint32_t> buf(5 * L + 1);
+  memcpy(buf.data(), d.W, sizeof(void*) * L);
+  memcpy(buf.data() + 2 * L, d.b, sizeof(void*) * L);
+  memcpy(buf.data() + 4 * L, d.width, sizeof(int) * (L + 1));
+  const cudaError_t err = cudaMemcpyAsync(head, buf.data(), sizeof(uint32_t) * buf.size(),
+                                          cudaMemcpyHostToDevice, st);
+  a.dec = Decoder{L, d.D, d.X, reinterpret_cast<const int*>(head + 4 * L),
+                  reinterpret_cast<const float* const*>(head),
+                  reinterpret_cast<const float* const*>(head + 2 * L)};
+  a.scratch = head + any_head_words(L);
+  a.block_words = any_scratch_words(d, n_areas);
+  a.n_areas = n_areas;
+  return err;
 }
 
 inline Weights fixed_weights(const Decoder& d) {
@@ -384,12 +465,14 @@ extern "C" {
 
 // 32-bit words of one block's scratch for the generic kernels with n_areas
 // mask areas; 0 for the fixed shape (its kernels take none), -1 for a
-// decoder the kernels do not take.
+// decoder the kernels do not take.  The scratch is n_blocks times this plus
+// vlg_any_head_words(L).
 int vlg_any_scratch_words(int L, const int* widths, int n_areas) {
-  const float* none[LMAX] = {};
   Decoder d;
-  if (!make_decoder(L, widths, none, none, d)) return -1;
+  if (!make_decoder(L, widths, nullptr, nullptr, d)) return -1;
   return fixed_shape(d) ? 0 : (int)any_scratch_words(d, n_areas);
 }
+
+int vlg_any_head_words(int L) { return (int)any_head_words(L); }
 
 }  // extern "C"

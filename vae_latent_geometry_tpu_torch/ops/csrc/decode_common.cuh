@@ -253,21 +253,42 @@ __device__ void chain_tile(DecodeSmem& s, int D, int X, const uint32_t (&m1)[2],
   }
 }
 
-// Load the tile's points p0..p0+127 of the flattened (T*B) curve.
-template <class S>
-__device__ void load_points(S& s, const float* __restrict__ gamma, int N, int D, int p0) {
-  for (int e = threadIdx.x; e < TP * DMAX; e += NT) {
-    const int p = e / DMAX, d = e % DMAX;
-    s.g[e] = d < D ? gamma[(size_t)min(p0 + p, N - 1) * D + d] : 0.f;
+// Load the tile's points into the decode policy P's storage (P::gstride(D)
+// floats a point): point p is row row(p) of the flattened (T*B, D) curve.
+template <class P, class S, class F>
+__device__ __forceinline__ void load_points_by(S& s, const typename P::Ctx& c,
+                                               const float* __restrict__ gamma, int D, F&& row) {
+  float* g = P::points(s, c, D);
+  const int gs = P::gstride(D);
+  for (int e = threadIdx.x; e < TP * gs; e += NT) {
+    const int p = e / gs, d = e % gs;
+    g[e] = d < D ? gamma[row(p) * D + d] : 0.f;
   }
 }
 
+// Load the tile's points p0..p0+127 of the flattened (T*B) curve.
+template <class P, class S>
+__device__ void load_points(S& s, const typename P::Ctx& c, const float* __restrict__ gamma,
+                            int N, int D, int p0) {
+  load_points_by<P>(s, c, gamma, D, [&](int p) { return (size_t)min(p0 + p, N - 1); });
+}
+
+// Zero the chain's dgamma accumulators.
+template <class P, class S>
+__device__ void zero_dgamma(S& s, const typename P::Ctx& c, int D) {
+  float* dg = P::dgs(s, c, D);
+  for (int e = threadIdx.x; e < TP * P::gstride(D); e += NT) dg[e] = 0.f;
+}
+
 // Write the chain's dgamma accumulators of the tile's points to (T*B, D).
-template <class S>
-__device__ void store_dgamma(const S& s, float* __restrict__ dgamma, int N, int D, int p0) {
+template <class P, class S>
+__device__ void store_dgamma(S& s, const typename P::Ctx& c, float* __restrict__ dgamma, int N,
+                             int D, int p0) {
+  const float* dg = P::dgs(s, c, D);
+  const int gs = P::gstride(D);
   for (int e = threadIdx.x; e < TP * D; e += NT) {
     const int p = e / D, d = e % D, pg = p0 + p;
-    if (pg < N) dgamma[(size_t)pg * D + d] = s.dg[p * DMAX + d];
+    if (pg < N) dgamma[(size_t)pg * D + d] = dg[p * gs + d];
   }
 }
 
@@ -309,6 +330,12 @@ struct FixedDecode {
   __device__ static float& tile(float (&r)[8][NJ], const Ctx&, int i, int j) {
     return r[i][j];
   }
+  // the tile's points and dgamma accumulators (D <= DMAX), DMAX floats a point
+  template <class S>
+  __device__ static float* points(S& s, const Ctx&, int) { return s.g; }
+  template <class S>
+  __device__ static float* dgs(S& s, const Ctx&, int) { return s.dg; }
+  __device__ static constexpr int gstride(int) { return DMAX; }
 };
 
 // f(std::integral_constant<int, R>) for the rung R named at run time.

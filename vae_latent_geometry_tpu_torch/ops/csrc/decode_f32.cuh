@@ -349,9 +349,8 @@ extern "C" {
 // decoder for the f32 kernels' padded W3 (M x 128 x 64); 0 where they do not
 // run (then the generic decode's scratch, vlg_any_scratch_words, applies).
 int vlg_f32_scratch_words(int rung, int M, int L, const int* widths) {
-  const float* none[LMAX] = {};
   Decoder d;
-  if (!make_decoder(L, widths, none, none, d)) return -1;
+  if (!make_decoder(L, widths, nullptr, nullptr, d)) return -1;
   return rung == F32 && fixed_shape(d) ? M * H * XMAX : 0;
 }
 

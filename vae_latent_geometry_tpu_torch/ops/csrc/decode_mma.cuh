@@ -7,7 +7,10 @@
 // _mp_dot, vae_latent_geometry_tpu/ops/energy_pallas.py:178-224): operands
 // split into bf16 hi/lo exactly as pack<R> does (RN of x, then RN of x - hi),
 // every product bf16 x bf16 (exact in fp32), fp32 accumulation; only the
-// order of the sums differs from the FMA kernels.
+// order of the sums differs from the FMA kernels.  The tensor core truncates
+// the sums it forms; with RN (K9's decode) each k16 step sums its products
+// apart and the steps are added by fp32 adds, so that an energy of adjacent-
+// sample differences at M = 1 stays within 1e-5 of the plain version.
 //   f32x3    : h_hi*W_hi + h_lo*W_hi + h_hi*W_lo   (three mma per k-step)
 //   f32x2    : h_hi*W_hi + h_lo*W_hi               (two)
 //   bfloat16 : h*W with W as shipped (bf16)        (one)
@@ -132,7 +135,7 @@ __device__ __forceinline__ bool mask_bit(const uint32_t (&m)[2], int j, int c) {
 // acc[j] += A (16 x 128) @ W[:, 8j : 8j+8] for n8 tiles j < nj (nj <= NJ,
 // uniform across the warp); W = plane wh (+ wl at f32x3) [k][n] of row
 // stride ws.  f32x2/f32x3 add the lo A fragments al against the same B.
-template <int R, int NJ>
+template <int R, int NJ, bool RN = false>
 __device__ __forceinline__ void gemm_fwd(float (&acc)[NJ][4], const uint32_t (&ah)[NK2][4],
                                          const uint32_t (&al)[NK2][4],
                                          const __nv_bfloat16* wh, const __nv_bfloat16* wl,
@@ -141,6 +144,44 @@ __device__ __forceinline__ void gemm_fwd(float (&acc)[NJ][4], const uint32_t (&a
   // ldmatrix.x4.trans row addresses: matrices (k0, n0), (k0+8, n0),
   // (k0, n0+8), (k0+8, n0+8) -> b0, b1 of tile n0/8, b0, b1 of the next
   const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;
+  if constexpr (RN) {
+    static_assert(NJ % 2 == 0, "n8 tiles in pairs");
+    // each k16 step's products (all passes) in a fresh accumulator, added to
+    // acc by an fp32 add: the tensor core truncates the sums it forms, so
+    // it forms only the step's own, and acc is rounded to nearest
+#pragma unroll
+    for (int kk = 0; kk < NK2; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NJ; j += 2) {
+        if (j >= nj) continue;
+        const int off = (16 * kk + lrow) * ws + 8 * j + lcol;
+        uint32_t b[4];
+        ldsm_x4<true>(b, wh + off);  // tile j + 1 >= nj reads zero columns
+        // t = +-0 computed from acc: the step waits for the previous one, as
+        // the accumulating mma does, so its accumulators are not all live
+        float t[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) t[i][c] = __fmul_rn(acc[j + i][c], 0.f);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(t[i], ah[kk], b[2 * i], b[2 * i + 1]);
+          if constexpr (R == F32X2 || R == F32X3) mma_bf16(t[i], al[kk], b[2 * i], b[2 * i + 1]);
+        }
+        if constexpr (R == F32X3) {
+          ldsm_x4<true>(b, wl + off);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma_bf16(t[i], ah[kk], b[2 * i], b[2 * i + 1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[j + i][c] = acc[j + i][c] + t[i][c];
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int kk = 0; kk < NK2; ++kk) {
 #pragma unroll
@@ -252,7 +293,7 @@ __device__ void stage_weights_mma(MmaSmem& s, int m, int D, int X, const Weights
 // through the staged decoder at rung R.  x[j][c]: output column 8j + 2q +
 // (c & 1) of row g + 8 (c >> 1), zero for columns >= X; m1/m2: the ReLU masks
 // of the hidden layers in the C-fragment layout (mask_bit).
-template <int R>
+template <int R, bool RN = false>
 __device__ void decode_mma(const MmaSmem& s, int D, int X, float (&x)[NJ3][4],
                            uint32_t (&m1)[2], uint32_t (&m2)[2]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -274,7 +315,12 @@ __device__ void decode_mma(const MmaSmem& s, int D, int X, float (&x)[NJ3][4],
       float v = s.b1[u];
 #pragma unroll
       for (int d = 0; d < DMAX; ++d)
-        if (d < D) v = v + gp[c >> 1][d] * s.w1[d * H + u];
+        if (d < D) {
+          if constexpr (RN)  // the plain version's multiply, then add
+            v = __fadd_rn(v, __fmul_rn(gp[c >> 1][d], s.w1[d * H + u]));
+          else
+            v = v + gp[c >> 1][d] * s.w1[d * H + u];
+        }
       v = fmaxf(v, 0.f);
       if (v > 0.f) m1[j >> 3] |= 1u << ((j & 7) * 4 + c);
       h[j][c] = v;
@@ -287,7 +333,7 @@ __device__ void decode_mma(const MmaSmem& s, int D, int X, float (&x)[NJ3][4],
   for (int j = 0; j < NJ2; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c) h[j][c] = 0.f;
-  gemm_fwd<R, NJ2>(h, ah, al, s.w2h, s.w2l, SW2, NJ2);
+  gemm_fwd<R, NJ2, RN>(h, ah, al, s.w2h, s.w2l, SW2, NJ2);
 #pragma unroll
   for (int j = 0; j < NJ2; ++j)
 #pragma unroll
@@ -304,7 +350,7 @@ __device__ void decode_mma(const MmaSmem& s, int D, int X, float (&x)[NJ3][4],
   for (int j = 0; j < NJ3; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c) x[j][c] = 0.f;
-  gemm_fwd<R, NJ3>(x, ah, al, s.w3h, s.w3l, SW3, nj);
+  gemm_fwd<R, NJ3, RN>(x, ah, al, s.w3h, s.w3l, SW3, nj);
 #pragma unroll
   for (int j = 0; j < NJ3; ++j)
 #pragma unroll

@@ -123,6 +123,7 @@ struct Draws {
   const int *d1, *d2;       // (S, T-1, B)
   const float* kmax;        // (B,) active decoders per spline
   uint32_t key0, key1;      // the step's seed
+  int b_base;               // global index of spline 0 (the draws' counter)
 };
 
 __device__ uint32_t philox4x32_10(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1,
@@ -147,7 +148,7 @@ __device__ int draw(const Draws& dr, int S, int T, int B, int side, int smp, int
   if (dr.d1 != nullptr)
     return (side ? dr.d2 : dr.d1)[((size_t)smp * (T - 1) + t) * B + b];
   const int j = side * S + smp;
-  const uint32_t bits = philox4x32_10(dr.key0, dr.key1, (uint32_t)t, (uint32_t)b,
+  const uint32_t bits = philox4x32_10(dr.key0, dr.key1, (uint32_t)t, (uint32_t)(b + dr.b_base),
                                       (uint32_t)(j >> 2), 0u, j & 3);
   const float k = dr.kmax[b];
   const float u = __fmul_rn((float)(bits >> 8), 1.f / 16777216.f);
@@ -205,12 +206,12 @@ __device__ __forceinline__ void segments_body(McSmemOf<typename P::Smem>& s,
   const int t0 = by * MC_TILE_SEGS, b0 = bx * MC_COLS;
   // point p = run * 8 + i: row i of run (p / 8), which is run (p / 8) /
   // MC_COLS of spline b0 + (p / 8) % MC_COLS
-  for (int e = tid; e < TP * DMAX; e += NT) {
-    const int p = e / DMAX, d = e % DMAX, run = p / MC_RUN, i = p % MC_RUN;
+  load_points_by<P>(s, c, gamma, D, [&](int p) {
+    const int run = p / MC_RUN, i = p % MC_RUN;
     const int t = min(t0 + (run / MC_COLS) * MC_SEGS + i, T - 1);
     const int b = min(b0 + run % MC_COLS, B - 1);
-    s.g[e] = d < D ? gamma[((size_t)t * B + b) * D + d] : 0.f;
-  }
+    return (size_t)t * B + b;
+  });
   if (tid < TP) s.red[tid] = 0.f;
   const int tb = t0 + (ty / MC_COLS) * MC_SEGS;   // this thread's first row
   const int b = b0 + ty % MC_COLS;                // and its spline
@@ -302,7 +303,7 @@ mc_segments_any(const float* __restrict__ gamma, int T, int B, int M, int S, Any
   extern __shared__ __align__(16) unsigned char smem_raw[];
   McSmemAny& s = *reinterpret_cast<McSmemAny*>(smem_raw);
   const AnyCtx c = any_begin(s, a);
-  const int D = s.dec.width[0], X = s.dec.width[s.dec.L];
+  const int D = s.dec.D, X = s.dec.X;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     segments_body<R, AnyDecode>(s, c, item % gx, item / gx, gamma, T, B, D, M, X, S, dr,
                                 partial, diffs);
@@ -581,8 +582,8 @@ __device__ __forceinline__ void chain_body(McSmemOf<typename P::Smem>& s,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int N = T * B, p0 = bx * TP;
   const bool one_sweep = S <= SMAX;
-  load_points(s, gamma, N, D, p0);
-  for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
+  load_points<P>(s, c, gamma, N, D, p0);
+  zero_dgamma<P>(s, c, D);
   if (one_sweep) stage_draws<SMAX>(s.idx, dr, S, T, B, p0, 0, S);
   const float two_over_s = 2.f / (float)S;
   for (int m = 0; m < M; ++m) {
@@ -630,7 +631,7 @@ __device__ __forceinline__ void chain_body(McSmemOf<typename P::Smem>& s,
     P::template chain<C>(s, c, m, D, X, mk);
   }
   __syncthreads();
-  store_dgamma(s, dgamma, N, D, p0);
+  store_dgamma<P>(s, c, dgamma, N, D, p0);
 }
 
 template <int R>
@@ -651,7 +652,7 @@ mc_chain_any(const float* __restrict__ gamma, int T, int B, int M, int S, AnyArg
   extern __shared__ __align__(16) unsigned char smem_raw[];
   McSmemAny& s = *reinterpret_cast<McSmemAny*>(smem_raw);
   const AnyCtx c = any_begin(s, a);
-  const int D = s.dec.width[0], X = s.dec.width[s.dec.L];
+  const int D = s.dec.D, X = s.dec.X;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     chain_body<R, AnyDecode>(s, c, item, gamma, T, B, D, M, X, S, dr, ct, diffs, dgamma);
     __syncthreads();
@@ -805,7 +806,7 @@ mc_chain_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X,
     chain_mma(s, D, X, a, m1, m2);
   }
   __syncthreads();
-  store_dgamma(s, dgamma, N, D, p0);
+  store_dgamma<FixedDecode>(s, FixedDecode::Ctx{}, dgamma, N, D, p0);
 }
 
 int fwd_tiles(int T) { return T > 1 ? (T - 1 + MC_TILE_SEGS - 1) / MC_TILE_SEGS : 1; }
@@ -921,29 +922,34 @@ extern "C" {
 // Row count of the forward's (n_tiles, B) partial-energy buffer for the
 // kernel that vlg_mc_fwd picks at this rung, decoder and sample count.
 int vlg_mc_fwd_tiles(int rung, int T, int M, int S, int L, const int* widths) {
-  const float* none[LMAX] = {};
   Decoder d;
-  if (!make_decoder(L, widths, none, none, d)) return -1;
+  if (!make_decoder(L, widths, nullptr, nullptr, d)) return -1;
   if (rung != F32 || !fixed_shape(d)) return fwd_tiles(T);
-  const McTile tl = mc_f32_tile(T, M, d.width[L], S);
+  const McTile tl = mc_f32_tile(T, M, d.X, S);
   return tl.n_t * tl.n_s;
 }
 
 // d1 == nullptr: the draws are made in the kernel from (key0, key1) and kmax
-// (K7, K8); else from the planes d1, d2 (K5, K6).  The decoder as arrays, as
+// (K7, K8), for splines b_base .. b_base + B - 1 of the caller's batch; else
+// from the planes d1, d2 (K5, K6).  The decoder as arrays, as
 // vlg_energy_fwd (energy_expected.cu); the generic kernels' scratch is
 // n_blocks x vlg_any_scratch_words(L, widths, 1) words, the forward's at
 // float32 on the production shape vlg_f32_scratch_words floats.
 int vlg_mc_fwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
                const int* widths, const float* const* Ws, const float* const* bs,
                const int* d1, const int* d2, const float* kmax, unsigned key0, unsigned key1,
-               float* partial, float* out, void* scratch, int n_blocks, void* stream) {
+               int b_base, float* partial, float* out, void* scratch, int n_blocks,
+               void* stream) {
   Decoder d;
   if (!make_decoder(L, widths, Ws, bs, d)) return cudaErrorInvalidValue;
-  const Draws dr{d1, d2, kmax, key0, key1};
+  const Draws dr{d1, d2, kmax, key0, key1, b_base};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int D = d.width[0], X = d.width[L];
-  const AnyArgs a{d, static_cast<uint32_t*>(scratch), any_scratch_words(d, 1)};
+  const int D = d.D, X = d.X;
+  AnyArgs a{};
+  if (!fixed_shape(d)) {
+    const cudaError_t err = any_args(d, scratch, 1, st, a);
+    if (err != cudaSuccess) return err;
+  }
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
     return fixed_shape(d)
@@ -958,23 +964,26 @@ int vlg_mc_fwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
 // planes (2S, T, B, X) of the tensor-core pair (the production shape at a
 // reduced rung); -1 for a decoder the kernels do not take.
 int vlg_mc_bwd_planes(int rung, int T, int S, int L, const int* widths) {
-  const float* none[LMAX] = {};
   Decoder d;
-  if (!make_decoder(L, widths, none, none, d)) return -1;
+  if (!make_decoder(L, widths, nullptr, nullptr, d)) return -1;
   return rung != F32 && fixed_shape(d) ? 2 * S * T : S * (T - 1);
 }
 
 int vlg_mc_bwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
                const int* widths, const float* const* Ws, const float* const* bs,
                const int* d1, const int* d2, const float* kmax, unsigned key0, unsigned key1,
-               const float* ct, float* diffs, float* dgamma, void* scratch, int n_blocks,
-               void* stream) {
+               int b_base, const float* ct, float* diffs, float* dgamma, void* scratch,
+               int n_blocks, void* stream) {
   Decoder d;
   if (!make_decoder(L, widths, Ws, bs, d)) return cudaErrorInvalidValue;
-  const Draws dr{d1, d2, kmax, key0, key1};
+  const Draws dr{d1, d2, kmax, key0, key1, b_base};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int D = d.width[0], X = d.width[L];
-  const AnyArgs a{d, static_cast<uint32_t*>(scratch), any_scratch_words(d, 1)};
+  const int D = d.D, X = d.X;
+  AnyArgs a{};
+  if (!fixed_shape(d)) {
+    const cudaError_t err = any_args(d, scratch, 1, st, a);
+    if (err != cudaSuccess) return err;
+  }
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
     if (!fixed_shape(d))

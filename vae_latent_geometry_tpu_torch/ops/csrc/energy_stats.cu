@@ -92,7 +92,7 @@ __device__ __forceinline__ void k3_body(StatsSmem<typename P::Smem, P::XM>& s,
   constexpr int SX = P::XM + 1, NJ = P::NJX;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int N = T * B, p0 = bx * TP;
-  load_points(s, gamma, N, D, p0);
+  load_points<P>(s, c, gamma, N, D, p0);
   float yb[8][NJ], sq[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -165,8 +165,8 @@ __device__ __forceinline__ void k4_body(StatsSmem<typename P::Smem, P::XM>& s,
   constexpr int SX = P::XM + 1, NJ = P::NJX;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int N = T * B, p0 = bx * TP;
-  load_points(s, gamma, N, D, p0);
-  for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
+  load_points<P>(s, c, gamma, N, D, p0);
+  zero_dgamma<P>(s, c, D);
   float x[8][NJ], csum[8][NJ];
   typename P::Masks mk0;           // decoder 0's masks, kept for its chain
   P::use_area(mk0, 1);
@@ -222,7 +222,7 @@ __device__ __forceinline__ void k4_body(StatsSmem<typename P::Smem, P::XM>& s,
   __syncthreads();
   P::template chain<C>(s, c, 0, D, X, mk0);
   __syncthreads();
-  store_dgamma(s, dgamma, N, D, p0);
+  store_dgamma<P>(s, c, dgamma, N, D, p0);
 }
 
 template <int R>
@@ -446,7 +446,7 @@ k3_stats_any(const float* __restrict__ gamma, int T, int B, int M, AnyArgs a,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SmemAny& s = *reinterpret_cast<SmemAny*>(smem_raw);
   const AnyCtx c = any_begin(s, a);
-  const int D = s.dec.width[0], X = s.dec.width[s.dec.L];
+  const int D = s.dec.D, X = s.dec.X;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     k3_body<R, AnyDecode>(s, c, item, gamma, T, B, D, M, X, wmb, x0_out, yb_out, sq_out);
     __syncthreads();
@@ -462,7 +462,7 @@ k4_stats_chain_any(const float* __restrict__ gamma, int T, int B, int M, AnyArgs
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SmemAny& s = *reinterpret_cast<SmemAny*>(smem_raw);
   const AnyCtx c = any_begin(s, a);
-  const int D = s.dec.width[0], X = s.dec.width[s.dec.L];
+  const int D = s.dec.D, X = s.dec.X;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     k4_body<R, AnyDecode>(s, c, item, gamma, T, B, D, M, X, wmb, dx0, dyb, dsq, dgamma);
     __syncthreads();
@@ -542,8 +542,12 @@ int vlg_stats_fwd(int rung, const float* gamma, int T, int B, int M, int L, cons
   Decoder d;
   if (!make_decoder(L, widths, Ws, bs, d)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int D = d.width[0], X = d.width[L];
-  const AnyArgs a{d, static_cast<uint32_t*>(scratch), any_scratch_words(d, 2)};
+  const int D = d.D, X = d.X;
+  AnyArgs a{};
+  if (!fixed_shape(d)) {
+    const cudaError_t err = any_args(d, scratch, 2, st, a);
+    if (err != cudaSuccess) return err;
+  }
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
     return fixed_shape(d)
@@ -559,8 +563,12 @@ int vlg_stats_bwd(int rung, const float* gamma, int T, int B, int M, int L, cons
   Decoder d;
   if (!make_decoder(L, widths, Ws, bs, d)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int D = d.width[0], X = d.width[L];
-  const AnyArgs a{d, static_cast<uint32_t*>(scratch), any_scratch_words(d, 2)};
+  const int D = d.D, X = d.X;
+  AnyArgs a{};
+  if (!fixed_shape(d)) {
+    const cudaError_t err = any_args(d, scratch, 2, st, a);
+    if (err != cudaSuccess) return err;
+  }
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
     return fixed_shape(d)

@@ -4,13 +4,16 @@
 // Replaces the Pallas TPU kernels of
 // vae_latent_geometry_tpu/ops/_research/energy_pallas_t.py
 // (public op energy_expected_fused_t, :387):
-//   K9   _fwd_kernel_T (:119)  -> k9_energy_spans + k9_sum_spans
-//   K10  _bwd_kernel_T (:193)  -> k10_dgamma (one launch)
+//   K9   _fwd_kernel_T (:119)  -> k9_tiles_mma (f32x3, f32x2, bfloat16) or
+//        K1's k1_fwd_fma (float32, k1_fwd_f32.cuh), + k9_sum_spans
+//   K10  _bwd_kernel_T (:193)  -> k10_mma (f32x3, f32x2, bfloat16) or
+//        k10_dgamma<0> (float32), one launch
 //
 // Function.  Uniform ensemble weights 1/M over M ReLU MLP decoders
 // D -> 128 -> 128 -> X on the curve points gamma (T, B, D):
 //   K9:  E_b = sum_t ||xbar_{t+1} - xbar_t||^2 + var_{t+1} + var_t with the
-//        statistics centred on decoder 0 (no var term at M = 1);
+//        statistics centred on decoder 0 (no var term at M = 1): K1's
+//        function on the uniform weight plane;
 //   K10: dgamma for a per-spline cotangent ct_b through
 //        dx_m = (2/M) ct_b (c_t x_m - xbar_{t-1}[t>0] - xbar_{t+1}[t<T-1]),
 //        c_t = [t>0] + [t<T-1], back through the ReLU masks of the same decode;
@@ -18,53 +21,71 @@
 //        always uses float32 W1 (at the bfloat16 rung the decode uses W1
 //        rounded to bf16, as the TPU kernel ships it).
 //
-// Layout.  As on the TPU, weights are the left operand and points run along
-// the wide dimension (W^T . H): the activation tile is [feature][point] and
-// the output features are padded to Xp = round_up(X, 8) rows (56 at X = 50),
-// not to 64.  A chunk is 32 curve rows of 4 splines, point p = r * 4 + s (the
-// TPU's lane index l = t * B + b), so the neighbour in t is p -+ 4.
+// Layout.  The TPU kernels put the weights on the left and the points along
+// the wide dimension, the output features padded to a multiple of 8.  Here
+// a tile is 32 curve rows of 4 splines, point p = r * 4 + s (the TPU's lane
+// index l = t * B + b), so the neighbour in t is p -+ 4; the tensor-core
+// kernels take the points as the rows of mma.sync's A (a warp 16 points, 4
+// rows of 4 splines) and layer 3's N is X padded to 8, the narrow output of
+// the transposed layout.
 //
 // Bound on this card.  The same function as K1/K2 at the same FLOP count:
 // K9 at float32 decodes every point once per decoder, 1.8e11 FLOP at
-// T=2000, B=200, M=10 over the 67 TFLOP/s FP32 peak: 2.751 ms; K10 at f32x2
-// is a two-pass decode plus a single-pass chain, 5.5e11 FLOP over the
-// 989 TFLOP/s bf16 tensor-core peak: 0.557 ms.  Both move a few MB: bound by
-// operations.  Products here run on CUDA-core FMAs, so neither kernel comes
-// near its bound; what the design does about it is to do no work twice:
-//   - K9: a block owns 4 splines and walks a span of T in a loop that takes
-//     the place of the TPU's sequential grid axis; it carries the previous
-//     chunk's last xbar row and var in shared memory instead of decoding a
-//     halo row (K1 decodes 32 rows to own 31 segments).  T is split into G
-//     spans per spline, each with one carried-in point decoded twice; the
-//     wrapper picks G so that the spans fill the 132 SMs in even rounds
-//     (G = 13 at T = 2000, B = 200: 650 spans, 5 rounds of 5 chunks).  The
-//     G partial energies are summed in a fixed order by a second launch: no
-//     float atomics, repeat runs bitwise equal.
-//   - K10: every decoder decodes each point ONCE (K2 decodes twice, in two
-//     launches).  Chunk j is decoded while chunk j-1's dgamma is emitted, the
-//     one-chunk delay of the TPU kernel: chunk j-1 needs chunk j's first xbar
-//     row.  The kept decoder outputs (M x Xp x 128 floats, 287 KB per chunk
-//     at M = 10) do not fit beside the staged weights in 227 KB of shared
-//     memory, so each block keeps them, and its ReLU masks as bits (not
-//     recomputed h1/h2), in a per-block scratch in device memory: 0.6 MB
-//     written and read per chunk, a traffic far below the memory rate.  The
-//     emit walks the decoders in reverse so the decoder staged last is
-//     reused.  A span decodes one extra point on each side.
-// Blocks are persistent (one per SM: ~210 KB of shared memory each) and take
-// the (spline group, span) items in a fixed stride, so the scratch is per
-// resident block.
+// T=2000, B=200, M=10 over the 67 TFLOP/s FP32 peak: 2.751 ms; at f32x2 a
+// two-pass decode, 3.67e11 FLOP over the 989 TFLOP/s bf16 tensor-core peak:
+// 0.371 ms; K10 at f32x2 is a two-pass decode plus a single-pass chain,
+// 5.5e11 FLOP: 0.557 ms.  Both move a few MB: bound by operations.  What the
+// design does about it:
+//   - K10 (k10_mma) does no work twice: every decoder decodes each point
+//     ONCE (K2 decodes twice, in two launches) and stages each decoder once
+//     per tile (the FMA kernel it replaces staged it twice).  Tiles overlap
+//     by one row, so a tile holds the right neighbour of its last owned row;
+//     tile k-1's dgamma is emitted in the round that decodes tile k, with the
+//     same staged decoder.  The kept decoder outputs (M x 128 x X floats per
+//     tile, 256 KB at M = 10) and ReLU masks do not fit beside the staged
+//     weights, so they go to a per-block scratch in device memory and come
+//     back into shared memory by cp.async while the next decoder stages.
+//     Staging was the largest cost (a block stages ~300 times a call), so
+//     the weights are converted to bf16 planes once per call
+//     (t_prep_planes) and staged by 16-byte cp.async copies.  What still
+//     holds it back: one block of 8 warps an SM, nothing overlapping the
+//     staging but those copies, mma.sync rather than wgmma.
+//   - K9 (k9_tiles_mma) is K3's statistics over K10's tiles: x0 in shared
+//     memory, ybar and the lane's share of sum_m w_m ||x_m - x0||^2 in
+//     registers, 31 segments a tile, the tiles' partial energies summed in
+//     a fixed order by a second launch (no float atomics: repeat runs are
+//     bitwise equal).  Its decode is decode_mma<R, true>: at M = 1 the
+//     energy is a sum of squared adjacent-sample differences, which shows
+//     a decode's rounding ~2000 times larger, so each k16 step's products
+//     are summed apart and added in fp32 (the tensor core truncates its
+//     sums) and layer 1 rounds as the plain version does.  At float32 K9 runs K1's kernel (cp.async-staged FMA
+//     decode): TF32 is barred.
+//   - k10_dgamma<0> (K10 at float32) keeps the FMA kernel: a block owns 4
+//     splines and walks a span of T in a loop that takes the place of the
+//     TPU's sequential grid axis, chunk j decoded while chunk j-1's dgamma
+//     is emitted (it needs chunk j's first xbar row), outputs and masks in
+//     the block's scratch, the emit walking the decoders in reverse so the
+//     decoder staged last is reused.
+// K10's blocks are persistent (one per SM) and take the (spline group, span)
+// items in a fixed stride, so the scratch is per resident block; the
+// wrapper picks G spans per spline so that the items fill the SMs in even
+// rounds (pick_spans).
 //
 // Any decoder.  The kernels above take D <= 2 -> 128 -> 128 -> X <= 64;
-// every other 3-layer decoder (hidden widths up to 512, X <= 128) takes
-// k9_energy_spans_any and k10_dgamma_any: the same bodies (k9_body,
-// k10_body) over the generic decode of decode_any.cuh, its outputs read out
-// of shared memory into the narrow tile (16 row groups of 8 at X <= 128);
-// K10 keeps every decoder's masks of two chunks in 2 M mask areas of the
-// block's scratch, and its chain (decode_any.cuh's) sums dgamma in shared
-// memory in decoder order.
+// every other 3-layer decoder (any hidden width, X <= 128) takes
+// k9_energy_spans_any and k10_dgamma_any: the bodies k9_body and k10_body
+// over the generic decode of decode_any.cuh, its outputs read out of shared
+// memory into the narrow tile (16 row groups of 8 at X <= 128); K10 keeps
+// every decoder's masks of two chunks in 2 M mask areas of the block's
+// scratch, and its chain (decode_any.cuh's) sums dgamma in shared memory in
+// decoder order; K9 carries the previous chunk's last xbar row and var
+// between the chunks of a span.
 
 #include "decode_any.cuh"
 #include "decode_common.cuh"
+#include "decode_f32.cuh"
+#include "decode_mma.cuh"
+#include "k1_fwd_f32.cuh"
 
 namespace {
 
@@ -77,20 +98,17 @@ constexpr int DT = 2;              // widest latent of the transposed op
 static_assert(PC == TP, "a chunk is one activation tile");
 static_assert(NS == 4, "the narrow tile maps one lane to one row of 4 splines");
 
+// The float32 K10's (k10_dgamma<0>) shared memory on the production decoder.
 struct TSmem {
   uint32_t act[H * S_ACT];    // activation tile [feature][point], packed for the rung
   uint32_t w2[H * S_W2];      // W2[in][out] packed
   uint32_t w3[H * S_W3T];     // W3[in][out] packed, out >= X zero
-  float xb[XPM * S_ACT];      // K9: x0 then xbar of the chunk; K10: xbar of chunk j-1
+  float xb[XPM * S_ACT];      // xbar of chunk j-1
   float w1[DT * H];           // W1 as shipped (the decode)
-  float w1f[DT * H];          // W1 in float32 (K10's dgamma product)
+  float w1f[DT * H];          // W1 in float32 (the dgamma product)
   float b1[H], b2[H], b3[XPM];
   float g[PC * DT];           // the chunk's curve points
-  float red[8 * PC];          // K9: per-warp partial variances
-  float var[PC];              // K9: var per point
-  float seg[PC];              // K9: segment energies
-  float edge[2][XPM * NS];    // K9: carried xbar row; K10: left carry (0), right row (1)
-  float edge_v[NS];           // K9: carried var
+  float edge[2][XPM * NS];    // left carry (0), right row (1)
 };
 
 // Wide tile (128 output rows): thread (ry = tid / 16, px = tid % 16) owns rows
@@ -336,7 +354,8 @@ __device__ void decode_narrow_any(TSmemAny& s, const AnyCtx& c, int m, int area,
   __syncthreads();
 }
 
-// K9, pass 1: partial energy of every (spline, span) -> partial[g * B + b].
+// K9 on the generic decode, pass 1: partial energy of every (spline, span)
+// -> partial[g * B + b].
 template <int R, class P>
 __device__ __forceinline__ void k9_body(typename P::Smem& s, const typename P::Ctx& c,
                                         const float* __restrict__ gamma, int T, int B, int D,
@@ -364,15 +383,7 @@ __device__ __forceinline__ void k9_body(typename P::Smem& s, const typename P::C
       }
       for (int m = 0; m < M; ++m) {
         float x[NI][4];
-        if constexpr (P::kFixed) {
-          __syncthreads();
-          stage_T<R>(s, m, D, X, c.w, nullptr);
-          __syncthreads();
-          uint32_t m1[2], m2[2];
-          decode_T<R>(s, D, ni, x, m1, m2);
-        } else {
-          decode_narrow_any<R>(s, c.a, m, 0, x);
-        }
+        decode_narrow_any<R>(s, c.a, m, 0, x);
         float q[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int i = 0; i < NI; ++i) {
@@ -443,21 +454,12 @@ __device__ __forceinline__ void k9_body(typename P::Smem& s, const typename P::C
 
 template <int R>
 __global__ void __launch_bounds__(NT, 1)
-k9_energy_spans(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int span,
-                int n_items, Weights w, float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  k9_body<R, TFixed>(*reinterpret_cast<TSmem*>(smem_raw), TFixed::Ctx{w, nullptr}, gamma, T, B,
-                     D, M, X, span, n_items, partial);
-}
-
-template <int R>
-__global__ void __launch_bounds__(NT, 1)
 k9_energy_spans_any(const float* __restrict__ gamma, int T, int B, int M, int span,
                     int n_items, AnyArgs a, float* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TSmemAny& s = *reinterpret_cast<TSmemAny*>(smem_raw);
   const TAny::Ctx c{any_begin(s, a), nullptr};
-  k9_body<R, TAny>(s, c, gamma, T, B, s.dec.width[0], M, s.dec.width[s.dec.L], span, n_items,
+  k9_body<R, TAny>(s, c, gamma, T, B, s.dec.D, M, s.dec.X, span, n_items,
                    partial);
 }
 
@@ -695,34 +697,411 @@ k10_dgamma_any(const float* __restrict__ gamma, int T, int B, int M, int span, i
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TSmemAny& s = *reinterpret_cast<TSmemAny*>(smem_raw);
   const TAny::Ctx c{any_begin(s, a), W1f};
-  k10_body<R, TAny>(s, c, gamma, T, B, s.dec.width[0], M, s.dec.width[s.dec.L], span, n_items,
+  k10_body<R, TAny>(s, c, gamma, T, B, s.dec.D, M, s.dec.X, span, n_items,
                     ct, xs_scr, nullptr, xb_scr, dgamma);
 }
 
+// ---------------------------------------------------------------------------
+// K10 at the reduced rungs on the tensor cores (production shape)
+// ---------------------------------------------------------------------------
+//
+// The decode and chain of decode_mma.cuh (a warp owns 16 points x 128 units,
+// activations and ReLU masks in registers, mma.sync m16n8k16 bf16).  A tile
+// is 32 curve rows of 4 splines, point p = r * 4 + s (a warp holds rows 4w ..
+// 4w + 3); consecutive tiles of a span overlap by one row, so a tile owns
+// rows 0..30 and its row 31 (the next tile's row 0) is the right neighbour
+// of its row 30: every tile's dgamma needs only its own xbar and the left
+// carry (the previous tile's row 30).  Tile k's dgamma is emitted in the
+// round that decodes tile k+1, with the same staged decoder: per round and
+// decoder one staging, the chain of tile k-1 (its outputs and masks read
+// back from the block's scratch), then the decode of tile k (outputs and
+// masks to the scratch, xbar summed in shared memory in decoder order).
+// Each (point, decoder) is decoded once, but for the overlap row (32 rows
+// decoded per 31 owned) and one row before each span.  At the bfloat16 rung
+// the chain's dgamma product takes float32 W1 (the decode the shipped,
+// bf16-rounded W1), swapped into the staged decoder between the two.
+constexpr int KR = RC - 1;          // rows a tile owns
+constexpr int S_XB = XMAX + 8;      // xbar row stride (floats)
+
+// One decoder's bf16 planes as MmaSmem holds them from w2h on (w2h | w2l |
+// w3h | w3l, pads zero), made once per call by t_prep_planes so that a
+// block stages a decoder with 16-byte cp.async copies and no conversion;
+// the rungs other than f32x3 copy no lo plane.
+constexpr int PLANE_W2 = H * SW2, PLANE_W3 = H * SW3;      // bf16 elements
+constexpr int PLANE_ELEMS = 2 * (PLANE_W2 + PLANE_W3);     // a decoder's four
+static_assert(sizeof(MmaSmem::w2h) == 2 * PLANE_W2 && sizeof(MmaSmem::w3h) == 2 * PLANE_W3,
+              "the planes are MmaSmem's");
+
+__global__ void t_prep_planes(const float* __restrict__ W2, const float* __restrict__ W3, int M,
+                              int X, __nv_bfloat16* __restrict__ planes) {
+  const size_t n = (size_t)M * PLANE_ELEMS;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int m = (int)(e / PLANE_ELEMS);
+    int r = (int)(e % PLANE_ELEMS);
+    const bool w3 = r >= 2 * PLANE_W2;
+    if (w3) r -= 2 * PLANE_W2;
+    const int plane = w3 ? PLANE_W3 : PLANE_W2, ws = w3 ? SW3 : SW2;
+    const bool lo = r >= plane;
+    if (lo) r -= plane;
+    const int k = r / ws, col = r % ws;
+    float v = 0.f;
+    if (w3 && col < X) v = W3[((size_t)m * H + k) * X + col];
+    if (!w3 && col < H) v = W2[((size_t)m * H + k) * H + col];
+    const __nv_bfloat16 h = __float2bfloat16_rn(v);
+    planes[e] = lo ? __float2bfloat16_rn(v - __bfloat162float(h)) : h;
+  }
+}
+
+// Stage decoder m from its prepared planes: cp.async copies of the planes
+// (the lo planes at f32x3 only), W1 (rows d < D) and the biases (b3's
+// columns < X); committed as one group.  Rows of W1 past D and columns of
+// b3 past X keep the zeros written at kernel start.
 template <int R>
-cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, int span, int G,
-                       int n_blocks, Weights w, float* partial, float* out, cudaStream_t st) {
-  cudaError_t err = prepare<TSmem>(k9_energy_spans<R>);
-  if (err != cudaSuccess) return err;
-  const int n_items = G * ((B + NS - 1) / NS);
-  k9_energy_spans<R><<<n_blocks, NT, sizeof(TSmem), st>>>(gamma, T, B, D, M, X, span, n_items,
-                                                         w, partial);
+__device__ void stage_planes(MmaSmem& s, int m, int D, int X, const Weights& w,
+                             const __nv_bfloat16* __restrict__ planes) {
+  const float* src = reinterpret_cast<const float*>(planes + (size_t)m * PLANE_ELEMS);
+  float* w2 = reinterpret_cast<float*>(s.w2h);
+  float* w3 = reinterpret_cast<float*>(s.w3h);
+  if constexpr (R == F32X3) {
+    cp_block16(w2, src, PLANE_ELEMS / 2);   // w2h | w2l | w3h | w3l
+  } else {
+    cp_block16(w2, src, PLANE_W2 / 2);
+    cp_block16(w3, src + PLANE_W2, PLANE_W3 / 2);
+  }
+  cp_block16(s.w1, w.W1 + (size_t)m * D * H, D * H);
+  cp_block16(s.b1, w.b1 + (size_t)m * H, H);
+  cp_block16(s.b2, w.b2 + (size_t)m * H, H);
+  for (int e = threadIdx.x; e < X; e += NT) cp_async4(s.b3 + e, w.b3 + (size_t)m * X + e);
+  cp_commit();
+}
+
+// The round's state, written by thread 0 between barriers and read where it
+// is used, so that no register holds it across the decode and the chain.
+struct K10Round {
+  int b0, t_s, t_e, t0, n_tiles;
+};
+
+struct TMmaSmem : MmaSmem {
+  float xb[2][PC * S_XB];           // xbar of tiles k-1 and k [p][n]
+  float edge[XMAX * NS];            // left carry: xbar of tile k-2's row 30 [n][s]
+  float4 xpre[NJ3 * NT];            // the chain's outputs of tile k-1 [j][thread]
+  uint4 mpre[NT];                   // and its masks, each thread's own
+  float csc[PC], ccl[PC];           // tile k-1's point: 2 wm ct_b (0 if not owned), c_t
+  int cfl[PC];                      // and its neighbours: bit 0 t > 0, bit 1 t < T - 1
+  K10Round rd;
+};
+
+// K10's reduced-rung kernel: persistent blocks take the (spline group, span)
+// items in a fixed stride; xs_scr/mk_scr: each block's outputs [buf][m][j]
+// and masks [buf][m] of two tiles, one float4 / uint4 per thread.
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k10_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int span,
+        int n_items, Weights w, const float* __restrict__ W1f, const float* __restrict__ ct,
+        float4* __restrict__ xs_scr, uint4* __restrict__ mk_scr,
+        const __nv_bfloat16* __restrict__ planes, float* __restrict__ dgamma) {
+  static_assert(R != F32, "float32 keeps k10_dgamma<0>");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TMmaSmem& s = *reinterpret_cast<TMmaSmem*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int nj = (X + 7) / 8;
+  for (int e = tid; e < DMAX * H; e += NT) s.w1[e] = 0.f;
+  for (int e = tid; e < XMAX; e += NT) s.b3[e] = 0.f;
+  int staged = -1;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    for (int k = 0;; ++k) {
+      __syncthreads();
+      if (tid == 0) {
+        const Span sp = span_of(item, (B + NS - 1) / NS, span, T);
+        const int t_a = max(sp.t_s - 1, 0);
+        s.rd = K10Round{sp.b0, sp.t_s, sp.t_e, t_a + k * KR,
+                        sp.t_s < T ? (sp.t_e - t_a + KR - 1) / KR : 0};
+      }
+      __syncthreads();
+      const int n_tiles = s.rd.n_tiles;
+      if (n_tiles == 0 || k > n_tiles) break;
+      const int cur = k & 1;
+      if (k < n_tiles) {
+        for (int e = tid; e < PC * DMAX; e += NT) {
+          const int pp = e / DMAX, d = e % DMAX;
+          const int t = min(s.rd.t0 + pp / NS, T - 1), b = min(s.rd.b0 + pp % NS, B - 1);
+          s.g[e] = d < D ? gamma[((size_t)t * B + b) * D + d] : 0.f;
+        }
+        for (int e = tid; e < PC * S_XB; e += NT) s.xb[cur][e] = 0.f;
+      }
+      for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
+      if (k > 0 && tid < PC) {   // tile k-1's points: scale, c_t, neighbours
+        const int row = tid / NS, t = s.rd.t0 - KR + row, b = s.rd.b0 + tid % NS;
+        const bool own = row < KR && t >= s.rd.t_s && t < s.rd.t_e && t < T && b < B;
+        s.csc[tid] = own ? __fmul_rn(__fmul_rn(2.f, 1.f / (float)M), ct[b]) : 0.f;
+        s.ccl[tid] = (float)((int)(t > 0) + (int)(t < T - 1));
+        s.cfl[tid] = (t > 0 ? 1 : 0) | (t < T - 1 ? 2 : 0);
+      }
+      for (int m = 0; m < M; ++m) {
+        const int prv = (k & 1) ^ 1;
+        if (k > 0) {   // tile k-1's outputs and masks of decoder m, in flight while it stages
+          const float4* xm =
+              xs_scr + ((size_t)blockIdx.x * 2 * M + prv * M + m) * nj * NT + tid;
+          for (int j = 0; j < nj; ++j)
+            cp_async16(reinterpret_cast<float*>(&s.xpre[j * NT + tid]),
+                       reinterpret_cast<const float*>(xm + (size_t)j * NT));
+          cp_async16(reinterpret_cast<float*>(&s.mpre[tid]),
+                     reinterpret_cast<const float*>(
+                         mk_scr + ((size_t)blockIdx.x * 2 * M + prv * M + m) * NT + tid));
+          cp_commit();
+        }
+        if (m != staged) {
+          __syncthreads();
+          stage_planes<R>(s, m, D, X, w, planes);
+          staged = m;
+        }
+        cp_wait<0>();   // the staged decoder and the chain's inputs
+        if constexpr (R == BF16) {   // the chain's float32 W1
+          __syncthreads();
+          for (int e = tid; e < DMAX * H; e += NT)
+            s.w1[e] = e < D * H ? W1f[(size_t)m * D * H + e] : 0.f;
+        }
+        __syncthreads();
+        // ---- chain of tile k-1 ----
+        if (k > 0) {
+          // dx = 2 wm ct_b (c_t x - xbar_{t-1} - xbar_{t+1}) on the lane's
+          // rows that tile k-1 owns, packed straight into A fragments
+          const int lane = tid & 31, q = lane & 3, p0 = (tid >> 5) * 16 + (lane >> 2);
+          uint32_t a[NK3][4];
+#pragma unroll
+          for (int j = 0; j < NJ3; ++j) {
+            const float4 v = j < nj ? s.xpre[j * NT + tid] : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float xv[4] = {v.x, v.y, v.z, v.w};
+            float dv[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int pp = p0 + 8 * (c >> 1), n = 8 * j + 2 * q + (c & 1);
+              const float sc = s.csc[pp];
+              dv[c] = 0.f;
+              if (sc != 0.f && n < X) {
+                const int fl = s.cfl[pp];
+                const float left = (fl & 1) ? (pp >= NS ? s.xb[prv][(pp - NS) * S_XB + n]
+                                                        : s.edge[n * NS + pp])
+                                            : 0.f;
+                const float right = (fl & 2) ? s.xb[prv][(pp + NS) * S_XB + n] : 0.f;
+                dv[c] = __fmul_rn(sc, __fsub_rn(__fsub_rn(__fmul_rn(s.ccl[pp], xv[c]), left),
+                                                right));
+              }
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) a[j >> 1][(j & 1) * 2 + r] = bf16x2(dv[2 * r], dv[2 * r + 1]);
+          }
+          const uint4 mv = s.mpre[tid];
+          const uint32_t m1[2] = {mv.x, mv.y}, m2[2] = {mv.z, mv.w};
+          chain_mma(s, D, X, a, m1, m2);
+        }
+        // the barrier keeps the chain's registers and the decode's apart
+        __syncthreads();
+        if constexpr (R == BF16) {   // back to the shipped W1 for the decode
+          for (int e = tid; e < DMAX * H; e += NT)
+            s.w1[e] = e < D * H ? w.W1[(size_t)m * D * H + e] : 0.f;
+          __syncthreads();
+        }
+        // ---- decode of tile k ----
+        if (k < s.rd.n_tiles) {
+          float x[NJ3][4];
+          uint32_t m1[2], m2[2];
+          decode_mma<R>(s, D, X, x, m1, m2);
+          const int lane = tid & 31, q = lane & 3, p0 = (tid >> 5) * 16 + (lane >> 2);
+          const int cb = k & 1;
+          float4* xm = xs_scr + ((size_t)blockIdx.x * 2 * M + cb * M + m) * nj * NT + tid;
+          const float wm = 1.f / (float)M;
+#pragma unroll
+          for (int j = 0; j < NJ3; ++j) {
+            if (j >= nj) continue;
+            xm[(size_t)j * NT] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float2* xb2 =
+                  reinterpret_cast<float2*>(&s.xb[cb][(p0 + 8 * r) * S_XB + 8 * j + 2 * q]);
+              const float2 o = *xb2;
+              *xb2 = make_float2(o.x + wm * x[j][2 * r], o.y + wm * x[j][2 * r + 1]);
+            }
+          }
+          mk_scr[((size_t)blockIdx.x * 2 * M + cb * M + m) * NT + tid] =
+              make_uint4(m1[0], m1[1], m2[0], m2[1]);
+        }
+      }
+      __syncthreads();
+      // dgamma of tile k-1's owned points
+      if (k > 0)
+        for (int e = tid; e < PC * D; e += NT) {
+          const int pp = e / D, d = e % D, row = pp / NS;
+          const int t = s.rd.t0 - KR + row, b = s.rd.b0 + pp % NS;
+          if (row < KR && t >= s.rd.t_s && t < s.rd.t_e && t < T && b < B)
+            dgamma[((size_t)t * B + b) * D + d] = s.dg[pp * DMAX + d];
+        }
+      // left carry of tile k: tile k-1's row 30
+      if (k > 0 && k < s.rd.n_tiles)
+        for (int e = tid; e < XMAX * NS; e += NT)
+          s.edge[e] = s.xb[(k & 1) ^ 1][((KR - 1) * NS + e % NS) * S_XB + e / NS];
+    }
+  }
+}
+
+// K9 at the reduced rungs on the tensor cores (production shape): tile
+// (blockIdx.x: splines b0..b0+3, blockIdx.y: rows t0 = 31 y ..) of 32 rows,
+// the decode of decode_mma.cuh per staged decoder, the statistics centred
+// on decoder 0 as k3_stats_mma keeps them (x0 in shared memory, ybar and
+// the lane's share of sum_m w_m ||x_m - x0||^2 in registers); the tile's
+// 31 segments (rows r, r + 1) -> partial[blockIdx.y * B + b], summed over
+// the tiles in a fixed order by k9_sum_spans.  The tiles overlap by one
+// row: its decode is the halo that a span's carry saves, 1/31 of the work,
+// and the tiles need no order.
+struct T9MmaSmem : MmaSmem {
+  float xs[PC * S_XB];              // x0, then xbar [p][n]
+  float var[PC];
+  float seg[PC];
+};
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+k9_tiles_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Weights w,
+             float* __restrict__ partial) {
+  static_assert(R != F32, "float32 keeps k1_fwd_fma");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T9MmaSmem& s = *reinterpret_cast<T9MmaSmem*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, q = lane & 3;
+  const int p0 = (tid >> 5) * 16 + (lane >> 2);      // rows p0, p0 + 8 of the warp's tile
+  const int b0 = blockIdx.x * NS, t0 = blockIdx.y * KR;
+  const float wm = 1.f / (float)M;
+  zero_w3_planes(s);
+  for (int e = tid; e < PC * DMAX; e += NT) {
+    const int pp = e / DMAX, d = e % DMAX;
+    const int t = min(t0 + pp / NS, T - 1), b = min(b0 + pp % NS, B - 1);
+    s.g[e] = d < D ? gamma[((size_t)t * B + b) * D + d] : 0.f;
+  }
+  float yb[NJ3][4], sq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) yb[j][c] = 0.f;
+  for (int m = 0; m < M; ++m) {
+    __syncthreads();
+    stage_weights_mma<R>(s, m, D, X, w);
+    __syncthreads();
+    float x[NJ3][4];
+    uint32_t m1[2], m2[2];
+    decode_mma<R, true>(s, D, X, x, m1, m2);
+    float qs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2& x0 = *reinterpret_cast<float2*>(&s.xs[(p0 + 8 * r) * S_XB + 8 * j + 2 * q]);
+        if (m == 0) {
+          x0 = make_float2(x[j][2 * r], x[j][2 * r + 1]);
+        } else {
+          const float y0 = x[j][2 * r] - x0.x, y1 = x[j][2 * r + 1] - x0.y;
+          yb[j][2 * r] = yb[j][2 * r] + wm * y0;
+          yb[j][2 * r + 1] = yb[j][2 * r + 1] + wm * y1;
+          qs[r] += y0 * y0;
+          qs[r] += y1 * y1;
+        }
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) sq[r] = sq[r] + wm * qs[r];
+  }
+  // xbar = x0 + ybar (in place); var = sq - ||ybar||^2, a row's four lanes
+  // in a fixed order
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v = sq[r];
+#pragma unroll
+    for (int j = 0; j < NJ3; ++j) {
+      float2& xb = *reinterpret_cast<float2*>(&s.xs[(p0 + 8 * r) * S_XB + 8 * j + 2 * q]);
+      xb = make_float2(xb.x + yb[j][2 * r], xb.y + yb[j][2 * r + 1]);
+      v -= yb[j][2 * r] * yb[j][2 * r] + yb[j][2 * r + 1] * yb[j][2 * r + 1];
+    }
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (q == 0) s.var[p0 + 8 * r] = M > 1 ? v : 0.f;
+  }
+  __syncthreads();
+  // segment after point p (rows r, r + 1 of spline p % 4)
+  if (tid < KR * NS) {
+    const int r = tid / NS, sl = tid % NS;
+    float sd = 0.f;
+    for (int n = 0; n < X; ++n) {
+      const float d = s.xs[(tid + NS) * S_XB + n] - s.xs[tid * S_XB + n];
+      sd += d * d;
+    }
+    const bool valid = t0 + r + 1 < T && b0 + sl < B;
+    s.seg[tid] = valid ? (sd + s.var[tid + NS]) + s.var[tid] : 0.f;
+  }
+  __syncthreads();
+  if (tid < NS && b0 + tid < B) {
+    float e = 0.f;
+    for (int r = 0; r < KR; ++r) e += s.seg[r * NS + tid];
+    partial[(size_t)blockIdx.y * B + b0 + tid] = e;
+  }
+}
+
+// Rows of K9's partial-energy buffer: K1's float32 tiles of 127 segments,
+// the tensor-core tiles of 31, or the G spans of the generic kernels.
+int k9_tiles(int rung, int T, int G, bool fixed) {
+  if (!fixed) return G;
+  if (rung == F32) return k1f_tiles(T);
+  return T > 1 ? (T - 1 + KR - 1) / KR : 1;
+}
+
+template <int R>
+cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, Weights w,
+                       const float* wmb, float* w3p, float* partial, float* out,
+                       cudaStream_t st) {
+  const int n_tiles = k9_tiles(R, T, 0, true);
+  cudaError_t err;
+  if constexpr (R == F32) {  // K1's float32 kernel on the uniform weight plane
+    if (!f32_aligned(w)) return cudaErrorMisalignedAddress;
+    err = f32_prepare_w3(w.W3, M, X, w3p, st);
+    if (err == cudaSuccess) err = prepare<K1F32Smem>(k1_fwd_fma<R>);
+    if (err != cudaSuccess) return err;
+    k1_fwd_fma<R><<<dim3(B, n_tiles), NT, sizeof(K1F32Smem), st>>>(
+        gamma, T, B, D, M, X, F32Weights{w, w3p}, wmb, partial);
+  } else {  // tensor cores
+    err = prepare<T9MmaSmem>(k9_tiles_mma<R>);
+    if (err != cudaSuccess) return err;
+    k9_tiles_mma<R><<<dim3((B + NS - 1) / NS, n_tiles), NT, sizeof(T9MmaSmem), st>>>(
+        gamma, T, B, D, M, X, w, partial);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  k9_sum_spans<<<(B + 127) / 128, 128, 0, st>>>(partial, G, B, out);
+  k9_sum_spans<<<(B + 127) / 128, 128, 0, st>>>(partial, n_tiles, B, out);
   return cudaGetLastError();
 }
 
 template <int R>
 cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, int span, int G,
                        int n_blocks, Weights w, const float* W1f, const float* ct, float* xs_scr,
-                       unsigned int* mk_scr, float* xb_scr, float* dgamma, cudaStream_t st) {
-  cudaError_t err = prepare<TSmem>(k10_dgamma<R>);
-  if (err != cudaSuccess) return err;
+                       unsigned int* mk_scr, float* xb_scr, __nv_bfloat16* planes,
+                       float* dgamma, cudaStream_t st) {
   const int n_items = G * ((B + NS - 1) / NS);
-  k10_dgamma<R><<<n_blocks, NT, sizeof(TSmem), st>>>(
-      gamma, T, B, D, M, X, span, n_items, w, W1f, ct, reinterpret_cast<float4*>(xs_scr),
-      reinterpret_cast<uint4*>(mk_scr), reinterpret_cast<float4*>(xb_scr), dgamma);
+  cudaError_t err;
+  if constexpr (R == F32) {  // CUDA-core FMAs (TF32 is barred)
+    err = prepare<TSmem>(k10_dgamma<R>);
+    if (err != cudaSuccess) return err;
+    k10_dgamma<R><<<n_blocks, NT, sizeof(TSmem), st>>>(
+        gamma, T, B, D, M, X, span, n_items, w, W1f, ct, reinterpret_cast<float4*>(xs_scr),
+        reinterpret_cast<uint4*>(mk_scr), reinterpret_cast<float4*>(xb_scr), dgamma);
+  } else {  // tensor cores
+    err = prepare<TMmaSmem>(k10_mma<R>);
+    if (err != cudaSuccess) return err;
+    if ((reinterpret_cast<uintptr_t>(w.W1) | reinterpret_cast<uintptr_t>(w.b1) |
+         reinterpret_cast<uintptr_t>(w.b2) | reinterpret_cast<uintptr_t>(planes)) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+    t_prep_planes<<<n_blocks, NT, 0, st>>>(w.W2, w.W3, M, X, planes);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    k10_mma<R><<<n_blocks, NT, sizeof(TMmaSmem), st>>>(
+        gamma, T, B, D, M, X, span, n_items, w, W1f, ct, reinterpret_cast<float4*>(xs_scr),
+        reinterpret_cast<uint4*>(mk_scr), planes, dgamma);
+  }
   return cudaGetLastError();
 }
 
@@ -758,6 +1137,15 @@ cudaError_t launch_bwd_any(const float* gamma, int T, int B, int M, int span, in
 
 extern "C" {
 
+// Curve rows a span's chunk adds (its halo rows aside) in the kernel that
+// this rung, decoder and direction (bwd: K10) run: the tensor-core K10's
+// tiles own 31 of their 32 rows, every other kernel's chunks 32.
+int vlg_t_chunk_rows(int rung, int L, const int* widths, int bwd) {
+  Decoder d;
+  if (L != 3 || !make_decoder(L, widths, nullptr, nullptr, d)) return -1;
+  return bwd && rung != F32 && fixed_shape(d) && d.D <= DT ? KR : RC;
+}
+
 // Scratch sizes of K10 per block, in 32-bit words: decoder outputs, masks
 // (the fixed decode's), the chunk's xbar.
 int vlg_t_scratch_words(int M, int X, int which) {
@@ -767,24 +1155,43 @@ int vlg_t_scratch_words(int M, int X, int which) {
   return ni * NT * 4;
 }
 
+// 32-bit words of the tensor-core K10's prepared weight planes (all of them,
+// not per block).
+int vlg_t_plane_words(int M) { return M * PLANE_ELEMS / 2; }
+
+// Rows of K9's (rows, B) partial-energy buffer in the kernel that this rung
+// and decoder run, with G spans per spline in the generic kernels.
+int vlg_t_fwd_rows(int rung, int T, int G, int L, const int* widths) {
+  Decoder d;
+  if (L != 3 || !make_decoder(L, widths, nullptr, nullptr, d)) return -1;
+  return k9_tiles(rung, T, G, fixed_shape(d) && d.D <= DT);
+}
+
 // The decoder as arrays, as vlg_energy_fwd (energy_expected.cu); three
-// layers.  The generic kernels' scratch (any_scr) is n_blocks x
-// vlg_any_scratch_words(3, widths, n) words, n = 1 for K9 and 2 M for K10
-// (every decoder's masks of two chunks).
+// layers.  K9 on the production decoder takes wmb, the uniform (M, B)
+// weight plane, and at float32 `scratch` of vlg_f32_scratch_words floats
+// (K1's float32 kernel); the generic kernels' scratch (any_scr for K10) is
+// vlg_any_head_words(3) + n_blocks x vlg_any_scratch_words(3, widths, n)
+// words, n = 1 for K9 and 2 M for K10 (every decoder's masks of two
+// chunks).
 int vlg_energy_t_fwd(int rung, const float* gamma, int T, int B, int M, int span, int G,
                      int n_blocks, int L, const int* widths, const float* const* Ws,
-                     const float* const* bs, float* partial, float* out, void* any_scr,
-                     void* stream) {
+                     const float* const* bs, const float* wmb, float* partial, float* out,
+                     void* scratch, void* stream) {
   Decoder d;
-  if (L != 3 || !make_decoder(L, widths, Ws, bs, d) || d.width[0] > DT)
+  if (L != 3 || !make_decoder(L, widths, Ws, bs, d) || d.D > DT)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int D = d.width[0], X = d.width[L];
-  const AnyArgs a{d, static_cast<uint32_t*>(any_scr), any_scratch_words(d, 1)};
+  const int D = d.D, X = d.X;
+  AnyArgs a{};
+  if (!fixed_shape(d)) {
+    const cudaError_t err = any_args(d, scratch, 1, st, a);
+    if (err != cudaSuccess) return err;
+  }
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
-    return fixed_shape(d) ? launch_fwd<R>(gamma, T, B, D, M, X, span, G, n_blocks,
-                                          fixed_weights(d), partial, out, st)
+    return fixed_shape(d) ? launch_fwd<R>(gamma, T, B, D, M, X, fixed_weights(d), wmb,
+                                          static_cast<float*>(scratch), partial, out, st)
                           : launch_fwd_any<R>(gamma, T, B, M, span, G, n_blocks, a, partial,
                                               out, st);
   });
@@ -794,18 +1201,22 @@ int vlg_energy_t_bwd(int rung, const float* gamma, int T, int B, int M, int span
                      int n_blocks, int L, const int* widths, const float* const* Ws,
                      const float* const* bs, const float* W1f, const float* ct, float* xs_scr,
                      unsigned int* mk_scr, float* xb_scr, void* any_scr, float* dgamma,
-                     void* stream) {
+                     void* planes, void* stream) {
   Decoder d;
-  if (L != 3 || !make_decoder(L, widths, Ws, bs, d) || d.width[0] > DT)
+  if (L != 3 || !make_decoder(L, widths, Ws, bs, d) || d.D > DT)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int D = d.width[0], X = d.width[L];
-  const AnyArgs a{d, static_cast<uint32_t*>(any_scr), any_scratch_words(d, 2 * M)};
+  const int D = d.D, X = d.X;
+  AnyArgs a{};
+  if (!fixed_shape(d)) {
+    const cudaError_t err = any_args(d, any_scr, 2 * M, st, a);
+    if (err != cudaSuccess) return err;
+  }
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
     return fixed_shape(d) ? launch_bwd<R>(gamma, T, B, D, M, X, span, G, n_blocks,
                                           fixed_weights(d), W1f, ct, xs_scr, mk_scr, xb_scr,
-                                          dgamma, st)
+                                          static_cast<__nv_bfloat16*>(planes), dgamma, st)
                           : launch_bwd_any<R>(gamma, T, B, M, span, G, n_blocks, a, W1f, ct,
                                               xs_scr, xb_scr, dgamma, st);
   });

@@ -37,14 +37,20 @@ import torch
 
 PRECISIONS = ("float32", "f32x3", "f32x2", "bfloat16")
 _RUNG = {"float32": 0, "f32x3": 1, "f32x2": 2, "bfloat16": 3}
-# The decoders the CUDA kernels take (``csrc/decode_any.cuh``): 2 to
-# MAX_LAYERS layers, hidden widths up to MAX_WIDTH, outputs up to MAX_X
-# (the JAX kernels' own limit), latents up to MAX_D.  D -> 128 -> 128 -> X
-# <= 64 runs the production kernels, every other shape the generic ones.
-MAX_LAYERS = 6
-MAX_WIDTH = 512
+# The decoders the CUDA kernels take (``csrc/decode_any.cuh``): two or more
+# layers of any width, any latent width D and, per launch, outputs up to
+# MAX_X columns; a wider output runs in column slices of MAX_X (every energy
+# and dgamma is a sum over output features, K3's x0 and yb concatenate).  At
+# a reduced rung the chain rounds each slice's cotangents to bf16 apart, so
+# the kernels' dgamma there differs from the plain versions' whole-X chain
+# by that rounding.
+# D <= 4 -> 128 -> 128 -> X <= 64 runs the production kernels, every other
+# shape the generic ones.
 MAX_X = 128
-MAX_D = 4
+# The kernels index with 32-bit ints: one launch takes T * B * (widest
+# layer) below this, and a larger batch runs in launches over ranges of its
+# splines (every output of a spline depends on that spline alone).
+INDEX_LIMIT = 2**31 - 2**16
 
 # Launches of each kernel's wrapper (one per wrapper call that launched the
 # CUDA kernel; the plain CPU version does not count).
@@ -196,8 +202,8 @@ _PLAIN_MODES = ("; on the card the fused modes need the kernels' shapes: run "
 
 
 def _check_cuda(ws, bs, gamma, wmb=None, extra=()):
-    """Raise on what the kernels do not take; returns (T, B, D, M, X).
-    ``wmb``: the (M, B) weight plane of K1/K2 (the MC kernels have none)."""
+    """Raise on malformed inputs; returns (T, B, D, M, X).  ``wmb``: the
+    (M, B) weight plane of K1/K2 (the MC kernels have none)."""
     dev = gamma.device
     tensors = [gamma, *ws, *bs, *extra] + ([] if wmb is None else [wmb])
     for x in tensors:
@@ -208,24 +214,19 @@ def _check_cuda(ws, bs, gamma, wmb=None, extra=()):
         if not x.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
     T, B, D = gamma.shape
-    if not 2 <= len(ws) <= MAX_LAYERS or len(bs) != len(ws):
-        raise ValueError(f"the kernels take decoders of 2 to {MAX_LAYERS} "
-                         f"layers, got {len(ws)} weights and {len(bs)} "
-                         "biases" + _PLAIN_MODES)
+    if len(ws) < 2 or len(bs) != len(ws):
+        raise ValueError(f"the kernels take decoders of 2 or more layers, got "
+                         f"{len(ws)} weights and {len(bs)} biases"
+                         + _PLAIN_MODES)
     M = ws[0].shape[0]
     widths = [D] + [w.shape[-1] for w in ws]
     X = widths[-1]
-    if not 1 <= D <= MAX_D:
-        raise ValueError(f"latent width D={D} outside 1..{MAX_D}"
-                         + _PLAIN_MODES)
+    if D < 1 or min(widths) < 1:
+        raise ValueError(f"decoder widths {widths} must be positive")
     if [tuple(w.shape) for w in ws] != [
             (M, i, o) for i, o in zip(widths[:-1], widths[1:])]:
         raise ValueError(f"decoder shapes {[tuple(w.shape) for w in ws]} do "
                          f"not chain from the latent width D={D}")
-    if max(widths[1:-1]) > MAX_WIDTH or not 1 <= X <= MAX_X:
-        raise ValueError(
-            f"decoder widths {widths} unsupported: the kernels take hidden "
-            f"widths up to {MAX_WIDTH} and X <= {MAX_X}" + _PLAIN_MODES)
     for layer, (w, b) in enumerate(zip(ws, bs)):
         if tuple(b.shape) != (M, w.shape[-1]):
             raise ValueError(f"bias {layer} of shape {tuple(b.shape)} does "
@@ -234,10 +235,60 @@ def _check_cuda(ws, bs, gamma, wmb=None, extra=()):
     if wmb is not None and tuple(wmb.shape) != (M, B):
         raise ValueError(f"wmb must be (M, B) = ({M}, {B}), got "
                          f"{tuple(wmb.shape)}")
-    if T * B * max(widths) >= 2**31:
-        raise ValueError(f"T*B={T * B} too large for the kernels' indexing"
+    if T * max(widths) >= INDEX_LIMIT:
+        raise ValueError(f"a curve of T={T} points through a {max(widths)}-"
+                         "wide layer exceeds the kernels' 32-bit indexing"
                          + _PLAIN_MODES)
     return T, B, D, M, X
+
+
+def spline_ranges(T, B, widths):
+    """The (b0, b1) spline ranges of a batch's launches: as few as keep
+    T * (b1 - b0) * max(widths) under :data:`INDEX_LIMIT`, of equal size."""
+    per = max(1, INDEX_LIMIT // (T * max(widths)))
+    n = -(-B // per)
+    size = -(-B // n)
+    return [(b0, min(B, b0 + size)) for b0 in range(0, B, size)]
+
+
+def x_slices(ws, bs):
+    """The decoder with its output layer cut into column slices of at most
+    :data:`MAX_X`: [(ws, bs, c0, c1)] (the decoder itself when X fits)."""
+    X = ws[-1].shape[-1]
+    if X <= MAX_X:
+        return [(ws, bs, 0, X)]
+    out = []
+    for c0 in range(0, X, MAX_X):
+        c1 = min(X, c0 + MAX_X)
+        out.append(([*ws[:-1], ws[-1][:, :, c0:c1].contiguous()],
+                    [*bs[:-1], bs[-1][:, c0:c1].contiguous()], c0, c1))
+    return out
+
+
+def by_splines(T, B, ws, run):
+    """``run(b0, b1)`` for each launch range of :func:`spline_ranges`, the
+    outputs (a tensor or a tuple of them, splines on axis 1, or on axis 0
+    of a (B,) output) joined in range order; one range returns
+    ``run(0, B)``."""
+    widths = [ws[0].shape[1]] + [w.shape[-1] for w in ws]
+    ranges = spline_ranges(T, B, widths)
+    if len(ranges) == 1:
+        return run(0, B)
+    parts = [run(b0, b1) for b0, b1 in ranges]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim=1 if p[0].dim() > 1 else 0)
+                     for p in zip(*parts))
+    return torch.cat(parts, dim=1 if parts[0].dim() > 1 else 0)
+
+
+def sum_slices(ws, bs, run):
+    """``run(ws, bs, c0, c1)`` for each column slice of :func:`x_slices`,
+    summed in slice order (one slice: returned as is)."""
+    total = None
+    for wsx, bsx, c0, c1 in x_slices(ws, bs):
+        part = run(wsx, bsx, c0, c1)
+        total = part if total is None else total + part
+    return total
 
 
 @functools.lru_cache(maxsize=None)
@@ -273,10 +324,11 @@ def _scratch_words(lib, widths, n_areas):
 
 
 def _any_scratch(lib, widths, n_areas, dev, n_blocks=None):
-    """(scratch, n_blocks) of the generic kernels: one persistent block per
-    SM (or ``n_blocks``), each with its activation planes and ``n_areas``
-    mask areas; (None, n_blocks) for the production shape, whose kernels
-    take none."""
+    """(scratch, n_blocks) of the generic kernels: the decoder's description
+    (``vlg_any_head_words``), then one persistent block per SM (or
+    ``n_blocks``), each with its activation planes and ``n_areas`` mask
+    areas; (None, n_blocks) for the production shape, whose kernels take
+    none."""
     if n_blocks is None:
         n_blocks = _n_sm(dev)
     words = _scratch_words(lib, widths, n_areas)
@@ -285,7 +337,8 @@ def _any_scratch(lib, widths, n_areas, dev, n_blocks=None):
                          "kernels" + _PLAIN_MODES)
     if words == 0:
         return None, n_blocks
-    return torch.empty((n_blocks * words,), dtype=torch.int32,
+    head = lib.vlg_any_head_words(len(widths) - 1)
+    return torch.empty((head + n_blocks * words,), dtype=torch.int32,
                        device=dev), n_blocks
 
 
@@ -322,18 +375,25 @@ def energy_fwd(ws, bs, gamma, wmb, precision):
     ws = [w.contiguous() for w in ship_weights(ws, precision)]
     T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb)
     lib = library("energy_expected")
-    widths, dec = _decoder_args(ws, bs)
-    scratch, n_blocks = _fwd_scratch(lib, precision, widths, M, gamma.device)
-    partial = torch.empty((lib.vlg_energy_fwd_tiles(T), B),
-                          dtype=torch.float32, device=gamma.device)
-    out = torch.empty((B,), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_energy_fwd(_RUNG[precision], gamma.data_ptr(), T, B, M, *dec,
-                             wmb.data_ptr(), partial.data_ptr(),
-                             out.data_ptr(), _ptr(scratch), n_blocks,
-                             _stream(gamma.device)),
-          "energy_fwd")
-    LAUNCHES["energy_fwd"] += 1
-    return out
+
+    def launch(wsx, bsx, g, w_b):
+        Bc = g.shape[1]
+        widths, dec = _decoder_args(wsx, bsx)
+        scratch, n_blocks = _fwd_scratch(lib, precision, widths, M, g.device)
+        partial = torch.empty((lib.vlg_energy_fwd_tiles(T), Bc),
+                              dtype=torch.float32, device=g.device)
+        out = torch.empty((Bc,), dtype=torch.float32, device=g.device)
+        check(lib.vlg_energy_fwd(_RUNG[precision], g.data_ptr(), T, Bc, M,
+                                 *dec, w_b.data_ptr(), partial.data_ptr(),
+                                 out.data_ptr(), _ptr(scratch), n_blocks,
+                                 _stream(g.device)),
+              "energy_fwd")
+        LAUNCHES["energy_fwd"] += 1
+        return out
+
+    return by_splines(T, B, ws, lambda b0, b1: sum_slices(
+        ws, bs, lambda wsx, bsx, c0, c1: launch(
+            wsx, bsx, _splines(gamma, b0, b1), _splines(wmb, b0, b1))))
 
 
 def energy_bwd(ws, bs, gamma, wmb, ct, precision):
@@ -350,17 +410,31 @@ def energy_bwd(ws, bs, gamma, wmb, ct, precision):
     if tuple(ct.shape) != (B,):
         raise ValueError(f"ct must be (B,) = ({B},), got {tuple(ct.shape)}")
     lib = library("energy_expected")
-    widths, dec = _decoder_args(ws, bs)
-    scratch, n_blocks = _any_scratch(lib, widths, 1, gamma.device)
-    xbar = torch.empty((T, B, X), dtype=torch.float32, device=gamma.device)
-    dgamma = torch.empty((T, B, D), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_energy_bwd(_RUNG[precision], gamma.data_ptr(), T, B, M, *dec,
-                             wmb.data_ptr(), ct.data_ptr(), xbar.data_ptr(),
-                             dgamma.data_ptr(), _ptr(scratch), n_blocks,
-                             _stream(gamma.device)),
-          "energy_bwd")
-    LAUNCHES["energy_bwd"] += 1
-    return dgamma
+
+    def launch(wsx, bsx, g, w_b, ct_b):
+        Bc, Xs = g.shape[1], wsx[-1].shape[-1]
+        widths, dec = _decoder_args(wsx, bsx)
+        scratch, n_blocks = _any_scratch(lib, widths, 1, g.device)
+        xbar = torch.empty((T, Bc, Xs), dtype=torch.float32, device=g.device)
+        dgamma = torch.empty((T, Bc, D), dtype=torch.float32, device=g.device)
+        check(lib.vlg_energy_bwd(_RUNG[precision], g.data_ptr(), T, Bc, M,
+                                 *dec, w_b.data_ptr(), ct_b.data_ptr(),
+                                 xbar.data_ptr(), dgamma.data_ptr(),
+                                 _ptr(scratch), n_blocks, _stream(g.device)),
+              "energy_bwd")
+        LAUNCHES["energy_bwd"] += 1
+        return dgamma
+
+    return by_splines(T, B, ws, lambda b0, b1: sum_slices(
+        ws, bs, lambda wsx, bsx, c0, c1: launch(
+            wsx, bsx, _splines(gamma, b0, b1), _splines(wmb, b0, b1),
+            ct[b0:b1].contiguous())))
+
+
+def _splines(x, b0, b1):
+    """Splines b0..b1-1 of a (T, B, ...) or (M, B) tensor, contiguous (the
+    tensor itself when that is all of it)."""
+    return x[:, b0:b1].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -503,18 +577,34 @@ def stats_fwd(ws, bs, gamma, wmb, precision):
     ws = [w.contiguous() for w in ship_weights(ws, precision)]
     T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb)
     lib = library("energy_stats")
-    widths, dec = _decoder_args(ws, bs)
-    scratch, n_blocks = _any_scratch(lib, widths, 2, gamma.device)
-    x0 = torch.empty((T, B, X), dtype=torch.float32, device=gamma.device)
-    yb = torch.empty((T, B, X), dtype=torch.float32, device=gamma.device)
-    sq = torch.empty((T, B), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_stats_fwd(_RUNG[precision], gamma.data_ptr(), T, B, M, *dec,
-                            wmb.data_ptr(), x0.data_ptr(), yb.data_ptr(),
-                            sq.data_ptr(), _ptr(scratch), n_blocks,
-                            _stream(gamma.device)),
-          "stats_fwd")
-    LAUNCHES["stats_fwd"] += 1
-    return x0, yb, sq
+
+    def launch(wsx, bsx, g, w_b):
+        Bc, Xs = g.shape[1], wsx[-1].shape[-1]
+        widths, dec = _decoder_args(wsx, bsx)
+        scratch, n_blocks = _any_scratch(lib, widths, 2, g.device)
+        x0 = torch.empty((T, Bc, Xs), dtype=torch.float32, device=g.device)
+        yb = torch.empty((T, Bc, Xs), dtype=torch.float32, device=g.device)
+        sq = torch.empty((T, Bc), dtype=torch.float32, device=g.device)
+        check(lib.vlg_stats_fwd(_RUNG[precision], g.data_ptr(), T, Bc, M, *dec,
+                                w_b.data_ptr(), x0.data_ptr(), yb.data_ptr(),
+                                sq.data_ptr(), _ptr(scratch), n_blocks,
+                                _stream(g.device)),
+              "stats_fwd")
+        LAUNCHES["stats_fwd"] += 1
+        return x0, yb, sq
+
+    def over_slices(b0, b1):
+        g, w_b = _splines(gamma, b0, b1), _splines(wmb, b0, b1)
+        parts = [launch(wsx, bsx, g, w_b) for wsx, bsx, _, _ in x_slices(ws, bs)]
+        if len(parts) == 1:
+            return parts[0]
+        sq = parts[0][2]
+        for p in parts[1:]:
+            sq = sq + p[2]
+        return (torch.cat([p[0] for p in parts], -1),
+                torch.cat([p[1] for p in parts], -1), sq)
+
+    return by_splines(T, B, ws, over_slices)
 
 
 def stats_bwd(ws, bs, gamma, wmb, dx0, dyb, dsq, precision):
@@ -532,16 +622,36 @@ def stats_bwd(ws, bs, gamma, wmb, dx0, dyb, dsq, precision):
     T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb, (dx0, dyb, dsq))
     _check_stats_ct(T, B, X, dx0, dyb, dsq)
     lib = library("energy_stats")
-    widths, dec = _decoder_args(ws, bs)
-    scratch, n_blocks = _any_scratch(lib, widths, 2, gamma.device)
-    dgamma = torch.empty((T, B, D), dtype=torch.float32, device=gamma.device)
-    check(lib.vlg_stats_bwd(_RUNG[precision], gamma.data_ptr(), T, B, M, *dec,
-                            wmb.data_ptr(), dx0.data_ptr(), dyb.data_ptr(),
-                            dsq.data_ptr(), dgamma.data_ptr(), _ptr(scratch),
-                            n_blocks, _stream(gamma.device)),
-          "stats_bwd")
-    LAUNCHES["stats_bwd"] += 1
-    return dgamma
+
+    def launch(wsx, bsx, g, w_b, dx0_c, dyb_c, dsq_c):
+        Bc = g.shape[1]
+        widths, dec = _decoder_args(wsx, bsx)
+        scratch, n_blocks = _any_scratch(lib, widths, 2, g.device)
+        dgamma = torch.empty((T, Bc, D), dtype=torch.float32, device=g.device)
+        check(lib.vlg_stats_bwd(_RUNG[precision], g.data_ptr(), T, Bc, M, *dec,
+                                w_b.data_ptr(), dx0_c.data_ptr(),
+                                dyb_c.data_ptr(), dsq_c.data_ptr(),
+                                dgamma.data_ptr(), _ptr(scratch), n_blocks,
+                                _stream(g.device)),
+              "stats_bwd")
+        LAUNCHES["stats_bwd"] += 1
+        return dgamma
+
+    def over_slices(b0, b1):
+        g, w_b = _splines(gamma, b0, b1), _splines(wmb, b0, b1)
+        dx0_b, dyb_b = _splines(dx0, b0, b1), _splines(dyb, b0, b1)
+        dsq_b = _splines(dsq, b0, b1)
+        return sum_slices(ws, bs, lambda wsx, bsx, c0, c1: launch(
+            wsx, bsx, g, w_b, _cols(dx0_b, c0, c1, X), _cols(dyb_b, c0, c1, X),
+            dsq_b))
+
+    return by_splines(T, B, ws, over_slices)
+
+
+def _cols(x, c0, c1, X):
+    """Columns c0..c1-1 of the last axis of x, contiguous (x itself when
+    that is all of it)."""
+    return x if (c0, c1) == (0, X) else x[..., c0:c1].contiguous()
 
 
 class _EnsembleStatsFused(torch.autograd.Function):

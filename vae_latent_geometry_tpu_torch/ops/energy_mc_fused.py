@@ -47,10 +47,13 @@ from vae_latent_geometry_tpu_torch.ops.energy_fused import (
     _fwd_scratch,
     _mp_matmul,
     _ptr,
+    _splines,
     _stream,
+    by_splines,
     check_precision,
     ship_weights,
     stack_weights,
+    sum_slices,
 )
 
 LAUNCHES.update({"energy_mc_fwd": 0, "energy_mc_bwd": 0,
@@ -247,29 +250,41 @@ def _launch(name, backward, ws, bs, gamma, precision, S, d1, d2, kmax, seed,
     lib = library("energy_mc")
     dev = gamma.device
     key = _seed_key(seed)
-    draws = [_ptr(d1), _ptr(d2), _ptr(kmax), *key]
-    widths, dec = _decoder_args(ws, bs)
-    scratch, n_blocks = (_any_scratch(lib, widths, 1, dev) if backward else
-                         _fwd_scratch(lib, precision, widths, M, dev))
-    head = [_RUNG[precision], gamma.data_ptr(), T, B, M, S, *dec, *draws]
-    tail = [_ptr(scratch), n_blocks, _stream(dev)]
-    if backward:
-        # the kernels' difference or endpoint planes
-        n_planes = lib.vlg_mc_bwd_planes(_RUNG[precision], T, S, *dec[:2])
-        planes = torch.empty((n_planes, B, X), dtype=torch.float32,
-                             device=dev)
-        out = torch.empty((T, B, D), dtype=torch.float32, device=dev)
-        err = lib.vlg_mc_bwd(*head, ct.data_ptr(), planes.data_ptr(),
-                             out.data_ptr(), *tail)
-    else:
-        partial = torch.empty((lib.vlg_mc_fwd_tiles(_RUNG[precision], T, M,
-                                                    S, *dec[:2]), B),
-                              dtype=torch.float32, device=dev)
-        out = torch.empty((B,), dtype=torch.float32, device=dev)
-        err = lib.vlg_mc_fwd(*head, partial.data_ptr(), out.data_ptr(), *tail)
-    check(err, name)
-    LAUNCHES[name] += 1
-    return out
+
+    def launch(wsx, bsx, b0, b1):
+        # splines b0..b1-1: their planes, counts and cotangents; the in-kernel
+        # draws count splines from b0, so they do not depend on the ranges
+        g, Bc, Xs = _splines(gamma, b0, b1), b1 - b0, wsx[-1].shape[-1]
+        p1, p2 = (None if d is None else d[:, :, b0:b1].contiguous()
+                  for d in (d1, d2))
+        k_b = None if kmax is None else kmax[b0:b1].contiguous()
+        draws = [_ptr(p1), _ptr(p2), _ptr(k_b), *key, b0]
+        widths, dec = _decoder_args(wsx, bsx)
+        scratch, n_blocks = (_any_scratch(lib, widths, 1, dev) if backward
+                             else _fwd_scratch(lib, precision, widths, M, dev))
+        head = [_RUNG[precision], g.data_ptr(), T, Bc, M, S, *dec, *draws]
+        tail = [_ptr(scratch), n_blocks, _stream(dev)]
+        if backward:
+            # the kernels' difference or endpoint planes
+            n_planes = lib.vlg_mc_bwd_planes(_RUNG[precision], T, S, *dec[:2])
+            planes = torch.empty((n_planes, Bc, Xs), dtype=torch.float32,
+                                 device=dev)
+            out = torch.empty((T, Bc, D), dtype=torch.float32, device=dev)
+            err = lib.vlg_mc_bwd(*head, ct[b0:b1].contiguous().data_ptr(),
+                                 planes.data_ptr(), out.data_ptr(), *tail)
+        else:
+            partial = torch.empty((lib.vlg_mc_fwd_tiles(
+                _RUNG[precision], T, M, S, *dec[:2]), Bc),
+                dtype=torch.float32, device=dev)
+            out = torch.empty((Bc,), dtype=torch.float32, device=dev)
+            err = lib.vlg_mc_fwd(*head, partial.data_ptr(), out.data_ptr(),
+                                 *tail)
+        check(err, name)
+        LAUNCHES[name] += 1
+        return out
+
+    return by_splines(T, B, ws, lambda b0, b1: sum_slices(
+        ws, bs, lambda wsx, bsx, c0, c1: launch(wsx, bsx, b0, b1)))
 
 
 def energy_mc_fwd(ws, bs, gamma, d1, d2, precision):
