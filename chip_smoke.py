@@ -100,6 +100,34 @@ Phases, each printing one JSON line; any failure exits nonzero:
              steps at the production chunk (f32x2) on S3 and S4 of
              ``expected_fused``, ``mc_fused``, ``single_fused`` and the
              decoder-sharded path, beside the unfused ``expected`` mode.
+14c. training and the optimizer's checkpoints, on the seeded surrogate at
+             full width:
+             train — ``train_evae`` (ModelConfig defaults, batch 64):
+             TRAIN_EPOCHS epochs against TRAIN_EPOCHS_CUT epochs resumed to
+             TRAIN_EPOCHS, bit for bit; the loss falls; the first steps'
+             losses against the port on the CPU with the same draws;
+             steps/s, epochs/s, the device's busy share over PROFILE_STEPS
+             steps (torch.profiler);
+             train_multiseed — seeds 12 and 123 in one program against
+             their serial runs; train_single — the legacy VAE with warm-up,
+             step lr and best-val;
+             train_cov — the two multiseed models written by the port's
+             writer, reloaded, each through ``run_distance_pipeline`` (10
+             classes, 45 pairs, expected_fused f32x2); the two matrices'
+             cross-seed CoV and ``cov_analysis`` (counts 1..10): finite and
+             not all zero;
+             resume — the seed-42 init blob in chunks of 50, interrupted
+             after two chunks: the resumed artifact equals the uninterrupted
+             one bit for bit, a foreign stamp is ignored (every chunk
+             recomputed), launches counted;
+             early_stop — the production chunk at expected_fused f32x2,
+             budget 1000: steps run, K1/K2 launches (one each per step),
+             steps/s, the restored omega re-evaluated at the trajectory
+             rung equals the tracked best energy bit for bit, lengths
+             against phase main;
+             backstop — the cut turbo plan against the fixed recipe at
+             BACKSTOP_STEPS steps, at expected_fused and mc_fused: the merge
+             never above either arm, each arm's wins.
 15. the ``kernels`` summary line (each kernel with its records on those
     shapes), the card line, and the result line.
 
@@ -2149,6 +2177,518 @@ def big_phase(params, art, cfg, dev, ef, mc, eft):
     return out
 
 
+# Training and the optimizer's checkpoints (the seeded surrogate, 23,822 x
+# 50; ModelConfig's full widths: encoder 50-256-128-4, ten decoders
+# 2-128-128-50).  ``train``: TRAIN_EPOCHS epochs of the EVAE at batch 64
+# uninterrupted, against TRAIN_EPOCHS_CUT epochs then a resume to
+# TRAIN_EPOCHS: losses and parameters bit for bit; the first TRAIN_CPU_STEPS
+# per-batch losses against the port on the CPU with the same draws
+# (TRAIN_CPU_RTOL: the card's products round in another order).
+TRAIN_EPOCHS = 4
+TRAIN_EPOCHS_CUT = 2
+TRAIN_CPU_STEPS = 20
+TRAIN_CPU_RTOL = 1e-4
+TRAIN_SEEDS = (12, 123)
+MULTI_EPOCHS = 2
+# Multiseed against serial runs: bit for bit on the CPU, not on the card:
+# cuBLAS multiplies a batch of one through its plain gemm and a batch of two
+# or more through other kernels (tools/bmm_batch_probe.py), and
+# the rounding difference grows along the trajectory (5.66e-5 of the loss
+# after 2 epochs on seed 12, measured on the H100).
+MULTI_LOSS_RTOL = 1e-4
+SINGLE_EPOCHS = 3
+# ``train_cov``: the two multiseed models, written and reloaded, each
+# through run_distance_pipeline (COV_TRAIN_LABELS classes, 45 pairs,
+# COV_TRAIN_STEPS steps of expected_fused at f32x2), then the cross-seed CoV
+# of the two matrices and cov_analysis on model 12's pairs.
+COV_TRAIN_LABELS = 10
+COV_TRAIN_STEPS = 100
+# ``resume``: the seed-42 init blob (190 pairs) in chunks of RESUME_CHUNK,
+# RESUME_STEPS steps of the main path's mode, interrupted after two chunks.
+RESUME_CHUNK = 50
+RESUME_STEPS = 100
+# ``backstop``: the cut turbo plan of mc_coarse_bf16 against the fixed
+# recipe at BACKSTOP_STEPS steps.
+BACKSTOP_STEPS = 200
+
+
+def _same_trees(a, b) -> bool:
+    from vae_latent_geometry_tpu_torch.io.checkpoint import tree_leaves
+
+    return all(bool((x == y).all()) for x, y in zip(tree_leaves(a),
+                                                     tree_leaves(b)))
+
+
+def _max_tree_diff(a, b) -> float:
+    from vae_latent_geometry_tpu_torch.io.checkpoint import tree_leaves
+
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _first_steps(dev, data, n_steps):
+    """The first ``n_steps`` per-batch losses of ``train_evae`` at the
+    default config on ``dev`` (the same draws on every device)."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.config import ModelConfig, TrainConfig
+    from vae_latent_geometry_tpu_torch.models import evae
+    from vae_latent_geometry_tpu_torch.pipeline import train as tr
+
+    cfg, mcfg = TrainConfig(), ModelConfig()
+    params = tr._init(lambda g, d: evae.evae_init(g, mcfg, d), [cfg.seed],
+                      dev)
+    train_x, val_x = tr._splits(data, [cfg.seed], cfg, dev)
+    run = tr._Run(params, cfg.lr, track_best=False, batched=False)
+    d = tr.epoch_draws([cfg.seed], 0, train_x.shape[1], val_x.shape[1],
+                       cfg.batch_size, mcfg.latent_dim, mcfg.num_decoders)
+    bs, out = cfg.batch_size, []
+    for i in range(n_steps):
+        step = tr.EpochDraws(perm=d.perm[:, i * bs:(i + 1) * bs],
+                             eps=d.eps[:, i:i + 1], idx=d.idx[:, i:i + 1],
+                             val_eps=d.val_eps[:, :1],
+                             val_idx=d.val_idx[:, :1])
+        tl, _ = tr.train_epoch(tr._evae_loss(mcfg), run.params, run.opt,
+                               run.opt_state, train_x, val_x, step, 1.0)
+        out.append(float(tl[0]))
+    return np.asarray(out)
+
+
+def train_phases(dev):
+    """Phases train, train_multiseed, train_single: the port's trainers at
+    full width on the card.  Returns (records, {seed: model params})."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_latent_geometry_tpu_torch.config import ModelConfig, TrainConfig
+    from vae_latent_geometry_tpu_torch.data.tasic import load_tasic
+    from vae_latent_geometry_tpu_torch.models import evae
+    from vae_latent_geometry_tpu_torch.models.vae import LEGACY_CONFIG
+    from vae_latent_geometry_tpu_torch.pipeline import train as tr
+
+    data = load_tasic()
+    if not data.synthetic:
+        fail("train phases: a data directory was found; they are defined on "
+             "the seeded surrogate")
+    x = data.x
+    mcfg = ModelConfig()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    recs = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # train: uninterrupted, against cut + resumed
+    cfg = TrainConfig(epochs=TRAIN_EPOCHS)
+    full, secs = timed(lambda: tr.train_evae(x, cfg, mcfg, log_every=0,
+                                             block_epochs=1, device=dev))
+    state = os.path.join(tmp, "train_state.npz")
+    tr.train_evae(x, dataclasses.replace(cfg, epochs=TRAIN_EPOCHS_CUT), mcfg,
+                  log_every=0, block_epochs=1, checkpoint_path=state,
+                  device=dev)
+    resumed = tr.train_evae(x, cfg, mcfg, log_every=0, block_epochs=1,
+                            checkpoint_path=state, device=dev)
+    n_train = len(x) - int(cfg.val_ratio * len(x))
+    spe = n_train // cfg.batch_size
+    card_first = _first_steps(dev, x, TRAIN_CPU_STEPS)
+    cpu_first = _first_steps(torch.device("cpu"), x, TRAIN_CPU_STEPS)
+    rel = np.abs(card_first / cpu_first - 1)
+    # the device's busy share over PROFILE_STEPS steps of an epoch
+    params = tr._init(lambda g, d: evae.evae_init(g, mcfg, d), [cfg.seed],
+                      dev)
+    train_x, val_x = tr._splits(x, [cfg.seed], cfg, dev)
+    run = tr._Run(params, cfg.lr, track_best=False, batched=False)
+    d = tr.epoch_draws([cfg.seed], 0, n_train, val_x.shape[1],
+                       cfg.batch_size, mcfg.latent_dim, mcfg.num_decoders)
+    d = tr.EpochDraws(perm=d.perm, eps=d.eps[:, :PROFILE_STEPS],
+                      idx=d.idx[:, :PROFILE_STEPS], val_eps=d.val_eps[:, :1],
+                      val_idx=d.val_idx[:, :1])
+    loss_fn = tr._evae_loss(mcfg)
+    tr.train_epoch(loss_fn, run.params, run.opt, run.opt_state, train_x,
+                   val_x, d, 1.0)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.train_epoch(loss_fn, run.params, run.opt, run.opt_state, train_x,
+                       val_x, d, 1.0)
+        torch.cuda.synchronize()
+    prof_wall = time.perf_counter() - t0
+    by, span = device_kernel_times(prof)
+    busy = sum(by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    rec = {"phase": "train", "model": "EVAE 50-256-128-4, 10 x 2-128-128-50",
+           "rows": len(x), "batch_size": cfg.batch_size,
+           "steps_per_epoch": spe, "epochs": TRAIN_EPOCHS,
+           "train_s": secs, "steps_per_s": TRAIN_EPOCHS * spe / secs,
+           "epochs_per_s": TRAIN_EPOCHS / secs,
+           "train_losses": full.train_losses.tolist(),
+           "val_losses": full.val_losses.tolist(),
+           "loss_falls": bool(full.train_losses[-1] < full.train_losses[0]),
+           "finite": bool(np.isfinite(full.train_losses).all()
+                          and np.isfinite(full.val_losses).all()),
+           "resume_losses_bitwise": bool(
+               np.array_equal(resumed.train_losses, full.train_losses)
+               and np.array_equal(resumed.val_losses, full.val_losses)),
+           "resume_params_bitwise": _same_trees(resumed.params, full.params),
+           "resume_params_max_abs": _max_tree_diff(resumed.params,
+                                                   full.params),
+           "first_steps_vs_cpu_rel_max": float(rel.max()),
+           "first_steps_card": card_first.tolist(),
+           "profile_steps": PROFILE_STEPS,
+           "profile_wall_ms_per_step": 1e3 * prof_wall / PROFILE_STEPS,
+           "device_busy_ms_per_step": busy / 1e3 / PROFILE_STEPS,
+           "device_busy_share_of_span": busy / span if span else None,
+           "n_kernel_launches_per_step": sum(
+               1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+           / PROFILE_STEPS,
+           "kernels_ms": {k[:80]: v / 1e3 for k, v in top}}
+    emit(rec)
+    recs["train"] = rec
+
+    # train_multiseed: two seeds in one program against their serial runs
+    mcfg_s = dataclasses.replace(cfg, epochs=MULTI_EPOCHS)
+    multi, msecs = timed(lambda: tr.train_evae_multiseed(
+        x, TRAIN_SEEDS, mcfg_s, mcfg, log_every=0, device=dev))
+    serial, ssecs = timed(lambda: {s: tr.train_evae(
+        x, dataclasses.replace(mcfg_s, seed=s), mcfg, log_every=0,
+        device=dev) for s in TRAIN_SEEDS})
+    diff = {s: float(np.abs(multi[s].train_losses / serial[s].train_losses
+                            - 1).max()) for s in TRAIN_SEEDS}
+    rec = {"phase": "train_multiseed", "seeds": list(TRAIN_SEEDS),
+           "epochs": MULTI_EPOCHS, "multiseed_s": msecs, "serial_s": ssecs,
+           "steps_per_s_per_seed": MULTI_EPOCHS * spe * len(TRAIN_SEEDS)
+           / msecs,
+           "serial_steps_per_s": MULTI_EPOCHS * spe * len(TRAIN_SEEDS)
+           / ssecs,
+           "losses_bitwise": {s: bool(
+               np.array_equal(multi[s].train_losses, serial[s].train_losses)
+               and np.array_equal(multi[s].val_losses, serial[s].val_losses))
+               for s in TRAIN_SEEDS},
+           "params_bitwise": {s: _same_trees(multi[s].params,
+                                             serial[s].params)
+                              for s in TRAIN_SEEDS},
+           "train_loss_rel_max": diff,
+           "params_max_abs": {s: _max_tree_diff(multi[s].params,
+                                                serial[s].params)
+                              for s in TRAIN_SEEDS},
+           "train_losses": {s: multi[s].train_losses.tolist()
+                            for s in TRAIN_SEEDS},
+           "seeds_differ": bool(not np.allclose(
+               multi[TRAIN_SEEDS[0]].train_losses,
+               multi[TRAIN_SEEDS[1]].train_losses))}
+    emit(rec)
+    recs["train_multiseed"] = rec
+
+    # train_single: the legacy VAE with warm-up, step lr and best-val
+    scfg = TrainConfig(epochs=SINGLE_EPOCHS, seed=12, beta_warmup_epochs=30,
+                       lr_step_size=200, lr_gamma=0.5)
+    single, ssecs = timed(lambda: tr.train_single_vae(
+        x, scfg, LEGACY_CONFIG, log_every=0, device=dev))
+    rec = {"phase": "train_single", "epochs": SINGLE_EPOCHS, "train_s": ssecs,
+           "steps_per_s": SINGLE_EPOCHS * spe / ssecs,
+           "train_losses": single.train_losses.tolist(),
+           "val_losses": single.val_losses.tolist(),
+           "best_val_loss": single.best_val_loss,
+           "best_is_min": bool(single.best_val_loss
+                               == np.float32(single.val_losses.min())),
+           "finite": bool(np.isfinite(single.train_losses).all())}
+    emit(rec)
+    recs["train_single"] = rec
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    r = recs["train"]
+    if not (r["finite"] and r["loss_falls"]):
+        fail(f"train: losses {r['train_losses']} not finite or not falling")
+    if not (r["resume_losses_bitwise"] and r["resume_params_bitwise"]):
+        fail(f"train: the resumed run differs from the uninterrupted one "
+             f"(params max abs {r['resume_params_max_abs']:.3g})")
+    if not r["first_steps_vs_cpu_rel_max"] <= TRAIN_CPU_RTOL:
+        fail(f"train: first steps vs the CPU "
+             f"{r['first_steps_vs_cpu_rel_max']:.3g} > {TRAIN_CPU_RTOL}")
+    r = recs["train_multiseed"]
+    if not (r["seeds_differ"] and all(
+            v <= MULTI_LOSS_RTOL for v in r["train_loss_rel_max"].values())):
+        fail(f"train_multiseed: seeds equal or far from their serial runs "
+             f"{r['train_loss_rel_max']}")
+    r = recs["train_single"]
+    if not (r["finite"] and r["best_is_min"]
+            and r["train_losses"][-1] < r["train_losses"][0]):
+        fail("train_single: losses not finite or not falling, or the best "
+             "val loss is not the curve's minimum")
+    return recs, {s: multi[s].params for s in TRAIN_SEEDS}
+
+
+def train_cov_phase(models, dev, ef):
+    """The trained models written with the port's writer and reloaded, each
+    through ``run_distance_pipeline``; the two matrices' cross-seed CoV and
+    ``cov_analysis`` on the first model's pairs."""
+    import tempfile
+
+    import torch
+
+    from vae_latent_geometry_tpu_torch.config import (
+        EnergyConfig, GeodesicConfig, ModelConfig, to_dict)
+    from vae_latent_geometry_tpu_torch.data.tasic import load_tasic
+    from vae_latent_geometry_tpu_torch.io.checkpoint import save_pytree
+    from vae_latent_geometry_tpu_torch.models import evae
+    from vae_latent_geometry_tpu_torch.pipeline.evaluate import (
+        compute_cov, cov_analysis)
+    from vae_latent_geometry_tpu_torch.pipeline.full_run import (
+        run_distance_pipeline)
+
+    data = load_tasic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cov_")
+    loaded = {}
+    for s, p in models.items():
+        path = os.path.join(tmp, f"model_seed{s}.npz")
+        save_pytree(p, path, extra_meta={
+            "seed": s, "model_config": to_dict(ModelConfig())})
+        loaded[s] = evae.load_npz(path, dev)
+    same = all(_same_trees(loaded[s], models[s]) for s in models)
+    geo = GeodesicConfig(steps=COV_TRAIN_STEPS, batch_size=45,
+                         energy=EnergyConfig(mode="expected_fused",
+                                             kernel_precision="f32x2"))
+    runs = {}
+    torch.cuda.synchronize()
+    ef.reset_launch_counts()
+    t0 = time.perf_counter()
+    for s, p in loaded.items():
+        runs[s] = run_distance_pipeline(p, data.x, data.labels,
+                                        max_labels=COV_TRAIN_LABELS,
+                                        geo_cfg=geo, verbose=False,
+                                        device=dev)
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    launches = dict(ef.LAUNCHES)
+    s0, s1 = models
+    mats = np.stack([runs[s].matrix for s in models])
+    off = ~np.eye(mats.shape[1], dtype=bool)
+    cov = compute_cov(mats[:, off], axis=0)
+    pairs = [tuple(r) for r in runs[s0].artifact.pair_indices]
+    res = cov_analysis([loaded[s] for s in models], list(models), data.x,
+                       pairs, decoder_counts=tuple(range(1, 11)),
+                       steps=COV_TRAIN_STEPS, num_t=2000,
+                       mode="expected_fused", kernel_precision="f32x2",
+                       device=dev)
+    rec = {"phase": "train_cov", "seeds": list(models),
+           "reloaded_equal": same, "pairs": len(pairs),
+           "labels_equal": runs[s0].labels == runs[s1].labels,
+           "pipeline_s": pipe_s, "launches": launches,
+           "matrices_finite": bool(np.isfinite(mats).all()),
+           "matrix_cov_mean": float(cov.mean()),
+           "matrix_cov_max": float(cov.max()),
+           "cov_analysis_geodesic": res.avg_cov_geodesic,
+           "cov_analysis_euclidean": res.avg_cov_euclidean,
+           "cov_analysis_finite": bool(np.isfinite(res.lengths).all())}
+    emit(rec)
+    shutil.rmtree(tmp, ignore_errors=True)
+    n_valid = sum(int(runs[s].artifact.valid.sum()) for s in models)
+    if not (same and rec["labels_equal"] and rec["matrices_finite"]
+            and np.isfinite(cov).all() and rec["cov_analysis_finite"]):
+        fail("train_cov: reload, labels or values malformed")
+    if not (cov.max() > 0 and max(res.avg_cov_geodesic.values()) > 0):
+        fail("train_cov: every CoV is zero: the two models are one model")
+    if launches.get("energy_bwd", 0) != COV_TRAIN_STEPS * len(models) \
+            or n_valid == 0:
+        fail(f"train_cov: launches {launches}")
+    return rec
+
+
+def resume_phase(params, art, cfg, dev, ef):
+    """The optimize stage interrupted after two chunks resumes to the
+    uninterrupted artifact bit for bit; a foreign stamp is ignored (the run
+    recomputes every chunk)."""
+    import tempfile
+
+    import torch
+
+    from vae_latent_geometry_tpu_torch.io.artifacts import (
+        load_spline_batch, save_spline_batch)
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    path = os.path.join(tmp, "opt.npz")
+    rcfg = dataclasses.replace(cfg, steps=RESUME_STEPS,
+                               batch_size=RESUME_CHUNK)
+
+    def run(ckpt):
+        torch.cuda.synchronize()
+        ef.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = optimize_spline_batch(params, art, cfg=rcfg, device=dev,
+                                    checkpoint_path=ckpt,
+                                    log_every_chunk=False)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(ef.LAUNCHES)
+
+    full, full_s, full_l = run(path)
+    written = load_spline_batch(path)
+    cut = 2 * RESUME_CHUNK
+    omega = np.array(written.omega_optimized)
+    omega[cut:] = art.omega_init[cut:]
+    glen = np.array(written.geodesic_length)
+    glen[cut:] = np.nan
+    save_spline_batch(dataclasses.replace(
+        written, omega_optimized=omega, geodesic_length=glen), path)
+    resumed, res_s, res_l = run(path)
+    file_bitwise = bool(np.array_equal(
+        load_spline_batch(path).geodesic_length, full.geodesic_length))
+    foreign = dict(written.metadata, steps=RESUME_STEPS + 1)
+    save_spline_batch(dataclasses.replace(
+        written, omega_optimized=omega, geodesic_length=glen,
+        metadata=foreign), path)
+    redo, redo_s, redo_l = run(path)
+    n_chunks = -(-len(art) // RESUME_CHUNK)
+    rec = {"phase": "resume", "pairs": len(art), "chunk": RESUME_CHUNK,
+           "chunks": n_chunks, "steps": RESUME_STEPS,
+           "full_s": full_s, "resumed_s": res_s, "foreign_s": redo_s,
+           "launches_full": full_l, "launches_resumed": res_l,
+           "launches_foreign": redo_l,
+           "resumed_bitwise": bool(
+               np.array_equal(resumed.omega_optimized, full.omega_optimized)
+               and np.array_equal(resumed.geodesic_length,
+                                  full.geodesic_length,
+                                  equal_nan=True)),
+           "resumed_file_bitwise": file_bitwise,
+           "foreign_recomputed_bitwise": bool(np.array_equal(
+               redo.omega_optimized, full.omega_optimized))}
+    emit(rec)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not (rec["resumed_bitwise"] and rec["resumed_file_bitwise"]
+            and rec["foreign_recomputed_bitwise"]):
+        fail("resume: the resumed or recomputed artifact differs from the "
+             "uninterrupted one")
+    want = {"full": n_chunks, "resumed": n_chunks - 2, "foreign": n_chunks}
+    for tag, got in (("full", full_l), ("resumed", res_l),
+                     ("foreign", redo_l)):
+        if (got["energy_bwd"] != RESUME_STEPS * want[tag]
+                or got["energy_fwd"] != want[tag]):
+            fail(f"resume: {tag} run launched {got}, expected "
+                 f"{want[tag]} chunks")
+    return rec
+
+
+def early_stop_phase(params, art, cfg, dev, ef, main_lengths):
+    """Early stopping at the production chunk (B=200, T=2000,
+    expected_fused f32x2, budget STEPS): steps run, K1/K2 launches,
+    steps/s; the restored omega re-evaluated at the trajectory rung gives
+    the tracked best energy bit for bit."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.optim.geodesic import (
+        _traj_cfg, make_loss_fn, optimize_spline_early_stopping)
+
+    B = cfg.batch_size
+    idx = np.concatenate([np.arange(len(art)),
+                          np.full(B - len(art), len(art) - 1)])
+    ecfg = dataclasses.replace(cfg, early_stop=True)
+    torch.cuda.synchronize()
+    ef.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = optimize_spline_early_stopping(
+        params.decoders, art.omega_init[idx], art.a[idx], art.b[idx],
+        art.basis, ecfg, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ef.LAUNCHES)
+    with torch.no_grad():
+        _, e_again = make_loss_fn(params.decoders, art.basis,
+                                  _traj_cfg(ecfg), dev)(
+            res.omega, torch.as_tensor(art.a[idx], device=dev),
+            torch.as_tensor(art.b[idx], device=dev))
+    lengths = res.lengths.double().cpu().numpy()[:len(art)]
+    rel = np.abs(lengths / main_lengths - 1)
+    rec = {"phase": "early_stop", "mode": "expected_fused",
+           "precision": "f32x2", "B": B, "T": cfg.energy.num_t,
+           "budget": ecfg.steps, "patience": ecfg.patience,
+           "delta": ecfg.delta, "steps_run": res.steps_run,
+           "optimize_s": secs, "steps_per_s": res.steps_run / secs,
+           "launches": launches,
+           "restored_energy_bitwise": bool(torch.equal(e_again,
+                                                       res.traj_energy)),
+           "lengths_finite": bool(np.isfinite(lengths).all()),
+           "vs_main_len_rel_median": float(np.median(rel)),
+           "vs_main_len_rel_max": float(rel.max())}
+    emit(rec)
+    if not (rec["restored_energy_bitwise"] and rec["lengths_finite"]):
+        fail("early_stop: the restored omega does not give the tracked best "
+             "energy, or its lengths are not finite")
+    want = {"energy_fwd": res.steps_run + 2, "energy_bwd": res.steps_run}
+    for name, count in launches.items():
+        if count != want.get(name, 0):
+            fail(f"early_stop: {name} launched {count} times, expected "
+                 f"{want.get(name, 0)}")
+    return rec
+
+
+def backstop_phase(params, art, cfg, dev, ef):
+    """The cut turbo plan against the fixed recipe at BACKSTOP_STEPS steps,
+    merged per pair, at expected_fused and at mc_fused: the merge is never
+    above either arm; each arm's wins."""
+    import tempfile
+
+    import torch
+
+    from vae_latent_geometry_tpu_torch.io.artifacts import load_spline_batch
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch_backstop)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_backstop_")
+    recs = {}
+    for mode in ("expected_fused", "mc_fused"):
+        fixed = dataclasses.replace(
+            cfg, steps=BACKSTOP_STEPS, energy=dataclasses.replace(
+                cfg.energy, mode=mode))
+        plan = dataclasses.replace(fixed, phase_plan=MC_COARSE_PLAN)
+        path = os.path.join(tmp, f"{mode}.npz")
+        torch.cuda.synchronize()
+        ef.reset_launch_counts()
+        t0 = time.perf_counter()
+        merged = optimize_spline_batch_backstop(
+            params, art, cfg=plan, backstop_cfg=fixed, device=dev,
+            checkpoint_path=path, log_every_chunk=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        arms = {a: load_spline_batch(os.path.join(tmp, f"{mode}.{a}.npz"))
+                for a in ("primary", "backstop")}
+        l1 = np.asarray(arms["primary"].geodesic_length, np.float64)
+        l2 = np.asarray(arms["backstop"].geodesic_length, np.float64)
+        lm = np.asarray(merged.geodesic_length, np.float64)
+        rec = {"phase": "backstop", "mode": mode, "pairs": len(art),
+               "plan": [list(p) for p in MC_COARSE_PLAN],
+               "fixed_steps": BACKSTOP_STEPS, "seconds": secs,
+               "launches": dict(ef.LAUNCHES),
+               "final_energy_mode": json.loads(
+                   merged.metadata["recipe"])["final_energy_mode"],
+               "plan_wins": int((l1 < l2).sum()),
+               "fixed_wins": int((l2 < l1).sum()),
+               "ties": int((l1 == l2).sum()),
+               "backstop_selected": merged.metadata["backstop_selected"],
+               "never_worse": bool((lm <= l1).all() and (lm <= l2).all()),
+               "finite": bool(np.isfinite(lm).all()),
+               "len_mean": {"merged": float(lm.mean()),
+                            "plan": float(l1.mean()),
+                            "fixed": float(l2.mean())}}
+        emit(rec)
+        recs[mode] = rec
+        if not (rec["never_worse"] and rec["finite"]):
+            fail(f"backstop {mode}: the merge is above an arm on some pair")
+        if rec["final_energy_mode"] != (None if mode == "expected_fused"
+                                        else "expected_fused"):
+            fail(f"backstop {mode}: final energies by "
+                 f"{rec['final_energy_mode']}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return recs
+
+
 def main() -> int:
     import torch
 
@@ -2377,7 +2917,9 @@ def main() -> int:
             else:
                 rec["bwd_ms"] = time_ms(
                     lambda: ef.energy_bwd(ws, bs, gamma, wmb, ct, prec), 5)
-                if M > 1:   # K6/K8 at the other rungs
+                if M > 1:   # K1 (early stop's every step), K6/K8
+                    rec["fwd_ms"] = time_ms(
+                        lambda: ef.energy_fwd(ws, bs, gamma, wmb, prec), 5)
                     d1, d2, kmax, _, _ = mc_inputs(M, None)
                     rec["mc_bwd_ms"] = time_ms(lambda: mc.energy_mc_bwd(
                         ws, bs, gamma, d1, d2, mc_ct, prec), 5)
@@ -2699,6 +3241,13 @@ def main() -> int:
     # 14b. the shapes past the former cap: X > 128, D > 4, any width and
     # depth, a batch past the 32-bit index
     big_recs = big_phase(params, art, cfg, dev, ef, mc, eft)
+    # 14c. training at full width, then the optimizer's checkpoint, resume,
+    # early stop and backstop on the main path's recipe
+    trained = train_phases(dev)[1]
+    train_cov_phase(trained, dev, ef)
+    resume_phase(params, art, cfg, dev, ef)
+    es_rec = early_stop_phase(params, art, cfg, dev, ef, lengths)
+    backstop_phase(params, art, cfg, dev, ef)
 
     # 15. kernels line ------------------------------------------------------
     P = T * B
@@ -2827,7 +3376,13 @@ def main() -> int:
          "bound_ms": 1e3 * k1_bound, "bound_by": "operations",
          "library_ms": None,
          "design": "k1_fwd_fma (decode_f32.cuh, float32): cp.async-staged "
-                   "weights, 128-row tiles of one spline"},
+                   "weights, 128-row tiles of one spline; k1_energy_tiles "
+                   "at the reduced rungs (early stop's every step)",
+         "ms_f32x2": times["f32x2"]["fwd_ms"],
+         **{f"ms_{p}": errors[(M, p)]["fwd_ms"]
+            for p in ("f32x3", "bfloat16")},
+         "bound_ms_reduced_rungs": 1e3 * k3_bound[0],
+         "launches_early_stop": es_rec["launches"]["energy_fwd"]},
         {"name": "energy_bwd (K2, f32x2 trajectory steps)",
          "route": "cuda",
          "source": "vae_latent_geometry_tpu_torch/ops/csrc/energy_expected.cu",
@@ -2843,7 +3398,8 @@ def main() -> int:
          "ms_bfloat16": errors[(M, "bfloat16")]["bwd_ms"],
          "ms_float32": times["float32"]["bwd_ms"],
          "ms_M1_bfloat16": errors[(1, "bfloat16")]["bwd_ms"],
-         "launches_single_bf16": single_rec["launches"]["energy_bwd"]},
+         "launches_single_bf16": single_rec["launches"]["energy_bwd"],
+         "launches_early_stop": es_rec["launches"]["energy_bwd"]},
         {**stats_kernel("stats_fwd (K3, f32x2 trajectory steps, M_loc=10)",
                         472, ep_rec["launches"]["stats_fwd"], "yb_max_abs",
                         "stats_fwd", k3_bound),

@@ -1,6 +1,9 @@
-"""Command line of the PyTorch port: ``select-pairs``, ``init-splines``,
-``optimize`` and ``eval --mode matrix|cov``.
+"""Command line of the PyTorch port: ``train``, ``train-single``,
+``select-pairs``, ``init-splines``, ``optimize`` and ``eval --mode
+matrix|cov``.
 
+  python -m vae_latent_geometry_tpu_torch train --seeds 12 123 --epochs 600
+  python -m vae_latent_geometry_tpu_torch train-single --seed 12
   python -m vae_latent_geometry_tpu_torch select-pairs --model experiment/model_seed42.npz --max-labels 20
   python -m vae_latent_geometry_tpu_torch init-splines --model experiment/model_seed42.npz \\
       --pairfile experiment/pairs/selected_pairs_20.json --use-entropy
@@ -13,6 +16,10 @@
 Flags and defaults follow ``vae_latent_geometry_tpu.cli``; the artifacts are
 the same format.  ``--device`` picks the torch device (default ``cuda``;
 ``--device cpu`` runs the plain PyTorch versions of the kernels).
+``train --train-state PATH`` writes the whole training state there after
+every block and resumes from it when it exists; ``optimize`` checkpoints
+every chunk to its ``--output`` and resumes from it, so re-running the same
+command continues an interrupted run.
 
 Several ranks (``optimize --dp N --ep M``): start dp*ep processes with the
 same command, each with ``--coordinator host:port --num-processes N
@@ -82,6 +89,78 @@ def _encode(params, x, device) -> np.ndarray:
     with torch.no_grad():
         return encode(params, torch.as_tensor(
             np.asarray(x, np.float32), device=device))[0].cpu().numpy()
+
+
+def cmd_train(args):
+    from vae_latent_geometry_tpu_torch.config import (
+        ModelConfig,
+        TrainConfig,
+        to_dict,
+    )
+    from vae_latent_geometry_tpu_torch.device import resolve_device
+    from vae_latent_geometry_tpu_torch.io.checkpoint import save_pytree
+    from vae_latent_geometry_tpu_torch.parallel.multihost import is_primary
+    from vae_latent_geometry_tpu_torch.pipeline.train import (
+        train_evae,
+        train_evae_multiseed,
+    )
+
+    device = resolve_device(args.device)
+    data = _load_data(args)
+    mcfg = ModelConfig(latent_dim=args.latent_dim,
+                       num_decoders=args.num_decoders)
+    if args.seeds:
+        cfg = TrainConfig(epochs=args.epochs, batch_size=args.batch_size,
+                          lr=args.lr)
+        results = train_evae_multiseed(data.x, args.seeds, cfg, mcfg,
+                                       checkpoint_path=args.train_state,
+                                       device=device)
+    else:
+        cfg = TrainConfig(epochs=args.epochs, batch_size=args.batch_size,
+                          lr=args.lr, seed=args.seed)
+        results = {args.seed: train_evae(data.x, cfg, mcfg,
+                                         checkpoint_path=args.train_state,
+                                         device=device)}
+    if not is_primary():
+        return
+    out = Path(args.save_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    for seed, res in results.items():
+        ckpt = out / f"model_seed{seed}.npz"
+        save_pytree(res.params, str(ckpt),
+                    extra_meta={"seed": seed, "epochs": args.epochs,
+                                "model_config": to_dict(mcfg)})
+        np.save(out / f"train_losses_seed{seed}.npy", res.train_losses)
+        np.save(out / f"val_losses_seed{seed}.npy", res.val_losses)
+        print(f"[ok] saved {ckpt}")
+
+
+def cmd_train_single(args):
+    from vae_latent_geometry_tpu_torch.config import TrainConfig, to_dict
+    from vae_latent_geometry_tpu_torch.device import resolve_device
+    from vae_latent_geometry_tpu_torch.io.checkpoint import save_pytree
+    from vae_latent_geometry_tpu_torch.models.vae import LEGACY_CONFIG
+    from vae_latent_geometry_tpu_torch.parallel.multihost import is_primary
+    from vae_latent_geometry_tpu_torch.pipeline.train import train_single_vae
+
+    device = resolve_device(args.device)
+    data = _load_data(args)
+    cfg = TrainConfig(epochs=args.epochs, batch_size=args.batch_size,
+                      lr=args.lr, seed=args.seed,
+                      beta_warmup_epochs=30, lr_step_size=200, lr_gamma=0.5)
+    res = train_single_vae(data.x, cfg, checkpoint_path=args.train_state,
+                           device=device)
+    if not is_primary():
+        return
+    out = Path(args.save_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    ckpt = out / f"vae_best_seed{args.seed}.npz"
+    save_pytree(res.best_params, str(ckpt),
+                extra_meta={"seed": args.seed,
+                            "model_config": to_dict(LEGACY_CONFIG)})
+    np.save(out / f"train_losses_seed{args.seed}.npy", res.train_losses)
+    np.save(out / f"val_losses_seed{args.seed}.npy", res.val_losses)
+    print(f"[ok] saved {ckpt} (best val {res.best_val_loss:.4f})")
 
 
 def cmd_select_pairs(args):
@@ -156,6 +235,7 @@ def cmd_optimize(args):
     from vae_latent_geometry_tpu_torch.models.evae import load_npz
     from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
         optimize_spline_batch,
+        optimize_spline_batch_backstop,
     )
 
     device = resolve_device(args.device)
@@ -182,25 +262,41 @@ def cmd_optimize(args):
     phase_plan = TURBO_PHASES if args.turbo else None
     if args.coarse_bf16:
         phase_plan = coarse_bf16_plan(args.energy_mode, phase_plan)
+    energy = EnergyConfig(num_t=args.num_t, mc_samples=args.mc_samples,
+                          mode=args.energy_mode,
+                          kernel_precision=args.kernel_precision)
     cfg = GeodesicConfig(
         steps=args.steps, lr=args.lr, batch_size=args.batch_size,
-        lr_schedule=args.lr_schedule, traj_num_t=args.traj_num_t,
-        polish_steps=args.polish_steps, polish_lr=args.polish_lr,
-        phase_plan=phase_plan,
-        energy=EnergyConfig(num_t=args.num_t, mc_samples=args.mc_samples,
-                            mode=args.energy_mode,
-                            kernel_precision=args.kernel_precision),
-    )
+        lr_schedule=args.lr_schedule, early_stop=args.early_stop,
+        traj_num_t=args.traj_num_t, polish_steps=args.polish_steps,
+        polish_lr=args.polish_lr, phase_plan=phase_plan, energy=energy)
+    # --output is also the checkpoint: re-running the command resumes
     out = Path(args.output or
                f"experiment/splines_opt_{model_name}/"
                f"spline_batch_opt_{args.init_type}_{args.pair_count}.npz")
-    optimize_spline_batch(params, art, data=data, cfg=cfg, device=device,
-                          output_path=str(out),
-                          generator=torch.Generator().manual_seed(args.seed),
-                          mesh=mesh)
+    kw = dict(data=data, device=device, checkpoint_path=str(out),
+              generator=torch.Generator().manual_seed(args.seed), mesh=mesh)
+    if args.backstop_fixed:
+        # never worse than the fixed reference recipe on any pair, at the
+        # configured grid and estimator (the lengths must measure one
+        # objective for the merge to mean anything)
+        if args.num_t != 2000:
+            print(f"[backstop] note: --num-t {args.num_t} — the guarantee "
+                  "is vs the 1000-step fixed recipe at THIS grid, not the "
+                  "reference's T=2000")
+        res = optimize_spline_batch_backstop(
+            params, art, cfg=cfg,
+            backstop_cfg=GeodesicConfig(steps=1000, lr=1e-3,
+                                        batch_size=args.batch_size,
+                                        energy=energy), **kw)
+    else:
+        res = optimize_spline_batch(params, art, cfg=cfg, **kw)
     from vae_latent_geometry_tpu_torch.parallel.multihost import is_primary
 
     if is_primary():
+        n_bk = res.metadata.get("backstop_selected")
+        if n_bk is not None:
+            print(f"[backstop] fixed-recipe arm won on {n_bk} pairs")
         print(f"[ok] optimized {len(art)} splines -> {out}")
 
 
@@ -285,6 +381,39 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch device (default cuda; 'cpu' runs the "
                              "plain PyTorch versions of the kernels)")
 
+    t = sub.add_parser("train", help="train the ensemble VAE")
+    add_common(t)
+    t.add_argument("--latent-dim", type=int, default=2)
+    t.add_argument("--num-decoders", type=int, default=10)
+    t.add_argument("--epochs", type=int, default=200)
+    t.add_argument("--batch-size", type=int, default=64)
+    t.add_argument("--lr", type=float, default=1e-3)
+    t.add_argument("--seed", type=int, default=42)
+    t.add_argument("--seeds", nargs="+", type=int, default=None,
+                   help="train one model per seed in ONE program (the seed "
+                        "axis batches every product), e.g. --seeds 12 123 "
+                        "1234 12345 45 456, the reference's six CoV seeds; "
+                        "overrides --seed")
+    t.add_argument("--save-dir", default="experiment")
+    t.add_argument("--train-state", default=None,
+                   help="whole-training-state checkpoint (params, Adam "
+                        "moments, epoch): written after every block, "
+                        "resumed from when present; the resumed run repeats "
+                        "the uninterrupted one bit for bit")
+    t.set_defaults(fn=cmd_train)
+
+    ts = sub.add_parser("train-single", help="train the legacy single VAE")
+    add_common(ts)
+    ts.add_argument("--epochs", type=int, default=200)
+    ts.add_argument("--batch-size", type=int, default=64)
+    ts.add_argument("--lr", type=float, default=1e-3)
+    ts.add_argument("--seed", type=int, default=12)
+    ts.add_argument("--save-dir", default="src_artifacts")
+    ts.add_argument("--train-state", default=None,
+                    help="whole-training-state checkpoint for resume (with "
+                         "the best-val pair)")
+    ts.set_defaults(fn=cmd_train_single)
+
     s = sub.add_parser("select-pairs", help="pick class representatives")
     add_common(s)
     s.add_argument("--model", required=True)
@@ -311,6 +440,10 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--pair-count", type=int, default=10)
     o.add_argument("--steps", type=int, default=None,
                    help="Adam steps per chunk (default 1000)")
+    o.add_argument("--early-stop", action="store_true",
+                   help="chunk-level convergence exit (per-spline patience, "
+                        "checked every 50 steps, best omega restored) "
+                        "instead of the fixed step budget")
     o.add_argument("--traj-num-t", type=int, default=None,
                    help="trajectory-only quadrature resolution (final "
                         "energies still reported at --num-t)")
@@ -359,6 +492,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="precision rung of the fused kernels on trajectory "
                         "steps; final energies are always re-evaluated at "
                         "exact float32")
+    o.add_argument("--backstop-fixed", action="store_true",
+                   help="also run the fixed reference recipe (1000 steps, "
+                        "constant lr 1e-3) at the configured --num-t and "
+                        "--energy-mode and keep the per-pair better curve: "
+                        "never worse than that recipe on any pair; the MC "
+                        "modes compare exact expected energies")
     o.add_argument("--no-euclidean", action="store_true",
                    help="skip encoder Euclidean distances (no data needed)")
     o.add_argument("--dp", type=int, default=None,
@@ -366,7 +505,9 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--ep", type=int, default=1,
                    help="expert(ensemble)-parallel mesh size: the "
                         "expected_fused modes split the decoders over it")
-    o.add_argument("--output", default=None)
+    o.add_argument("--output", default=None,
+                   help="result artifact, also the per-chunk checkpoint: "
+                        "re-running the command resumes")
     o.set_defaults(fn=cmd_optimize)
 
     e = sub.add_parser(

@@ -2,10 +2,9 @@
 
 A copy of ``vae_latent_geometry_tpu.config`` with the same fields and
 defaults, so a config built for one package means the same run in the
-other.  ``early_stop``, whose feature is not yet ported, keeps its default
-here and is refused where it would change a result; ``target_num_t`` (the
-``jvp_ensemble`` / ``expected_rescaled`` resolution transfer) is ported.  ``EnergyConfig.ep_axis`` names the axis of a
-``parallel.mesh.Mesh`` that the decoder ensemble is sharded over.
+other (and a training run's config stamp is the same JSON in both).
+``EnergyConfig.ep_axis`` names the axis of a ``parallel.mesh.Mesh`` that
+the decoder ensemble is sharded over.
 """
 
 from __future__ import annotations
@@ -120,6 +119,10 @@ class TrainConfig:
     beta_warmup_epochs: int = 0
     lr_step_size: int = 0
     lr_gamma: float = 0.5
+
+
+def to_dict(cfg: Any) -> dict:
+    return dataclasses.asdict(cfg)
 
 
 def _merge(cls, base: Any, overrides: dict):

@@ -92,3 +92,13 @@ def load_tasic(data_dir: Optional[str] = None, allow_synthetic: bool = True,
         x=synthesize_tasic_like(labels, seed=seed),
         labels=labels, colors=colors, synthetic=True,
     )
+
+
+def train_val_split(n: int, val_ratio: float = 0.1, seed: int = 42):
+    """Seeded permutation split (reference ``src/train.py:148-152``:
+    randperm, first 10% validation, rest training); the JAX package's split
+    index for index."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(n)
+    n_val = int(val_ratio * n)
+    return idx[n_val:], idx[:n_val]

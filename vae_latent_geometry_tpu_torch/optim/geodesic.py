@@ -5,7 +5,13 @@ Loss semantics match the JAX package and the reference: per-spline
 Adam(lr, 0.9, 0.999, eps=1e-8) on omega only, with optax's update rule and
 learning-rate schedules written out in plain torch (:class:`Adam`,
 :func:`warmup_cosine_decay`).  The JAX package runs all steps as one
-``lax.scan``; here a Python loop drives the same steps eagerly.
+``lax.scan``; here a Python loop drives the same steps eagerly.  The
+early-stopping variant (reference
+``src/single_decoder/optimize_energy.py:119-165``: track the best energy,
+stop after ``patience`` steps without a relative improvement above
+``delta``, restore the best params) is batched over splines with a
+per-spline patience counter, checked every 50 steps
+(:func:`optimize_spline_early_stopping`).
 
 The stochastic (MC) modes draw from a stream of integer seeds derived from
 the caller's ``torch.Generator`` with the structure of the JAX package's key
@@ -67,6 +73,10 @@ class GeodesicResult(NamedTuple):
     energy: torch.Tensor      # (B,) final energy, exact float32
     lengths: torch.Tensor     # (B,) sqrt(energy)
     energy_history: Optional[torch.Tensor] = None  # (steps, B) if recorded
+    # early stopping: the Adam steps run, and the best energies as the
+    # trajectory tracked them (at the trajectory's rung and grid)
+    steps_run: Optional[int] = None
+    traj_energy: Optional[torch.Tensor] = None
 
 
 def _energy_fn(mode: str, decoders, gamma, seed: int = 0, mc_samples: int = 2,
@@ -218,6 +228,15 @@ def _ep_size(ep_axis: Optional[str], mesh) -> int:
     return mesh.size(ep_axis)
 
 
+def _traj_cfg(cfg: GeodesicConfig) -> GeodesicConfig:
+    """Config the Adam loop optimizes under: ``traj_num_t`` (when set)
+    replaces the quadrature resolution for the trajectory only."""
+    if cfg.traj_num_t is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, energy=dataclasses.replace(cfg.energy, num_t=cfg.traj_num_t))
+
+
 def _phase_cfgs(cfg: GeodesicConfig) -> list:
     """Phases the Adam loop runs, each with its own step count, quadrature
     resolution and schedule: ``phase_plan`` entries (steps, num_t,
@@ -246,8 +265,7 @@ def _phase_cfgs(cfg: GeodesicConfig) -> list:
                 energy=dataclasses.replace(cfg.energy, num_t=int(T),
                                            mode=str(mode))))
         return phases
-    coarse = cfg if cfg.traj_num_t is None else dataclasses.replace(
-        cfg, energy=dataclasses.replace(cfg.energy, num_t=cfg.traj_num_t))
+    coarse = _traj_cfg(cfg)
     if cfg.traj_num_t is None or cfg.polish_steps <= 0:
         return [coarse]
     polish = dataclasses.replace(
@@ -296,28 +314,62 @@ def warmup_cosine_decay(init_value: float, peak_value: float,
 
 class Adam:
     """optax.adam: mu/nu moments with bias correction,
-    update = -lr(count) * mu_hat / (sqrt(nu_hat) + eps), count from 0."""
+    update = -lr(count) * mu_hat / (sqrt(nu_hat) + eps), count from 0.
+
+    ``params`` is one tensor (the spline parameters) or a list of tensors
+    (a parameter tree's leaves, the trainers'); the list is updated with
+    ``torch._foreach`` ops, a few launches for every leaf at once, in
+    optax's order of operations."""
 
     def __init__(self, lr: Callable[[int], float], b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
 
-    def init(self, params: torch.Tensor):
-        return {"mu": torch.zeros_like(params), "nu": torch.zeros_like(params),
-                "count": 0}
+    def init(self, params):
+        if isinstance(params, torch.Tensor):
+            return {"mu": torch.zeros_like(params),
+                    "nu": torch.zeros_like(params), "count": 0}
+        return {"mu": [torch.zeros_like(p) for p in params],
+                "nu": [torch.zeros_like(p) for p in params], "count": 0}
+
+    def _scalars(self, state):
+        """(lr, 1 - b1^t, 1 - b2^t) of the update that state's count
+        makes, as float32 values."""
+        count = state["count"] + 1
+        return (float(np.float32(self.lr(state["count"]))),
+                float(np.float32(1.0 - self.b1 ** count)),
+                float(np.float32(1.0 - self.b2 ** count)))
 
     @torch.no_grad()
-    def step(self, params: torch.Tensor, grad: torch.Tensor, state) -> None:
+    def step(self, params, grad, state) -> None:
         """Update ``params`` in place."""
+        if not isinstance(params, torch.Tensor):
+            return self._step_leaves(params, grad, state)
+        lr, c1, c2 = self._scalars(state)
         b1, b2 = self.b1, self.b2
         mu = state["mu"].mul_(b1).add_(grad, alpha=1.0 - b1)
         nu = state["nu"].mul_(b2).addcmul_(grad, grad, value=1.0 - b2)
-        count = state["count"] + 1
-        mu_hat = mu / np.float32(1.0 - b1 ** count)
-        nu_hat = nu / np.float32(1.0 - b2 ** count)
-        upd = mu_hat / (torch.sqrt(nu_hat) + self.eps)
-        params.add_(upd, alpha=-float(np.float32(self.lr(state["count"]))))
-        state["count"] = count
+        params.add_((mu / c1) / (torch.sqrt(nu / c2) + self.eps), alpha=-lr)
+        state["count"] += 1
+
+    def _step_leaves(self, params, grads, state) -> None:
+        lr, c1, c2 = self._scalars(state)
+        mu, nu = state["mu"], state["nu"]
+        # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - self.b1))
+        g2 = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(g2, 1.0 - self.b2)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, g2)
+        den = torch._foreach_div(nu, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(mu, c1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(params, upd)
+        state["count"] += 1
 
 
 def _make_opt(cfg: GeodesicConfig) -> Adam:
@@ -349,8 +401,6 @@ def optimize_splines(decoders, omega0, a, b, basis, cfg: GeodesicConfig,
     then this rank's subset and every rank of that axis calls together
     (``parallel/shard.sharded_optimize_splines`` arranges both).
     """
-    if cfg.early_stop:
-        raise ValueError("early stopping is not available in the PyTorch port")
     root = root_seed(generator)
     dev = resolve_device(device)
     ep_group = (mesh.group(cfg.energy.ep_axis)
@@ -383,3 +433,74 @@ def optimize_splines(decoders, omega0, a, b, basis, cfg: GeodesicConfig,
     return GeodesicResult(
         omega=omega, energy=e_final, lengths=torch.sqrt(e_final),
         energy_history=torch.stack(hists) if record_history else None)
+
+
+def _optimize_early_stop(decoders, omega0, a, b, basis, cfg: GeodesicConfig,
+                         num_active=None, block: int = 50, device=None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> GeodesicResult:
+    """Early stopping with per-spline best/patience tracking every step and
+    a convergence check only every ``block`` steps (one host read per
+    block): the run stops at the first block end where every spline has
+    gone more than ``cfg.patience`` steps without a relative improvement
+    above ``cfg.delta``.  The ``cfg.steps`` budget is exact: no step past it
+    runs.  The restored omega is the one that ACHIEVED the best energy,
+    i.e. before that step's update (the reference tracks and restores
+    exactly these, ``src/single_decoder/optimize_energy.py:149-163``).
+
+    Every step needs the energy value, so the fused modes launch their
+    forward kernel on every step (no grad-only trajectory).  The MC modes
+    draw step ``i`` from the stream ``optimize_splines`` gives step ``i``,
+    so the trajectory is the fixed-step one up to the stop."""
+    root = root_seed(generator)
+    dev = resolve_device(device)
+    loss_fn = make_loss_fn(decoders, basis, _traj_cfg(cfg), dev)
+    opt = _make_opt(cfg)
+    omega = torch.as_tensor(omega0, dtype=torch.float32, device=dev).clone()
+    a = torch.as_tensor(a, dtype=torch.float32, device=dev)
+    b = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    state = opt.init(omega)
+    with torch.no_grad():
+        _, best_e = loss_fn(omega, a, b, fold_seed(root, 0), num_active)
+    best_omega = omega.clone()
+    patience = torch.zeros(omega.shape[0], dtype=torch.int32, device=dev)
+    step_seed = fold_seed(root, 1)
+    step = 0
+    while step < cfg.steps and int(patience.min()) <= cfg.patience:
+        for i in range(step, min(step + block, cfg.steps)):
+            om = omega.detach().requires_grad_(True)
+            total, e = loss_fn(om, a, b, fold_seed(step_seed, i), num_active)
+            (grad,) = torch.autograd.grad(total, om)
+            e = e.detach()
+            improved = (best_e - e) / best_e > cfg.delta
+            best_e = torch.where(improved, e, best_e)
+            best_omega = torch.where(improved[:, None, None], omega,
+                                     best_omega)
+            patience = torch.where(improved, 0, patience + 1)
+            opt.step(omega, grad, state)
+        step = min(step + block, cfg.steps)
+    # exact energies at the restored params (reduced rungs only steer)
+    with torch.no_grad():
+        exact_loss = make_loss_fn(decoders, basis, _exact_cfg(cfg), dev)
+        _, e_final = exact_loss(best_omega, a, b, fold_seed(root, 0),
+                                num_active)
+    return GeodesicResult(omega=best_omega, energy=e_final,
+                          lengths=torch.sqrt(e_final), steps_run=step,
+                          traj_energy=best_e)
+
+
+def optimize_spline_early_stopping(decoders, omega0, a, b, basis,
+                                   cfg: GeodesicConfig, num_active=None,
+                                   device=None,
+                                   generator: Optional[torch.Generator] = None
+                                   ) -> GeodesicResult:
+    """Best-params-restoring early-stopped optimization, batched over B
+    with per-spline patience counters (:func:`_optimize_early_stop`).
+    Returned energies are exact float32 at the restored omega."""
+    if cfg.phase_plan or (cfg.traj_num_t is not None and cfg.polish_steps > 0):
+        raise ValueError(
+            "early stopping and the multi-phase fast recipes (traj_num_t + "
+            "polish_steps, or phase_plan) are mutually exclusive — pick one")
+    return _optimize_early_stop(decoders, omega0, a, b, basis, cfg,
+                                num_active, device=device,
+                                generator=generator)

@@ -59,6 +59,21 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
     return _PSum.apply(x, group)
 
 
+def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``x`` of global rank ``src`` on every rank of ``group``, as a new
+    tensor (no autograd)."""
+    if group is None:
+        return x
+    import torch.distributed as dist
+
+    out = x.detach().clone().contiguous()
+    buf, staged = _on_wire(out, group)
+    dist.broadcast(buf, src=src, group=group)
+    if staged:
+        out.copy_(buf)
+    return out
+
+
 def all_gather_cat(x: torch.Tensor, group) -> torch.Tensor:
     """The ranks' equally-shaped ``x`` concatenated along axis 0 in rank
     order, on every rank (no autograd)."""

@@ -8,6 +8,8 @@
   computes, exactly one persists).
 - :func:`gather_global`: the dp-sharded rows of a result, reassembled on
   every rank.
+- :func:`broadcast_from_primary`: rank 0's host values (a resumed
+  checkpoint's state) on every rank.
 
 The JAX package's ``put_global`` has no counterpart: every rank holds the
 whole input and slices its own rows (``parallel/shard.py``).
@@ -91,3 +93,16 @@ def gather_global(x: torch.Tensor, mesh) -> torch.Tensor:
     """Rows sharded over the mesh's 'dp' axis, reassembled in dp order on
     every rank."""
     return all_gather_cat(x, mesh.group("dp"))
+
+
+def broadcast_from_primary(values):
+    """Rank 0's ``values`` (any picklable object) on every rank of the
+    default process group; unchanged without one."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() == 1:
+        return values
+    box = [values if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]

@@ -51,7 +51,7 @@ def run_distance_pipeline(
     geo_cfg: GeodesicConfig = GeodesicConfig(),
     mesh=None,
     compute_euclidean: bool = True,
-    output_path: Optional[str] = None,
+    checkpoint_path: Optional[str] = None,
     verbose: bool = True,
     device=None,
     generator: Optional[torch.Generator] = None,
@@ -60,8 +60,9 @@ def run_distance_pipeline(
 
     params: EVAE parameters on ``device``.  With a ``mesh`` the optimize
     stage is sharded over its ranks (every rank runs the cheap host stages
-    redundantly); ``output_path`` saves the optimized artifact (primary rank
-    only)."""
+    redundantly); ``checkpoint_path`` checkpoints the optimize stage there
+    per chunk, resumes it from there and saves the optimized artifact there
+    (primary rank only)."""
     dev = resolve_device(device)
 
     def sync():
@@ -89,7 +90,7 @@ def run_distance_pipeline(
     t0 = time.perf_counter()
     art = optimize_spline_batch(
         params, art, data=data if compute_euclidean else None, cfg=geo_cfg,
-        device=dev, output_path=output_path, log_every_chunk=verbose,
+        device=dev, checkpoint_path=checkpoint_path, log_every_chunk=verbose,
         generator=generator, mesh=mesh)
     sync()
     timings["optimize"] = time.perf_counter() - t0
