@@ -7,19 +7,22 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
 1. build   — compile the CUDA kernels from ``vae_latent_geometry_tpu_torch/
              ops/csrc`` with nvcc (sm_90a); card name, power limit, versions;
-             the tensor-core instructions (HMMA) in K2's, K3/K4's and
-             K6/K8's SASS: present in the production shape's mma kernels at
-             the reduced rungs, absent at float32, in the forward MC kernels
-             and in the generic decode's kernels; none, no stack and no
-             spill in the float32 forward kernels on decode_f32.cuh
-             (``k1_fwd_fma``, ``mc_fwd_fma``).
+             the tensor-core instructions (HMMA) in K1's, K2's, K3/K4's,
+             K5-K8's and K9/K10's SASS: present in the production shape's
+             mma kernels at the reduced rungs, absent at float32 and in the
+             generic decode's kernels; none, no stack and no spill in the
+             float32 forward kernels on decode_f32.cuh (``k1_fwd_fma``,
+             ``mc_fwd_fma``); no stack and no spill in the reduced-rung
+             forward kernels on tiles_mma.cuh (``k1_tiles_mma``,
+             ``mc_tiles_mma``).
 2. kernels — at full width (seed-42 10-decoder EVAE, the 190 seed-42 init
              curves padded to B=200, T=2000, S=2 MC samples): each kernel
              against its plain PyTorch version on the same inputs, every
              precision rung, M=10 and M=1, and once with mixed per-spline
-             decoder counts, and K5-K8 at S=12 (float32 and f32x2); a
+             decoder counts, and K5-K8 at S=12 (every rung); a
              second call of K1, K2 and K5-K8 bitwise equal to the first;
-             CUDA-event times of kernel and plain version.
+             CUDA-event times of kernel and plain version, K1 and K5/K7 at
+             every rung (early stop's every step at the reduced rungs).
              The stats kernels (K3/K4) on local shards of 10, 5 and 1
              decoders with random smooth cotangents, every rung, each call
              repeated bitwise, and
@@ -120,19 +123,23 @@ Phases, each printing one JSON line; any failure exits nonzero:
              after two chunks: the resumed artifact equals the uninterrupted
              one bit for bit, a foreign stamp is ignored (every chunk
              recomputed), launches counted;
-             early_stop — the production chunk at expected_fused f32x2,
-             budget 1000: steps run, K1/K2 launches (one each per step),
-             steps/s, the restored omega re-evaluated at the trajectory
-             rung equals the tracked best energy bit for bit, lengths
-             against phase main;
+             early_stop — the production chunk at f32x2, budget 1000, at
+             expected_fused (K1/K2 launches, one each per step; the
+             restored omega re-evaluated at the trajectory rung equals the
+             tracked best energy bit for bit) and at mc_fused with
+             in-kernel draws (K7/K8 launches, one each per step; the same
+             seed twice bit for bit; lengths within MC_LEN_MED / MC_LEN_MAX
+             of phase main's): steps run, steps/s, lengths against phase
+             main;
              backstop — the cut turbo plan against the fixed recipe at
              BACKSTOP_STEPS steps, at expected_fused and mc_fused: the merge
              never above either arm, each arm's wins.
 15. the ``kernels`` summary line (each kernel with its records on those
     shapes), the card line, and the result line.
 
-At the reduced rungs K2, K3/K4 and K6/K8 run on the tensor cores
-(``csrc/decode_mma.cuh``): the kernels phase also holds K2 on random
+At the reduced rungs every kernel of the production shape runs on the
+tensor cores (``csrc/decode_mma.cuh``; K1/K9 and K5/K7 over the tiles of
+``csrc/tiles_mma.cuh``): the kernels phase also holds K2 on random
 decoders at X = 7 and 64 with a ragged tile, and every K2 call there is
 repeated and must be bitwise equal.
 The kernels phase also holds the four MC kernels (K5-K8) against their plain
@@ -496,8 +503,10 @@ def check_hmma(hmma, mma_kernels, fma_kernels, any_kernels):
 
 # the float32 forward-energy kernels on decode_f32.cuh: (source, kernel)
 FWD_FMA = (("energy_expected", "k1_fwd_fma"), ("energy_mc", "mc_fwd_fma"))
-# K9's and K10's tensor-core kernels (energy_transposed.cu)
-T_MMA = ("k9_tiles_mma", "k10_mma")
+# the reduced-rung forward-energy kernels on tiles_mma.cuh: (source, kernel)
+FWD_MMA = (("energy_expected", "k1_tiles_mma"), ("energy_mc", "mc_tiles_mma"))
+# K9's and K10's tensor-core kernels (energy_transposed.cu; K9's is K1's)
+T_MMA = ("k1_tiles_mma", "k10_mma")
 
 
 def ptxas_of(log, kernel):
@@ -2577,10 +2586,16 @@ def resume_phase(params, art, cfg, dev, ef):
 
 
 def early_stop_phase(params, art, cfg, dev, ef, main_lengths):
-    """Early stopping at the production chunk (B=200, T=2000,
-    expected_fused f32x2, budget STEPS): steps run, K1/K2 launches,
-    steps/s; the restored omega re-evaluated at the trajectory rung gives
-    the tracked best energy bit for bit."""
+    """Early stopping at the production chunk (B=200, T=2000, f32x2,
+    budget STEPS), both arms evaluating the energy at the trajectory rung
+    on every step: ``expected_fused`` (K1 and K2 a step; the restored omega
+    re-evaluated at that rung gives the tracked best energy bit for bit)
+    and ``mc_fused`` with in-kernel draws (K7 and K8 a step, final energies
+    by ``expected_fused``; the same seed twice gives the same omega and
+    steps run bit for bit; the re-evaluation of the restored omega draws
+    with another seed, so the bitwise energy check is the expected arm's
+    only).  Steps run, launches, steps/s, lengths against phase main.
+    Returns {arm: record}."""
     import torch
 
     from vae_latent_geometry_tpu_torch.optim.geodesic import (
@@ -2590,43 +2605,79 @@ def early_stop_phase(params, art, cfg, dev, ef, main_lengths):
     idx = np.concatenate([np.arange(len(art)),
                           np.full(B - len(art), len(art) - 1)])
     ecfg = dataclasses.replace(cfg, early_stop=True)
-    torch.cuda.synchronize()
-    ef.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = optimize_spline_early_stopping(
-        params.decoders, art.omega_init[idx], art.a[idx], art.b[idx],
-        art.basis, ecfg, device=dev)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(ef.LAUNCHES)
-    with torch.no_grad():
-        _, e_again = make_loss_fn(params.decoders, art.basis,
-                                  _traj_cfg(ecfg), dev)(
-            res.omega, torch.as_tensor(art.a[idx], device=dev),
-            torch.as_tensor(art.b[idx], device=dev))
-    lengths = res.lengths.double().cpu().numpy()[:len(art)]
-    rel = np.abs(lengths / main_lengths - 1)
-    rec = {"phase": "early_stop", "mode": "expected_fused",
-           "precision": "f32x2", "B": B, "T": cfg.energy.num_t,
-           "budget": ecfg.steps, "patience": ecfg.patience,
-           "delta": ecfg.delta, "steps_run": res.steps_run,
-           "optimize_s": secs, "steps_per_s": res.steps_run / secs,
-           "launches": launches,
-           "restored_energy_bitwise": bool(torch.equal(e_again,
-                                                       res.traj_energy)),
-           "lengths_finite": bool(np.isfinite(lengths).all()),
-           "vs_main_len_rel_median": float(np.median(rel)),
-           "vs_main_len_rel_max": float(rel.max())}
-    emit(rec)
-    if not (rec["restored_energy_bitwise"] and rec["lengths_finite"]):
-        fail("early_stop: the restored omega does not give the tracked best "
-             "energy, or its lengths are not finite")
-    want = {"energy_fwd": res.steps_run + 2, "energy_bwd": res.steps_run}
-    for name, count in launches.items():
-        if count != want.get(name, 0):
-            fail(f"early_stop: {name} launched {count} times, expected "
-                 f"{want.get(name, 0)}")
-    return rec
+    mc_ecfg = dataclasses.replace(
+        ecfg, final_energy_mode="expected_fused",
+        energy=dataclasses.replace(cfg.energy, mode="mc_fused",
+                                   mc_samples=MC_SAMPLES,
+                                   mc_inkernel_rng=True))
+
+    def run(run_cfg):
+        torch.cuda.synchronize()
+        ef.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = optimize_spline_early_stopping(
+            params.decoders, art.omega_init[idx], art.a[idx], art.b[idx],
+            art.basis, run_cfg, device=dev,
+            generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(ef.LAUNCHES)
+
+    recs = {}
+    for arm, run_cfg in (("expected_fused", ecfg), ("mc_fused", mc_ecfg)):
+        res, secs, launches = run(run_cfg)
+        lengths = res.lengths.double().cpu().numpy()[:len(art)]
+        rel = np.abs(lengths / main_lengths - 1)
+        rec = {"phase": "early_stop", "mode": arm,
+               "precision": "f32x2", "B": B, "T": cfg.energy.num_t,
+               "budget": run_cfg.steps, "patience": run_cfg.patience,
+               "delta": run_cfg.delta, "steps_run": res.steps_run,
+               "optimize_s": secs, "steps_per_s": res.steps_run / secs,
+               "launches": launches,
+               "lengths_finite": bool(np.isfinite(lengths).all()),
+               "vs_main_len_rel_median": float(np.median(rel)),
+               "vs_main_len_rel_max": float(rel.max())}
+        if arm == "expected_fused":
+            with torch.no_grad():
+                _, e_again = make_loss_fn(params.decoders, art.basis,
+                                          _traj_cfg(run_cfg), dev)(
+                    res.omega, torch.as_tensor(art.a[idx], device=dev),
+                    torch.as_tensor(art.b[idx], device=dev))
+            rec["restored_energy_bitwise"] = bool(torch.equal(
+                e_again, res.traj_energy))
+            # K1 at the start, every step and at float32 at the end
+            want = {"energy_fwd": res.steps_run + 2,
+                    "energy_bwd": res.steps_run}
+        else:
+            again, _, _ = run(run_cfg)
+            rec["repeat_bitwise"] = bool(
+                again.steps_run == res.steps_run
+                and torch.equal(again.omega, res.omega)
+                and torch.equal(again.traj_energy, res.traj_energy))
+            # K7 at the start and every step, K8 every step, K1 at float32
+            # at the end
+            want = {"energy_mc_fwd_rng": res.steps_run + 1,
+                    "energy_mc_bwd_rng": res.steps_run, "energy_fwd": 1}
+        emit(rec)
+        if not rec["lengths_finite"]:
+            fail(f"early_stop {arm}: lengths not finite")
+        if not rec.get("restored_energy_bitwise", True):
+            fail("early_stop: the restored omega does not give the tracked "
+                 "best energy")
+        if not rec.get("repeat_bitwise", True):
+            fail("early_stop mc_fused: the same seed did not repeat the run "
+                 "bit for bit")
+        if arm == "mc_fused" and (
+                rec["vs_main_len_rel_median"] > MC_LEN_MED
+                or rec["vs_main_len_rel_max"] > MC_LEN_MAX):
+            fail(f"early_stop mc_fused: lengths vs phase main: median "
+                 f"{rec['vs_main_len_rel_median']:.3g}, max "
+                 f"{rec['vs_main_len_rel_max']:.3g}")
+        for name, count in launches.items():
+            if count != want.get(name, 0):
+                fail(f"early_stop {arm}: {name} launched {count} times, "
+                     f"expected {want.get(name, 0)}")
+        recs[arm] = rec
+    return recs
 
 
 def backstop_phase(params, art, cfg, dev, ef):
@@ -2737,16 +2788,21 @@ def main() -> int:
           "stats_sass_hmma": stats_hmma, "transposed_sass_hmma": t_hmma,
           "fwd_fma_ptxas": {k: ptxas_of(_build.BUILD_LOG[src], k)
                             for src, k in FWD_FMA},
+          "fwd_mma_ptxas": {k: ptxas_of(_build.BUILD_LOG[src], k)
+                            for src, k in FWD_MMA},
           "transposed_mma_ptxas": {k: ptxas_of(_build.BUILD_LOG[
               "energy_transposed"], k) for k in T_MMA}})
-    # K2's, K3/K4's and K6/K8's reduced rungs run on the tensor cores in the
-    # mma kernels of the production shape, their float32 rung does not (TF32 is
-    # barred), nor does the generic decode at any rung, nor the forward
-    # energies' mc_segments (K5/K7) at any rung
+    # K1's, K2's, K3/K4's and K5-K8's reduced rungs run on the tensor cores
+    # in the mma kernels of the production shape, their float32 rung does
+    # not (TF32 is barred: k1_fwd_fma, mc_fwd_fma, and mc_segments, the
+    # float32 K6/K8's first pass), nor does the generic decode at any rung
     check_hmma(hmma, ("k2_xbar_mma", "k2_chain_mma"), ("k2_xbar", "k2_chain"),
                ("k2_xbar_any", "k2_chain_any"))
-    check_hmma(mc_hmma, ("mc_select_mma", "mc_chain_mma"), ("mc_chain",),
-               ("mc_segments", "mc_segments_any", "mc_chain_any"))
+    check_hmma(k1_hmma, ("k1_tiles_mma",), ("k1_fwd_fma",),
+               ("k1_energy_tiles_any",))
+    check_hmma(mc_hmma, ("mc_select_mma", "mc_chain_mma", "mc_tiles_mma"),
+               ("mc_chain", "mc_segments", "mc_fwd_fma"),
+               ("mc_segments_any", "mc_chain_any"))
     check_hmma(stats_hmma, ("k3_stats_mma", "k4_stats_chain_mma"),
                ("k3_stats", "k4_stats_chain"),
                ("k3_stats_any", "k4_stats_chain_any"))
@@ -2759,12 +2815,13 @@ def main() -> int:
         if r.get("spill_bytes") != 0 or r.get("stack_bytes") != 0:
             fail(f"ptxas of {k}: {r}")
     # the float32 forward energies (K1, K5/K7) on decode_f32.cuh: FMAs only,
-    # no stack, no spill
+    # no stack, no spill; their reduced-rung kernels on tiles_mma.cuh: no
+    # stack, no spill
     for key, n in (("k1_fwd_fma<0>", k1_hmma.get("k1_fwd_fma<0>")),
                    ("mc_fwd_fma<0>", mc_hmma.get("mc_fwd_fma<0>"))):
         if n != 0:
             fail(f"SASS of {key}: {n} HMMA instructions")
-    for src, k in FWD_FMA:
+    for src, k in FWD_FMA + FWD_MMA:
         r = ptxas_of(_build.BUILD_LOG[src], k)
         if r.get("spill_bytes") != 0 or r.get("stack_bytes") != 0:
             fail(f"ptxas of {k}: {r}")
@@ -2917,10 +2974,16 @@ def main() -> int:
             else:
                 rec["bwd_ms"] = time_ms(
                     lambda: ef.energy_bwd(ws, bs, gamma, wmb, ct, prec), 5)
-                if M > 1:   # K1 (early stop's every step), K6/K8
+                if M > 1:   # K1 and K5/K7 (early stop's every step), K6/K8
                     rec["fwd_ms"] = time_ms(
                         lambda: ef.energy_fwd(ws, bs, gamma, wmb, prec), 5)
                     d1, d2, kmax, _, _ = mc_inputs(M, None)
+                    rec["mc_fwd_ms"] = time_ms(lambda: mc.energy_mc_fwd(
+                        ws, bs, gamma, d1, d2, prec), 5)
+                    rec["mc_rng_fwd_ms"] = time_ms(
+                        lambda: mc.energy_mc_fwd_rng(
+                            ws, bs, gamma, mc_seed, kmax, MC_SAMPLES, prec),
+                        5)
                     rec["mc_bwd_ms"] = time_ms(lambda: mc.energy_mc_bwd(
                         ws, bs, gamma, d1, d2, mc_ct, prec), 5)
                     rec["mc_rng_bwd_ms"] = time_ms(
@@ -2939,25 +3002,24 @@ def main() -> int:
     emit(rec)
     errors[("mixed", "f32x2")] = rec
     # K5-K8 at more samples than one sweep of staged draws (the backward
-    # kernels once refused S > 8): the CUDA-core kernels at float32, the
-    # tensor-core pair at f32x2; ms of K6/K8
-    for prec in ("float32", "f32x2"):
+    # kernels once refused S > 8; the tensor-core forward holds 4 samples a
+    # sweep): every rung; ms of K5/K7 and, at float32 and f32x2, of K6/K8
+    for prec in ef.PRECISIONS:
         rec = {"phase": "kernels", "M": ws_all[0].shape[0], "precision": prec,
                **mc_check(ws_all, bs_all, ws_all[0].shape[0], prec, None,
                           MC_SAMPLES_WIDE)}
         d1, d2, kmax, _, _ = mc_inputs(ws_all[0].shape[0], None,
                                        MC_SAMPLES_WIDE)
-        if prec == "float32":   # K5/K7: one decode per drawn decoder
-            rec["mc_fwd_ms"] = time_ms(lambda: mc.energy_mc_fwd(
-                ws_all, bs_all, gamma, d1, d2, prec), 2)
-            rec["mc_rng_fwd_ms"] = time_ms(lambda: mc.energy_mc_fwd_rng(
-                ws_all, bs_all, gamma, mc_seed, kmax, MC_SAMPLES_WIDE, prec),
-                2)
-        rec["mc_bwd_ms"] = time_ms(lambda: mc.energy_mc_bwd(
-            ws_all, bs_all, gamma, d1, d2, mc_ct, prec), 2)
-        rec["mc_rng_bwd_ms"] = time_ms(lambda: mc.energy_mc_bwd_rng(
-            ws_all, bs_all, gamma, mc_seed, kmax, MC_SAMPLES_WIDE, mc_ct,
-            prec), 2)
+        rec["mc_fwd_ms"] = time_ms(lambda: mc.energy_mc_fwd(
+            ws_all, bs_all, gamma, d1, d2, prec), 2)
+        rec["mc_rng_fwd_ms"] = time_ms(lambda: mc.energy_mc_fwd_rng(
+            ws_all, bs_all, gamma, mc_seed, kmax, MC_SAMPLES_WIDE, prec), 2)
+        if prec in ("float32", "f32x2"):
+            rec["mc_bwd_ms"] = time_ms(lambda: mc.energy_mc_bwd(
+                ws_all, bs_all, gamma, d1, d2, mc_ct, prec), 2)
+            rec["mc_rng_bwd_ms"] = time_ms(lambda: mc.energy_mc_bwd_rng(
+                ws_all, bs_all, gamma, mc_seed, kmax, MC_SAMPLES_WIDE, mc_ct,
+                prec), 2)
         del d1, d2
         emit(rec)
         errors[(f"S{MC_SAMPLES_WIDE}", prec)] = rec
@@ -3358,11 +3420,27 @@ def main() -> int:
                 "ms_by_launch_f32x2": prof_rec.get(key + "_ms_by_launch")}
 
     def mc_fwd_extra(key):
-        """K5's or K7's design and its time at MC_SAMPLES_WIDE samples."""
+        """K5's or K7's design, its times at the reduced rungs and at
+        MC_SAMPLES_WIDE samples at every rung, its bound at f32x2 and its
+        launches on the early-stop arm at mc_fused."""
         wide = f"S{MC_SAMPLES_WIDE}"
+        n = n_pl if key == "mc_fwd" else n_rng
         return {"design": "mc_fwd_fma (decode_f32.cuh, float32): selective "
-                          "decode of the drawn decoders",
-                f"ms_{wide}": errors[(wide, "float32")][key + "_ms"]}
+                          "decode of the drawn decoders; mc_tiles_mma "
+                          "(mma.sync bf16, decode_mma<R, true>) at the "
+                          "reduced rungs: K1's tiles, every drawn decoder "
+                          "decoded once a sweep of samples, the differences "
+                          "in shared memory",
+                "ms_f32x2": times["f32x2"][key + "_ms"],
+                **{f"ms_{p}": errors[(M, p)][key + "_ms"]
+                   for p in ("f32x3", "bfloat16")},
+                **{f"ms_{wide}_{p}": errors[(wide, p)][key + "_ms"]
+                   for p in ef.PRECISIONS},
+                "bound_ms_f32x2": 1e3 * n * decode_flops(D, H, X, 2)
+                / PEAK_BF16,
+                "launches_early_stop": es_rec["mc_fused"]["launches"].get(
+                    "energy_mc_fwd" if key == "mc_fwd"
+                    else "energy_mc_fwd_rng", 0)}
 
     kernels = [
         {"name": "energy_fwd (K1, float32 final re-evaluation)",
@@ -3376,13 +3454,18 @@ def main() -> int:
          "bound_ms": 1e3 * k1_bound, "bound_by": "operations",
          "library_ms": None,
          "design": "k1_fwd_fma (decode_f32.cuh, float32): cp.async-staged "
-                   "weights, 128-row tiles of one spline; k1_energy_tiles "
-                   "at the reduced rungs (early stop's every step)",
+                   "weights, 128-row tiles of one spline; k1_tiles_mma "
+                   "(tiles_mma.cuh, mma.sync bf16, decode_mma<R, true>) at "
+                   "the reduced rungs (early stop's every step): tiles of "
+                   "32 rows x 4 splines, one row of overlap",
          "ms_f32x2": times["f32x2"]["fwd_ms"],
          **{f"ms_{p}": errors[(M, p)]["fwd_ms"]
             for p in ("f32x3", "bfloat16")},
          "bound_ms_reduced_rungs": 1e3 * k3_bound[0],
-         "launches_early_stop": es_rec["launches"]["energy_fwd"]},
+         "launches_early_stop": es_rec["expected_fused"]["launches"][
+             "energy_fwd"],
+         "launches_early_stop_mc": es_rec["mc_fused"]["launches"].get(
+             "energy_fwd", 0)},
         {"name": "energy_bwd (K2, f32x2 trajectory steps)",
          "route": "cuda",
          "source": "vae_latent_geometry_tpu_torch/ops/csrc/energy_expected.cu",
@@ -3399,7 +3482,8 @@ def main() -> int:
          "ms_float32": times["float32"]["bwd_ms"],
          "ms_M1_bfloat16": errors[(1, "bfloat16")]["bwd_ms"],
          "launches_single_bf16": single_rec["launches"]["energy_bwd"],
-         "launches_early_stop": es_rec["launches"]["energy_bwd"]},
+         "launches_early_stop": es_rec["expected_fused"]["launches"][
+             "energy_bwd"]},
         {**stats_kernel("stats_fwd (K3, f32x2 trajectory steps, M_loc=10)",
                         472, ep_rec["launches"]["stats_fwd"], "yb_max_abs",
                         "stats_fwd", k3_bound),
@@ -3423,10 +3507,10 @@ def main() -> int:
          "plain_ms": t_times["float32"]["k9_plain_ms"],
          "bound_ms": 1e3 * max(k9_bound), "bound_by": bound_by(k9_bound),
          "library_ms": None,
-         "design": "k1_fwd_fma (K1's float32 kernel, decode_f32.cuh) on the "
-                   "uniform weight plane; k9_tiles_mma (mma.sync bf16, "
-                   "tiles of 32 rows x 4 splines, one row of overlap) at "
-                   "the reduced rungs",
+         "design": "K1's kernels on the uniform weight plane: k1_fwd_fma "
+                   "(decode_f32.cuh) at float32, k1_tiles_mma (mma.sync "
+                   "bf16, tiles of 32 rows x 4 splines, one row of overlap) "
+                   "at the reduced rungs",
          **{f"ms_{p}": t_times[p]["k9_ms"]
             for p in ("f32x3", "f32x2", "bfloat16")},
          "k1_ms_same_call": t_times["float32"]["k1_ms"]},
@@ -3468,7 +3552,9 @@ def main() -> int:
                      "in-kernel draws)", 235, mc_launches["energy_mc_bwd_rng"],
                      "mc_rng_dgamma_max_abs", "mc_rng_bwd", "f32x2",
                      mc_bounds["k8"]),
-         **mc_bwd_extra("mc_rng_bwd")},
+         **mc_bwd_extra("mc_rng_bwd"),
+         "launches_early_stop": es_rec["mc_fused"]["launches"][
+             "energy_mc_bwd_rng"]},
     ]
 
     # each kernel's records on the other decoder shapes (on the optimized

@@ -156,14 +156,14 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
     headers = {
         "energy_expected": {"decode_mma.cuh", "decode_common.cuh",
                             "decode_f32.cuh", "decode_any.cuh",
-                            "k1_fwd_f32.cuh"},
+                            "k1_fwd_f32.cuh", "tiles_mma.cuh"},
         "energy_mc": {"decode_mma.cuh", "decode_common.cuh", "decode_f32.cuh",
-                      "decode_any.cuh"},
+                      "decode_any.cuh", "tiles_mma.cuh"},
         "energy_stats": {"decode_mma.cuh", "decode_common.cuh",
                          "decode_any.cuh"},
         "energy_transposed": {"decode_mma.cuh", "decode_common.cuh",
                               "decode_f32.cuh", "decode_any.cuh",
-                              "k1_fwd_f32.cuh"}}
+                              "k1_fwd_f32.cuh", "tiles_mma.cuh"}}
     for name, want in headers.items():
         files = [p.name for p in _build.source_files(name)]
         assert files[0] == f"{name}.cu" and set(files[1:]) == want
@@ -174,7 +174,7 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
     before = {n: _build._target(n).name for n in _build.SIGNATURES}
     # each header renames exactly the libraries that include it
     for header in ("decode_common.cuh", "decode_any.cuh", "decode_mma.cuh",
-                   "decode_f32.cuh", "k1_fwd_f32.cuh"):
+                   "decode_f32.cuh", "k1_fwd_f32.cuh", "tiles_mma.cuh"):
         with open(tmp_path / header, "a") as f:
             f.write("// edited\n")
         after = {n: _build._target(n).name for n in _build.SIGNATURES}
@@ -200,7 +200,7 @@ def test_console_script_and_package_data_in_pyproject():
     for src in ("energy_expected.cu", "energy_mc.cu", "energy_stats.cu",
                 "energy_transposed.cu", "decode_common.cuh",
                 "decode_mma.cuh", "decode_any.cuh", "decode_f32.cuh",
-                "k1_fwd_f32.cuh"):
+                "k1_fwd_f32.cuh", "tiles_mma.cuh"):
         assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
     from setuptools import find_packages
 
@@ -883,6 +883,75 @@ def test_fwd_f32_kernels_match_plain_versions_on_gpu(T, B, M, D, X):
         assert torch.equal(e7, mc.energy_mc_fwd(ws, bs, g, p1, p2, "float32"))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B,M,D,X", [
+    (2000, 200, 10, 2, 50),   # the production chunk, the committed model
+    (300, 6, 10, 2, 50),      # T - 1 not a multiple of 31, B not of 4
+    (70, 3, 1, 2, 50),        # one decoder
+    (129, 5, 16, 4, 64),      # sixteen decoders, the widest latent and output
+    (33, 1, 3, 1, 8),         # the narrowest output, one spline
+])
+@pytest.mark.parametrize("precision", ["f32x3", "f32x2", "bfloat16"])
+def test_fwd_tiles_kernels_match_plain_versions_on_gpu(precision, T, B, M, D,
+                                                       X):
+    """The reduced-rung forward energies on the tensor cores (K1's
+    k1_tiles_mma, K5/K7's mc_tiles_mma over K1's tiles) against their plain
+    versions under chip_smoke's limits (E_RTOL; at bfloat16 E_RTOL_BF16_M1
+    at M = 1 and otherwise the transposed test's 5e-5 for K1 and
+    E_RTOL_MC_BF16 for K5/K7): per-spline decoder counts 1, 3 and M in turn,
+    S = 1, 2, 3, 12 on both draw routes (12: three sweeps of samples); every
+    call repeated bitwise, K7 = K5 on the planes of ``philox_draws``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+
+    lim = _chip_smoke()
+    rng = np.random.default_rng([T, B, M, D, X])
+    if (T, B) == (2000, 200):
+        p = load_npz(os.path.join(REPO, "experiment", "model_seed42.npz"))
+        ws, bs = ef.stack_weights(p.decoders)
+    else:
+        ws, bs = _random_decoders(rng, M, D, X, "cuda")
+    g = torch.as_tensor(rng.normal(size=(T, B, D)).astype(np.float32) * 2,
+                        device="cuda")
+    counts = torch.as_tensor([min((1, 3, M)[b % 3], M) for b in range(B)],
+                             device="cuda")
+    bf16 = precision == "bfloat16"
+    e_rtol = (lim.E_RTOL if not bf16 else
+              lim.E_RTOL_BF16_M1 if M == 1 else 5e-5)
+    mc_rtol = (lim.E_RTOL if not bf16 else
+               lim.E_RTOL_BF16_M1 if M == 1 else lim.E_RTOL_MC_BF16)
+    for wmb in (ef.uniform_weights(M, B, "cuda"),
+                ef.active_weights(counts, M, B, "cuda").contiguous()):
+        e1 = ef.energy_fwd(ws, bs, g, wmb, precision)
+        torch.testing.assert_close(
+            e1, ef.energy_fwd_plain(ws, bs, g, wmb, precision), rtol=e_rtol,
+            atol=0)
+        assert torch.equal(e1, ef.energy_fwd(ws, bs, g, wmb, precision))
+    kmax = counts.float()
+    for S in (1, 2, 3, 12):
+        d1, d2 = mc.sample_decoder_indices(
+            torch.Generator(device="cuda").manual_seed(S), T, B, M, S, counts)
+        e5 = mc.energy_mc_fwd(ws, bs, g, d1, d2, precision)
+        torch.testing.assert_close(
+            e5, mc.energy_mc_fwd_plain(ws, bs, g, d1, d2, precision),
+            rtol=mc_rtol, atol=0)
+        assert torch.equal(e5, mc.energy_mc_fwd(ws, bs, g, d1, d2, precision))
+        seed = (1 << 40) + S
+        e7 = mc.energy_mc_fwd_rng(ws, bs, g, seed, kmax, S, precision)
+        p1, p2 = (d.contiguous() for d in mc.philox_draws(seed, S, T, B,
+                                                          kmax))
+        torch.testing.assert_close(
+            e7, mc.energy_mc_fwd_plain(ws, bs, g, p1, p2, precision),
+            rtol=mc_rtol, atol=0)
+        assert torch.equal(e7, mc.energy_mc_fwd_rng(ws, bs, g, seed, kmax, S,
+                                                    precision))
+        assert torch.equal(e7, mc.energy_mc_fwd(ws, bs, g, p1, p2,
+                                                precision))
+
+
 def _chip_smoke():
     """chip_smoke.py as a module (its limits and float64_function)."""
     import importlib.util
@@ -1167,8 +1236,9 @@ def test_every_kernel_takes_the_whole_matrix_on_gpu(precision):
 def test_transposed_kernels_on_the_tensor_cores_on_gpu(precision, T, B, M, D,
                                                        X):
     """K9 and K10 on the production decoder shape (D <= 2 -> 128 -> 128 ->
-    X <= 64): at the reduced rungs the tensor-core kernels (k9_tiles_mma,
-    k10_mma), at float32 K1's k1_fwd_fma and k10_dgamma<0>, against their
+    X <= 64): at the reduced rungs the tensor-core kernels (K1's
+    k1_tiles_mma, k10_mma), at float32 K1's k1_fwd_fma and k10_dgamma<0>,
+    against their
     plain versions under the transposed test's limits, every call repeated
     bitwise; seeded random decoders and points."""
     if not torch.cuda.is_available():

@@ -6,6 +6,8 @@
     python3 tools/fwd_kernels.py --tree <checkout> --split [--out FILE]
     python3 tools/fwd_kernels.py --tree <checkout> --hashes FILE
     python3 tools/fwd_kernels.py --tree <checkout> --steps
+    python3 tools/fwd_kernels.py --tree <checkout> --rungs [--out FILE]
+    python3 tools/fwd_kernels.py --tree <checkout> --early-stop [--out FILE]
     python3 tools/fwd_kernels.py --compare FILE_A FILE_B
 
 ``--times``: ms per call by CUDA events (as ``chip_smoke.py`` times the
@@ -37,6 +39,17 @@ the committed model and the seed-42 init blob, as the script runs them;
 their per-step kernels are not the forward ones, so a change to K1/K5/K7
 should leave them where they were.  Run the parent and this checkout in
 processes of their own, interleaved (parent, change, change, parent).
+
+``--rungs``: ms per call by CUDA events of the same kernels at the
+reduced rungs (f32x3, f32x2, bfloat16) on the production chunk: K1 at M =
+10 and M = 1 (uniform weights), K5 on ``torch.randint`` planes and K7 at S
+= 2 and 12.
+
+``--early-stop``: ``optimize_spline_early_stopping`` on the production
+chunk (budget 1000 steps, f32x2) at ``expected_fused`` and at ``mc_fused``
+(in-kernel draws, S = 2, final energies by ``expected_fused``): steps run,
+steps/s, launches by kernel.  Both modes evaluate the energy at the
+trajectory rung on every step: K1 or K7 each step.
 
 Loads ``<checkout>/chip_smoke.py`` and that checkout's package; needs one
 CUDA GPU and, for ``--split``, nvcc.
@@ -100,6 +113,90 @@ def times(smoke, dev):
                         ws, bs, gamma, seed, kmax, S, "float32"), 10)})
     for rec in out:
         print(json.dumps(rec), flush=True)
+    return out
+
+
+def rung_times(smoke, dev):
+    import torch
+
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.ops import energy_mc_fused as mc
+
+    ws_all, bs_all, gamma = production_inputs(smoke, dev)
+    T, B = gamma.shape[:2]
+    seed = (1 << 40) + 42
+    out = []
+    for prec in RUNGS[1:]:
+        for M in (ws_all[0].shape[0], 1):
+            ws = [w[:M].contiguous() for w in ws_all]
+            bs = [b[:M].contiguous() for b in bs_all]
+            wmb = ef.uniform_weights(M, B, dev)
+            out.append({"kernel": "K1", "precision": prec, "M": M,
+                        "ms": smoke.time_ms(lambda: ef.energy_fwd(
+                            ws, bs, gamma, wmb, prec), 10)})
+        M = ws_all[0].shape[0]
+        kmax = torch.full((B,), float(M), device=dev)
+        for S in (2, 12):
+            d1, d2 = mc.sample_decoder_indices(
+                torch.Generator(device=dev).manual_seed(7), T, B, M, S)
+            reps = 10 if S == 2 else 3
+            out.append({"kernel": "K5", "precision": prec, "S": S,
+                        "ms": smoke.time_ms(lambda: mc.energy_mc_fwd(
+                            ws_all, bs_all, gamma, d1, d2, prec), reps)})
+            out.append({"kernel": "K7", "precision": prec, "S": S,
+                        "ms": smoke.time_ms(lambda: mc.energy_mc_fwd_rng(
+                            ws_all, bs_all, gamma, seed, kmax, S, prec),
+                            reps)})
+    for rec in out:
+        print(json.dumps(rec), flush=True)
+    return out
+
+
+def early_stop(smoke, dev):
+    import dataclasses
+    import time
+
+    import torch
+
+    from vae_latent_geometry_tpu_torch.config import (EnergyConfig,
+                                                      GeodesicConfig)
+    from vae_latent_geometry_tpu_torch.io.artifacts import load_spline_batch
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+    from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
+    from vae_latent_geometry_tpu_torch.optim.geodesic import (
+        optimize_spline_early_stopping)
+
+    params = load_npz(smoke.MODEL, dev)
+    art = load_spline_batch(smoke.INIT)
+    B = 200
+    idx = np.concatenate([np.arange(len(art)),
+                          np.full(B - len(art), len(art) - 1)])
+    cfg = GeodesicConfig(
+        steps=smoke.STEPS, lr=1e-3, lr_schedule="constant", batch_size=B,
+        early_stop=True,
+        energy=EnergyConfig(num_t=2000, mode="expected_fused",
+                            kernel_precision="f32x2"))
+    mc_cfg = dataclasses.replace(
+        cfg, final_energy_mode="expected_fused",
+        energy=dataclasses.replace(cfg.energy, mode="mc_fused",
+                                   mc_samples=smoke.MC_SAMPLES,
+                                   mc_inkernel_rng=True))
+    out = []
+    for name, run_cfg in (("expected_fused", cfg), ("mc_fused", mc_cfg)):
+        torch.cuda.synchronize()
+        ef.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = optimize_spline_early_stopping(
+            params.decoders, art.omega_init[idx], art.a[idx], art.b[idx],
+            art.basis, run_cfg, device=dev,
+            generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rec = {"early_stop": name, "steps_run": res.steps_run,
+               "optimize_s": secs, "steps_per_s": res.steps_run / secs,
+               "launches": {k: v for k, v in ef.LAUNCHES.items() if v}}
+        print(json.dumps(rec), flush=True)
+        out.append(rec)
     return out
 
 
@@ -271,6 +368,8 @@ def main():
     ap.add_argument("--times", action="store_true")
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--steps", action="store_true")
+    ap.add_argument("--rungs", action="store_true")
+    ap.add_argument("--early-stop", action="store_true")
     ap.add_argument("--hashes")
     ap.add_argument("--compare", nargs=2)
     ap.add_argument("--out")
@@ -291,6 +390,10 @@ def main():
         recs["split"] = split(smoke, tree, dev)
     if args.times:
         recs["times"] = times(smoke, dev)
+    if args.rungs:
+        recs["rungs"] = rung_times(smoke, dev)
+    if args.early_stop:
+        recs["early_stop"] = early_stop(smoke, dev)
     if args.steps:
         recs["steps"] = steps(smoke, dev)
     if args.out:

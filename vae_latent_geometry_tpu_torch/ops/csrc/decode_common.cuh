@@ -293,8 +293,9 @@ __device__ void store_dgamma(S& s, const typename P::Ctx& c, float* __restrict__
 }
 
 // The fixed decoder D -> 128 -> 128 -> X <= 64 as a decode policy of the
-// kernel bodies (AnyDecode in decode_any.cuh is the other): weights staged
-// per decoder, 4 output columns a thread, masks in registers.
+// kernel bodies (AnyDecode in decode_any.cuh is the other), at float32
+// only: weights staged per decoder, 4 output columns a thread, masks in
+// registers.  Its kernels at the reduced rungs run on the tensor cores.
 struct FixedDecode {
   static constexpr int NJX = 4;      // output columns a thread: tx + 16 j
   static constexpr int XM = XMAX;
@@ -310,6 +311,7 @@ struct FixedDecode {
   template <int R>
   __device__ static void decode(Smem& s, const Ctx& c, int m, int D, int X, float (&x)[8][NJX],
                                 Masks& mk) {
+    static_assert(R == F32, "the reduced rungs decode on the tensor cores (decode_mma.cuh)");
     __syncthreads();
     stage_weights<R>(s, m, D, X, c.w);
     __syncthreads();

@@ -8,9 +8,10 @@
 // split into bf16 hi/lo exactly as pack<R> does (RN of x, then RN of x - hi),
 // every product bf16 x bf16 (exact in fp32), fp32 accumulation; only the
 // order of the sums differs from the FMA kernels.  The tensor core truncates
-// the sums it forms; with RN (K9's decode) each k16 step sums its products
-// apart and the steps are added by fp32 adds, so that an energy of adjacent-
-// sample differences at M = 1 stays within 1e-5 of the plain version.
+// the sums it forms; with RN (the forward energies' decode: K1/K9 and
+// K5/K7, tiles_mma.cuh) each k16 step sums its products apart and the steps
+// are added by fp32 adds, so that an energy of adjacent-sample differences
+// at M = 1 stays within 1e-5 of the plain version.
 //   f32x3    : h_hi*W_hi + h_lo*W_hi + h_hi*W_lo   (three mma per k-step)
 //   f32x2    : h_hi*W_hi + h_lo*W_hi               (two)
 //   bfloat16 : h*W with W as shipped (bf16)        (one)

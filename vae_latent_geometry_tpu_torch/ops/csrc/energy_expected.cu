@@ -1,8 +1,8 @@
 // Expected ensemble curve energy and its gradient, for sm_90a (H100).
 //
 // Replaces the Pallas TPU kernels of vae_latent_geometry_tpu/ops/energy_pallas.py:
-//   K1  _fwd_kernel (:254)  -> k1_fwd_fma (float32) or k1_energy_tiles
-//       (f32x3, f32x2, bfloat16), + k1_sum_tiles
+//   K1  _fwd_kernel (:254)  -> k1_fwd_fma (float32) or k1_tiles_mma
+//       (f32x3, f32x2, bfloat16; tiles_mma.cuh), + k1_sum_tiles
 //   K2  _bwd_kernel (:325)  -> k2_xbar_mma + k2_chain_mma (f32x3, f32x2,
 //       bfloat16), k2_xbar + k2_chain (float32)
 //       (with _backprop_chain_masked :406 and _center_masks :426)
@@ -43,10 +43,15 @@
 // no float atomics, so repeated runs are bitwise identical.  K2 is two
 // launches: the xbar pass writes xbar (T, B, X), then the chain pass
 // re-decodes each decoder per tile, forms dx and runs the masked chain.
-// At the reduced rungs both run their products on the tensor cores
-// (mma.sync m16n8k16 bf16, decode_mma.cuh): a warp owns 16 points x 128
+// At the reduced rungs K1 (k1_tiles_mma, tiles_mma.cuh: the tile above, x0
+// in shared memory, ybar and the variance share in registers) and both
+// passes of K2 run their products on the tensor cores (mma.sync m16n8k16
+// bf16, decode_mma.cuh): a warp owns 16 points x 128
 // units, activations, cotangents and ReLU masks stay in registers, and each
 // dgamma row is summed by the four lanes that hold it, in a fixed order.
+// K1 decodes with decode_mma<R, true> (each k16 step summed apart): early
+// stopping evaluates it at the trajectory rung on every step, also at M = 1
+// (single_fused), where it must stay within 1e-5 of its plain version.
 // The float32 rung keeps the CUDA-core FMAs (TF32 would round the inputs
 // at 2^-11: barred).  What still holds K2 back: it decodes twice where the
 // TPU kernel decodes once; mma.sync rather than Hopper's wgmma; and each
@@ -56,8 +61,8 @@
 // Any decoder.  The kernels above take the production shape D <= 4 -> 128 ->
 // 128 -> X <= 64.  Every other decoder (2 to 6 layers, hidden widths up to
 // 512, X <= 128) takes k1_energy_tiles_any and k2_xbar_any + k2_chain_any:
-// the bodies of the production kernels (k1_body, k2_xbar_body,
-// k2_chain_body) over the generic decode of decode_any.cuh, on the CUDA
+// the bodies k1_body, k2_xbar_body and k2_chain_body (the latter two also
+// the float32 K2's) over the generic decode of decode_any.cuh, on the CUDA
 // cores at every rung, in persistent blocks (one per SM) that walk the
 // tiles in a fixed stride, so that the activation scratch is one per
 // resident block.
@@ -67,6 +72,7 @@
 #include "decode_f32.cuh"
 #include "decode_mma.cuh"
 #include "k1_fwd_f32.cuh"
+#include "tiles_mma.cuh"
 
 namespace {
 
@@ -74,6 +80,8 @@ constexpr int S_X = XMAX + 1;
 constexpr int K1_COLS = 4;      // K1 tile: 32 t-rows x 4 splines
 constexpr int K1_ROWS = TP / K1_COLS;
 constexpr int K1_SEGS = K1_ROWS - 1;
+static_assert(K1_COLS == TILE_NS && K1_SEGS == TILE_KR,
+              "the generic and the tensor-core K1 fill the same partial rows");
 
 // Shared memory of K1 and the FMA K2 over a decode policy's own (Base) and
 // its widest output XM.
@@ -90,8 +98,9 @@ struct SmemMma : MmaSmem {
   float xs[TP * S_X];       // xbar_{t-1} + xbar_{t+1}
 };
 
-// K1, pass 1: partial energies of tile (by: t-rows t0..t0+31, bx: splines
-// b0..b0+3) -> partial[by * B + b], over decode policy P.
+// K1, pass 1, on the CUDA cores: partial energies of tile (by: t-rows
+// t0..t0+31, bx: splines b0..b0+3) -> partial[by * B + b], over decode
+// policy P (the generic decode's).
 template <int R, class P>
 __device__ __forceinline__ void k1_body(K12Smem<typename P::Smem, P::XM>& s,
                                         const typename P::Ctx& c, int bx, int by,
@@ -166,15 +175,6 @@ __device__ __forceinline__ void k1_body(K12Smem<typename P::Smem, P::XM>& s,
     for (int r = 0; r < K1_SEGS; ++r) e += s.red2[r * K1_COLS + tid];
     partial[(size_t)by * B + b0 + tid] = e;
   }
-}
-
-template <int R>
-__global__ void __launch_bounds__(NT, 1)
-k1_energy_tiles(const float* __restrict__ gamma, int T, int B, int D, int M, int X,
-                Weights w, const float* __restrict__ wmb, float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  k1_body<R, FixedDecode>(*reinterpret_cast<Smem*>(smem_raw), FixedDecode::Ctx{w}, blockIdx.x,
-                          blockIdx.y, gamma, T, B, D, M, X, wmb, partial);
 }
 
 // K1, pass 1, any decoder: persistent blocks take the (gx x gy) tiles in a
@@ -505,12 +505,12 @@ cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, We
     n_tiles = k1f_tiles(T);
     k1_fwd_fma<R><<<dim3(B, n_tiles), NT, sizeof(K1F32Smem), st>>>(
         gamma, T, B, D, M, X, F32Weights{w, w3p}, wmb, partial);
-  } else {
-    err = prepare<Smem>(k1_energy_tiles<R>);
+  } else {  // tensor cores (tiles_mma.cuh)
+    err = prepare<K1MmaSmem>(k1_tiles_mma<R>);
     if (err != cudaSuccess) return err;
-    n_tiles = T > 1 ? (T - 1 + K1_SEGS - 1) / K1_SEGS : 1;
-    dim3 grid((B + K1_COLS - 1) / K1_COLS, n_tiles);
-    k1_energy_tiles<R><<<grid, NT, sizeof(Smem), st>>>(gamma, T, B, D, M, X, w, wmb, partial);
+    n_tiles = tile_rows(T);
+    k1_tiles_mma<R><<<dim3((B + TILE_NS - 1) / TILE_NS, n_tiles), NT, sizeof(K1MmaSmem), st>>>(
+        gamma, T, B, D, M, X, w, wmb, partial);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas TPU kernels of
 // vae_latent_geometry_tpu/ops/energy_mc_pallas.py:
-//   K5  _fwd_kernel      (:473)  -> mc_fwd_fma (float32) or mc_segments
-//       (f32x3, f32x2, bfloat16), + mc_sum_tiles, planes given
+//   K5  _fwd_kernel      (:473)  -> mc_fwd_fma (float32) or mc_tiles_mma
+//       (f32x3, f32x2, bfloat16; K1's tiles, tiles_mma.cuh), + mc_sum_tiles,
+//       planes given
 //   K6  _bwd_kernel      (:548)  -> mc_select_mma + mc_chain_mma (f32x3,
 //       f32x2, bfloat16), mc_segments (writing differences) + mc_chain
 //       (float32)
@@ -48,17 +49,22 @@
 // bytes, on this card.
 //
 // Design for Hopper.  The TPU kernels stream T in chunks inside one program
-// with a one-row carry; here blocks run in no order.  mc_segments gives each
-// group of 16 threads a run of 8 consecutive t-rows of one spline, so that
-// the 7 segments inside the run are formed in the thread's own registers
-// (the 8th row is the next run's first: 8 rows decoded per 7 segments).  A
-// tile is 4 splines x 4 runs = 28 segments per spline.  The draws of the
-// tile are staged in shared memory once; per decoder (weights staged one at
-// a time, decode_common.cuh) each thread updates its difference registers
-// where a draw names that decoder.  Two samples are held per decode sweep
-// (56 registers); more samples take further sweeps.  Energies go to an
-// (n_tiles, B) buffer of per-tile partial sums that a second launch adds in
-// a fixed order: no float atomics, repeated runs are bitwise identical.
+// with a one-row carry; here blocks run in no order.  mc_segments (the
+// float32 backward's first pass, and on the generic decode the forward
+// too) gives each group of 16 threads a run of 8 consecutive t-rows of one
+// spline, so that the 7 segments inside the run are formed in the thread's
+// own registers (the 8th row is the next run's first: 8 rows decoded per 7
+// segments).  A tile is 4 splines x 4 runs = 28 segments per spline.  The
+// draws of the tile are staged in shared memory once; per decoder (weights
+// staged one at a time, decode_common.cuh) each thread updates its
+// difference registers where a draw names that decoder.  Two samples are
+// held per decode sweep (56 registers); more samples take further sweeps.
+// Energies go to an (n_tiles, B) buffer of per-tile partial sums that a
+// second launch adds in a fixed order: no float atomics, repeated runs are
+// bitwise identical.  At the reduced rungs the forward is mc_tiles_mma on
+// the tensor cores instead (below): K1's tiles of 32 rows x 4 splines,
+// every drawn decoder decoded once a sweep of samples, the differences in
+// shared memory.
 // The backward is two launches, as K2.  At float32: mc_segments writes the S
 // difference planes (S, T-1, B, X), then mc_chain re-decodes each decoder
 // per tile of 128 points, gathers dx from the planes and runs the masked
@@ -92,6 +98,7 @@
 #include "decode_common.cuh"
 #include "decode_f32.cuh"
 #include "decode_mma.cuh"
+#include "tiles_mma.cuh"
 
 namespace {
 
@@ -417,7 +424,7 @@ template <int R>
 __global__ void __launch_bounds__(NT, 1)
 mc_fwd_fma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
            F32Weights fw, Draws dr, int segs, int sw, float* __restrict__ partial) {
-  static_assert(R == F32, "the reduced rungs keep mc_segments");
+  static_assert(R == F32, "the float32 rung only");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   McF32Smem& s = *reinterpret_cast<McF32Smem*>(smem_raw);
   const int XP = (X + 3) & ~3;
@@ -536,6 +543,136 @@ __global__ void mc_sum_tiles(const float* __restrict__ partial, int n_tiles, int
   float e = 0.f;
   for (int i = 0; i < n_tiles; ++i) e += partial[(size_t)i * B + b];
   out[b] = e / (float)S;
+}
+
+// K5/K7 at a reduced rung on the tensor cores (production shape): K1's
+// tiles (tiles_mma.cuh; blockIdx.x: splines b0..b0+3, blockIdx.y: rows
+// from t0 = 31 y), in sweeps of sw samples.  A sweep stages the draws of
+// the tile's 124 segments, marks the decoders they name and decodes each
+// marked decoder once (decode_mma<R, true>: an endpoint is ONE decoder's
+// output, so the decode's rounding shows as it does at M = 1).  Each
+// sample's differences diff_s(t) live in shared memory, and each element
+// receives exactly one subtraction, -x_{d1}(t) from the lane that holds
+// point t, and one addition, +x_{d2}(t+1) from the lane of point t+1, from
+// 0: it ends as fl(R - L) whichever decoder comes first, as in
+// mc_fwd_fma; a barrier between a decoder's subtractions and its additions
+// keeps two lanes off one element.  After a sweep each segment's squared
+// differences are summed in a fixed order (samples, then features) into
+// red[p]; after the last, each spline's 31 segments -> partial[blockIdx.y
+// * B + b], which mc_sum_tiles adds in a fixed order.  No plane goes to
+// device memory; sw (mc_tiles_sweep) is as many samples as the shared
+// memory holds, 4 at X = 50.
+struct McTilesSmem : MmaSmem {
+  float red[TP];              // each segment's sum of squared differences
+};
+// dynamic tail: float diff[sw][TILE_SEGS][SD]; int idx[2][sw][TILE_SEGS]
+// (d1 then d2 of segment p in sample s0 + k, -1 where there is none);
+// uint32_t used[(M + 31) / 32].  SD (mc_tiles_stride): X rounded up so
+// that the float2 rows of a half-warp's 4 row groups fall in distinct
+// banks, and past the decode's padded columns 8 * ceil(X / 8).
+
+__host__ __device__ __forceinline__ int mc_tiles_stride(int X) {
+  return 16 * ((X + 7) / 16) + 8;
+}
+size_t mc_tiles_fixed(int M) { return sizeof(McTilesSmem) + 4 * (size_t)((M + 31) / 32); }
+size_t mc_tiles_per_sample(int X) {
+  return 4 * (size_t)TILE_SEGS * (mc_tiles_stride(X) + 2);
+}
+int mc_tiles_sweep(int M, int X, int S) {
+  return std::min(S, (int)((SMEM_MAX - mc_tiles_fixed(M)) / mc_tiles_per_sample(X)));
+}
+
+// row[8j + 2q + {0, 1}] -= (SUB) or += the lane's row r of x, n8 tiles j < nj.
+template <bool SUB>
+__device__ __forceinline__ void update_row(float* row, const float (&x)[NJ3][4], int r,
+                                           int nj) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NJ3; ++j)
+    if (j < nj) {
+      float2& v = *reinterpret_cast<float2*>(row + 8 * j + 2 * q);
+      const float a = x[j][2 * r], b = x[j][2 * r + 1];
+      v = SUB ? make_float2(__fsub_rn(v.x, a), __fsub_rn(v.y, b))
+              : make_float2(__fadd_rn(v.x, a), __fadd_rn(v.y, b));
+    }
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+mc_tiles_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
+             Weights w, Draws dr, int sw, float* __restrict__ partial) {
+  static_assert(R != F32, "float32 keeps mc_fwd_fma");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  McTilesSmem& s = *reinterpret_cast<McTilesSmem*>(smem_raw);
+  const int SD = mc_tiles_stride(X), nj = (X + 7) / 8;
+  float* diff = reinterpret_cast<float*>(smem_raw + sizeof(McTilesSmem));
+  int* idx = reinterpret_cast<int*>(diff + (size_t)sw * TILE_SEGS * SD);
+  uint32_t* used = reinterpret_cast<uint32_t*>(idx + 2 * sw * TILE_SEGS);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int p0 = (tid >> 5) * 16 + (lane >> 2);      // rows p0, p0 + 8 of the warp's tile
+  const int b0 = blockIdx.x * TILE_NS, t0 = blockIdx.y * TILE_KR;
+  zero_w3_planes(s);
+  load_tile_points(s, gamma, T, B, D, t0, b0);
+  if (tid < TP) s.red[tid] = 0.f;
+  for (int s0 = 0; s0 < S; s0 += sw) {
+    const int nsw = min(sw, S - s0);
+    __syncthreads();  // the previous sweep's differences are summed
+    for (int e = tid; e < (M + 31) / 32; e += NT) used[e] = 0u;
+    for (int e = tid; e < nsw * TILE_SEGS * SD; e += NT) diff[e] = 0.f;
+    __syncthreads();
+    for (int e = tid; e < 2 * nsw * TILE_SEGS; e += NT) {
+      const int p = e % TILE_SEGS, qq = e / TILE_SEGS, side = qq / nsw, k = qq % nsw;
+      const int t = t0 + p / TILE_NS, b = b0 + p % TILE_NS;
+      const int v = t < T - 1 && b < B ? draw(dr, S, T, B, side, s0 + k, t, b) : -1;
+      idx[(side * sw + k) * TILE_SEGS + p] = v;
+      if (v >= 0 && v < M) atomicOr(&used[v >> 5], 1u << (v & 31));
+    }
+    for (int m = 0; m < M; ++m) {
+      __syncthreads();  // the draws staged; the previous decoder's additions made
+      if (!((used[m >> 5] >> (m & 31)) & 1u)) continue;  // the same for every thread
+      stage_weights_mma<R>(s, m, D, X, w);
+      __syncthreads();
+      float x[NJ3][4];
+      uint32_t m1[2], m2[2];
+      decode_mma<R, true>(s, D, X, x, m1, m2);
+      // -x_m(t) where d1[s, t] = m: the lane's points as left ends ...
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = p0 + 8 * r;
+        if (p < TILE_SEGS)
+          for (int k = 0; k < nsw; ++k)
+            if (idx[k * TILE_SEGS + p] == m)
+              update_row<true>(diff + ((size_t)k * TILE_SEGS + p) * SD, x, r, nj);
+      }
+      __syncthreads();
+      // ... then +x_m(t+1) where d2[s, t] = m: as right ends
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = p0 + 8 * r - TILE_NS;  // the segment before the point
+        if (p >= 0)
+          for (int k = 0; k < nsw; ++k)
+            if (idx[(sw + k) * TILE_SEGS + p] == m)
+              update_row<false>(diff + ((size_t)k * TILE_SEGS + p) * SD, x, r, nj);
+      }
+    }
+    __syncthreads();
+    // the sweep's squared differences, per segment in a fixed order; the
+    // features past X hold 0 - 0
+    if (tid < TILE_SEGS) {
+      float e = 0.f;
+      for (int k = 0; k < nsw; ++k) {
+        const float* row = diff + ((size_t)k * TILE_SEGS + tid) * SD;
+        for (int n = 0; n < X; ++n) e += row[n] * row[n];
+      }
+      s.red[tid] += e;
+    }
+  }
+  __syncthreads();
+  if (tid < TILE_NS && b0 + tid < B) {
+    float e = 0.f;
+    for (int r = 0; r < TILE_KR; ++r) e += s.red[r * TILE_NS + tid];
+    partial[(size_t)blockIdx.y * B + b0 + tid] = e;
+  }
 }
 
 // dx[j] (feature tx+16j of point p = (t, b)) -/+= the difference rows of
@@ -812,18 +949,6 @@ mc_chain_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X,
 int fwd_tiles(int T) { return T > 1 ? (T - 1 + MC_TILE_SEGS - 1) / MC_TILE_SEGS : 1; }
 
 template <int R>
-cudaError_t launch_segments(const float* gamma, int T, int B, int D, int M, int X, int S,
-                            Weights w, Draws dr, float* partial, float* diffs,
-                            cudaStream_t st) {
-  cudaError_t err = prepare<McSmem>(mc_segments<R>);
-  if (err != cudaSuccess) return err;
-  dim3 grid((B + MC_COLS - 1) / MC_COLS, fwd_tiles(T));
-  mc_segments<R><<<grid, NT, sizeof(McSmem), st>>>(gamma, T, B, D, M, X, S, w, dr, partial,
-                                                   diffs);
-  return cudaGetLastError();
-}
-
-template <int R>
 cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, int S,
                        Weights w, Draws dr, float* partial, float* out, float* w3p,
                        cudaStream_t st) {
@@ -842,9 +967,17 @@ cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, in
         gamma, T, B, D, M, X, S, F32Weights{w, w3p}, dr, tl.segs, tl.sw, partial);
     n_tiles = tl.n_t * tl.n_s;
     err = cudaGetLastError();
-  } else {
-    err = launch_segments<R>(gamma, T, B, D, M, X, S, w, dr, partial, nullptr, st);
-    n_tiles = fwd_tiles(T);
+  } else {  // tensor cores, K1's tiles (tiles_mma.cuh)
+    const int sw = mc_tiles_sweep(M, X, S);
+    const size_t smem = mc_tiles_fixed(M) + sw * mc_tiles_per_sample(X);
+    if (sw < 1) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(mc_tiles_mma<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    n_tiles = tile_rows(T);
+    mc_tiles_mma<R><<<dim3((B + TILE_NS - 1) / TILE_NS, n_tiles), NT, smem, st>>>(
+        gamma, T, B, D, M, X, S, w, dr, sw, partial);
+    err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
   mc_sum_tiles<<<(B + 127) / 128, 128, 0, st>>>(partial, n_tiles, B, S, out);
@@ -872,8 +1005,13 @@ template <int R>
 cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, int S,
                        Weights w, Draws dr, const float* ct, float* diffs, float* dgamma,
                        cudaStream_t st) {
-  cudaError_t err = launch_segments<R>(gamma, T, B, D, M, X, S, w, dr, nullptr, diffs, st);
+  static_assert(R == F32, "the reduced rungs run mc_select_mma + mc_chain_mma");
+  cudaError_t err = prepare<McSmem>(mc_segments<R>);
   if (err == cudaSuccess) err = prepare<McSmem>(mc_chain<R>);
+  if (err != cudaSuccess) return err;
+  mc_segments<R><<<dim3((B + MC_COLS - 1) / MC_COLS, fwd_tiles(T)), NT, sizeof(McSmem), st>>>(
+      gamma, T, B, D, M, X, S, w, dr, nullptr, diffs);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mc_chain<R><<<(T * B + TP - 1) / TP, NT, sizeof(McSmem), st>>>(
       gamma, T, B, D, M, X, S, w, dr, ct, diffs, dgamma);
@@ -924,7 +1062,8 @@ extern "C" {
 int vlg_mc_fwd_tiles(int rung, int T, int M, int S, int L, const int* widths) {
   Decoder d;
   if (!make_decoder(L, widths, nullptr, nullptr, d)) return -1;
-  if (rung != F32 || !fixed_shape(d)) return fwd_tiles(T);
+  if (!fixed_shape(d)) return fwd_tiles(T);
+  if (rung != F32) return tile_rows(T);
   const McTile tl = mc_f32_tile(T, M, d.X, S);
   return tl.n_t * tl.n_s;
 }

@@ -4,8 +4,9 @@
 // Replaces the Pallas TPU kernels of
 // vae_latent_geometry_tpu/ops/_research/energy_pallas_t.py
 // (public op energy_expected_fused_t, :387):
-//   K9   _fwd_kernel_T (:119)  -> k9_tiles_mma (f32x3, f32x2, bfloat16) or
-//        K1's k1_fwd_fma (float32, k1_fwd_f32.cuh), + k9_sum_spans
+//   K9   _fwd_kernel_T (:119)  -> K1's kernels on the uniform weight plane:
+//        k1_tiles_mma (f32x3, f32x2, bfloat16; tiles_mma.cuh) or k1_fwd_fma
+//        (float32, k1_fwd_f32.cuh), + k9_sum_spans
 //   K10  _bwd_kernel_T (:193)  -> k10_mma (f32x3, f32x2, bfloat16) or
 //        k10_dgamma<0> (float32), one launch
 //
@@ -50,16 +51,12 @@
 //     (t_prep_planes) and staged by 16-byte cp.async copies.  What still
 //     holds it back: one block of 8 warps an SM, nothing overlapping the
 //     staging but those copies, mma.sync rather than wgmma.
-//   - K9 (k9_tiles_mma) is K3's statistics over K10's tiles: x0 in shared
-//     memory, ybar and the lane's share of sum_m w_m ||x_m - x0||^2 in
-//     registers, 31 segments a tile, the tiles' partial energies summed in
-//     a fixed order by a second launch (no float atomics: repeat runs are
-//     bitwise equal).  Its decode is decode_mma<R, true>: at M = 1 the
-//     energy is a sum of squared adjacent-sample differences, which shows
-//     a decode's rounding ~2000 times larger, so each k16 step's products
-//     are summed apart and added in fp32 (the tensor core truncates its
-//     sums) and layer 1 rounds as the plain version does.  At float32 K9 runs K1's kernel (cp.async-staged FMA
-//     decode): TF32 is barred.
+//   - K9 runs K1's kernels on the uniform weight plane: k1_tiles_mma at the
+//     reduced rungs (tiles_mma.cuh: K3's statistics over K10's tiles, x0 in
+//     shared memory, ybar and the variance share in registers, each k16
+//     step of the decode summed apart so that at M = 1 it stays within 1e-5
+//     of its plain version), k1_fwd_fma (cp.async-staged FMA decode) at
+//     float32: TF32 is barred.
 //   - k10_dgamma<0> (K10 at float32) keeps the FMA kernel: a block owns 4
 //     splines and walks a span of T in a loop that takes the place of the
 //     TPU's sequential grid axis, chunk j decoded while chunk j-1's dgamma
@@ -86,6 +83,7 @@
 #include "decode_f32.cuh"
 #include "decode_mma.cuh"
 #include "k1_fwd_f32.cuh"
+#include "tiles_mma.cuh"
 
 namespace {
 
@@ -945,110 +943,12 @@ k10_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int 
   }
 }
 
-// K9 at the reduced rungs on the tensor cores (production shape): tile
-// (blockIdx.x: splines b0..b0+3, blockIdx.y: rows t0 = 31 y ..) of 32 rows,
-// the decode of decode_mma.cuh per staged decoder, the statistics centred
-// on decoder 0 as k3_stats_mma keeps them (x0 in shared memory, ybar and
-// the lane's share of sum_m w_m ||x_m - x0||^2 in registers); the tile's
-// 31 segments (rows r, r + 1) -> partial[blockIdx.y * B + b], summed over
-// the tiles in a fixed order by k9_sum_spans.  The tiles overlap by one
-// row: its decode is the halo that a span's carry saves, 1/31 of the work,
-// and the tiles need no order.
-struct T9MmaSmem : MmaSmem {
-  float xs[PC * S_XB];              // x0, then xbar [p][n]
-  float var[PC];
-  float seg[PC];
-};
-
-template <int R>
-__global__ void __launch_bounds__(NT, 1)
-k9_tiles_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Weights w,
-             float* __restrict__ partial) {
-  static_assert(R != F32, "float32 keeps k1_fwd_fma");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T9MmaSmem& s = *reinterpret_cast<T9MmaSmem*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid & 31, q = lane & 3;
-  const int p0 = (tid >> 5) * 16 + (lane >> 2);      // rows p0, p0 + 8 of the warp's tile
-  const int b0 = blockIdx.x * NS, t0 = blockIdx.y * KR;
-  const float wm = 1.f / (float)M;
-  zero_w3_planes(s);
-  for (int e = tid; e < PC * DMAX; e += NT) {
-    const int pp = e / DMAX, d = e % DMAX;
-    const int t = min(t0 + pp / NS, T - 1), b = min(b0 + pp % NS, B - 1);
-    s.g[e] = d < D ? gamma[((size_t)t * B + b) * D + d] : 0.f;
-  }
-  float yb[NJ3][4], sq[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < NJ3; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) yb[j][c] = 0.f;
-  for (int m = 0; m < M; ++m) {
-    __syncthreads();
-    stage_weights_mma<R>(s, m, D, X, w);
-    __syncthreads();
-    float x[NJ3][4];
-    uint32_t m1[2], m2[2];
-    decode_mma<R, true>(s, D, X, x, m1, m2);
-    float qs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NJ3; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float2& x0 = *reinterpret_cast<float2*>(&s.xs[(p0 + 8 * r) * S_XB + 8 * j + 2 * q]);
-        if (m == 0) {
-          x0 = make_float2(x[j][2 * r], x[j][2 * r + 1]);
-        } else {
-          const float y0 = x[j][2 * r] - x0.x, y1 = x[j][2 * r + 1] - x0.y;
-          yb[j][2 * r] = yb[j][2 * r] + wm * y0;
-          yb[j][2 * r + 1] = yb[j][2 * r + 1] + wm * y1;
-          qs[r] += y0 * y0;
-          qs[r] += y1 * y1;
-        }
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) sq[r] = sq[r] + wm * qs[r];
-  }
-  // xbar = x0 + ybar (in place); var = sq - ||ybar||^2, a row's four lanes
-  // in a fixed order
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float v = sq[r];
-#pragma unroll
-    for (int j = 0; j < NJ3; ++j) {
-      float2& xb = *reinterpret_cast<float2*>(&s.xs[(p0 + 8 * r) * S_XB + 8 * j + 2 * q]);
-      xb = make_float2(xb.x + yb[j][2 * r], xb.y + yb[j][2 * r + 1]);
-      v -= yb[j][2 * r] * yb[j][2 * r] + yb[j][2 * r + 1] * yb[j][2 * r + 1];
-    }
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    v += __shfl_xor_sync(0xffffffffu, v, 2);
-    if (q == 0) s.var[p0 + 8 * r] = M > 1 ? v : 0.f;
-  }
-  __syncthreads();
-  // segment after point p (rows r, r + 1 of spline p % 4)
-  if (tid < KR * NS) {
-    const int r = tid / NS, sl = tid % NS;
-    float sd = 0.f;
-    for (int n = 0; n < X; ++n) {
-      const float d = s.xs[(tid + NS) * S_XB + n] - s.xs[tid * S_XB + n];
-      sd += d * d;
-    }
-    const bool valid = t0 + r + 1 < T && b0 + sl < B;
-    s.seg[tid] = valid ? (sd + s.var[tid + NS]) + s.var[tid] : 0.f;
-  }
-  __syncthreads();
-  if (tid < NS && b0 + tid < B) {
-    float e = 0.f;
-    for (int r = 0; r < KR; ++r) e += s.seg[r * NS + tid];
-    partial[(size_t)blockIdx.y * B + b0 + tid] = e;
-  }
-}
-
 // Rows of K9's partial-energy buffer: K1's float32 tiles of 127 segments,
 // the tensor-core tiles of 31, or the G spans of the generic kernels.
 int k9_tiles(int rung, int T, int G, bool fixed) {
   if (!fixed) return G;
   if (rung == F32) return k1f_tiles(T);
-  return T > 1 ? (T - 1 + KR - 1) / KR : 1;
+  return tile_rows(T);
 }
 
 template <int R>
@@ -1064,11 +964,11 @@ cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, We
     if (err != cudaSuccess) return err;
     k1_fwd_fma<R><<<dim3(B, n_tiles), NT, sizeof(K1F32Smem), st>>>(
         gamma, T, B, D, M, X, F32Weights{w, w3p}, wmb, partial);
-  } else {  // tensor cores
-    err = prepare<T9MmaSmem>(k9_tiles_mma<R>);
+  } else {  // K1's tensor-core kernel (tiles_mma.cuh) on the uniform weight plane
+    err = prepare<K1MmaSmem>(k1_tiles_mma<R>);
     if (err != cudaSuccess) return err;
-    k9_tiles_mma<R><<<dim3((B + NS - 1) / NS, n_tiles), NT, sizeof(T9MmaSmem), st>>>(
-        gamma, T, B, D, M, X, w, partial);
+    k1_tiles_mma<R><<<dim3((B + TILE_NS - 1) / TILE_NS, n_tiles), NT, sizeof(K1MmaSmem), st>>>(
+        gamma, T, B, D, M, X, w, wmb, partial);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -38,7 +38,7 @@ template <int R>
 __global__ void __launch_bounds__(NT, 1)
 k1_fwd_fma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, F32Weights fw,
            const float* __restrict__ wmb, float* __restrict__ partial) {
-  static_assert(R == F32, "the reduced rungs keep k1_energy_tiles");
+  static_assert(R == F32, "the float32 rung only");
   constexpr int PL = K1Lane::PL3;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   K1F32Smem& s = *reinterpret_cast<K1F32Smem*>(smem_raw);
