@@ -134,6 +134,25 @@ Phases, each printing one JSON line; any failure exits nonzero:
              backstop — the cut turbo plan against the fixed recipe at
              BACKSTOP_STEPS steps, at expected_fused and mc_fused: the merge
              never above either arm, each arm's wins.
+14d. golden — CLI ``golden`` on the seeded reference-shaped tree of
+             ``tools/golden_tree.py`` (133 classes, 23,822 latents, a legacy
+             VAE at the reference's widths, a stand-in golden matrix) at the
+             golden recipe: all 8,778 pairs,
+             ``single_fused`` f32x3, 500 steps, T=2000, batch 500 (K2 at M=1
+             every step, K1 once a chunk, exact counts); a second call
+             resumes with no launch and the same matrix bit for bit; the
+             first 200 pairs against the JAX package on the CPU
+             (``tools/jax_reference_golden.py``: lengths under ``main``'s
+             limits, pairs whose init path differs left out, at most 5%;
+             ``matrix_stats`` within 1e-3); the cross-seed scale bar finite;
+             stage seconds (``utils.Timer``), steps/s, K2's ms at M=1, f32x3,
+             B=500, its dgamma held to the float64 function (K2_M1_FLOAT64);
+             plot — CLI ``plot`` of every kind and ``eval --mode matrix`` on
+             the main path's artifact: a PNG each where matplotlib is
+             installed, else every kind refused by name and the heatmap
+             warned about; ``pullback_metrics`` along a 300-point path and
+             ``kde_density`` on a 200 x 200 grid on the card against the CPU
+             (1e-5); ``trace_annotation``'s range in a profiler trace.
 15. the ``kernels`` summary line (each kernel with its records on those
     shapes), the card line, and the result line.
 
@@ -675,7 +694,8 @@ def sharded_vs_fused(ef, decoders, gamma, dev):
 
 def port_init_paths(latents, pairs, decoders, init_cfg):
     """The Dijkstra paths of the port's init stage, by the calls
-    ``initialize_splines`` makes: (padded node lists, lengths)."""
+    ``initialize_splines`` makes (entropy-weighted with ``decoders``,
+    Euclidean without): (padded node lists, lengths)."""
     from vae_latent_geometry_tpu_torch.graph.grid import (
         create_latent_grid, entropy_weights, grid_knn_graph,
         reweight_graph_by_entropy)
@@ -686,9 +706,10 @@ def port_init_paths(latents, pairs, decoders, init_cfg):
 
     grid, shape = create_latent_grid(latents, init_cfg.grid_points_per_axis,
                                      init_cfg.grid_margin)
-    graph = reweight_graph_by_entropy(
-        grid_knn_graph(grid, shape, k=init_cfg.knn),
-        entropy_weights(decoders, grid))
+    graph = grid_knn_graph(grid, shape, k=init_cfg.knn)
+    if decoders is not None:    # entropy init; the Euclidean graph else
+        graph = reweight_graph_by_entropy(graph,
+                                          entropy_weights(decoders, grid))
     p = np.asarray(pairs, np.int64)
     start = _nearest_grid_nodes(grid, shape, latents[p[:, 0]])
     end = _nearest_grid_nodes(grid, shape, latents[p[:, 1]])
@@ -2740,6 +2761,331 @@ def backstop_phase(params, art, cfg, dev, ef):
     return recs
 
 
+# Phase golden: the reference's single-decoder reproduction on the
+# reference-shaped tree of tools/golden_tree.py, through the CLI, at the
+# golden recipe (single_fused, f32x3, 500 steps, T=2000, batch 500, all
+# 8,778 pairs).
+GOLDEN_SEED = 12
+GOLDEN_STEPS = 500
+GOLDEN_BATCH = 500
+GOLDEN_T = 2000
+JAX_GOLDEN = os.path.join(ROOT, "tools", "jax_reference_golden_seed12.json")
+GOLDEN_PATH_SHARE = 0.05    # pairs whose Dijkstra path differs, left out
+GOLDEN_STATS_RTOL = 1e-3    # matrix_stats on the tool's pairs vs the tool's
+# Phase plot: the device functions of the figures, card against the CPU
+PLOT_PATH_POINTS = 300
+PLOT_GRID = 200
+PLOT_RTOL = 1e-5
+PLOT_KINDS = ("density", "uncertainty", "latents", "splines", "illustration")
+
+
+def run_cli(argv):
+    """The port's CLI in this process: (exit code, standard output)."""
+    import contextlib
+    import io
+
+    from vae_latent_geometry_tpu_torch import cli
+
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(argv)
+        except SystemExit as ex:    # sys.exit(n), or a refusal's message
+            code = ex.code if isinstance(ex.code, int) else int(
+                ex.code is not None)
+            if isinstance(ex.code, str):
+                print(ex.code)
+    return code, buf.getvalue()
+
+
+def golden_phase(dev, ef):
+    """CLI ``golden`` twice on the seeded reference-shaped tree: launches,
+    the resume, lengths and statistics against the JAX package on the
+    CPU, the cross-seed scale bar, and K2's time at M=1, f32x3, B=500."""
+    import torch
+
+    from tools.golden_tree import write_tree
+    from vae_latent_geometry_tpu_torch.config import InitConfig
+    from vae_latent_geometry_tpu_torch.geometry.spline import (
+        design_matrix, eval_spline_design, t_grid)
+    from vae_latent_geometry_tpu_torch.io.artifacts import load_spline_batch
+    from vae_latent_geometry_tpu_torch.models.torch_import import (
+        load_single_vae_mean_decoder)
+    from vae_latent_geometry_tpu_torch.pipeline import golden as G
+    from vae_latent_geometry_tpu_torch.pipeline.evaluate import (
+        distance_matrix)
+
+    tmp = os.path.join(OUT_DIR, "golden")
+    shutil.rmtree(tmp, ignore_errors=True)
+    root = write_tree(os.path.join(tmp, "reference"))
+    out_dir = os.path.join(tmp, "out")
+    argv = ["golden", "--seed", str(GOLDEN_SEED), "--reference-root", root,
+            "--output", out_dir, "--steps", str(GOLDEN_STEPS), "--num-t",
+            str(GOLDEN_T), "--batch-size", str(GOLDEN_BATCH),
+            "--energy-mode", "single_fused"]
+    runs = []
+    for _ in range(2):          # the second call resumes from the first's
+        torch.cuda.synchronize()
+        ef.reset_launch_counts()
+        t0 = time.perf_counter()
+        code, text = run_cli(argv)
+        wall = time.perf_counter() - t0
+        if code != 0:
+            fail(f"golden: the CLI exited {code}: {text[-2000:]}")
+        report = json.loads(text[text.index("{"):])
+        with open(os.path.join(
+                out_dir, f"golden133_seed{GOLDEN_SEED}_matrix.json")) as f:
+            mat = np.asarray(json.load(f)["distance_matrix"], np.float64)
+        runs.append((report, dict(ef.LAUNCHES), mat, wall))
+    (rep, launches, mat, wall), (rep2, launches2, mat2, wall2) = runs
+    art = load_spline_batch(os.path.join(out_dir, G.checkpoint_name(
+        GOLDEN_SEED, GOLDEN_STEPS, GOLDEN_T, GOLDEN_BATCH, "single_fused")))
+    n_pairs = len(art)
+    n_chunks = -(-n_pairs // GOLDEN_BATCH)
+    lengths = np.asarray(art.geodesic_length, np.float64)
+
+    # the first pairs against the JAX package on the CPU (same tree)
+    with open(JAX_GOLDEN) as f:
+        ref = json.load(f)
+    P = ref["pairs"]
+    latents = G.reference_latents(GOLDEN_SEED, root)
+    paths, path_len = port_init_paths(latents, art.pair_indices[:P], None,
+                                      InitConfig())
+    same_path = np.array([
+        int(n) == int(m) and paths[i, :n].tolist() == ref["paths"][i]
+        for i, (n, m) in enumerate(zip(path_len, ref["path_len"]))])
+    jax_len = np.asarray(ref["lengths"], np.float64)
+    rel = np.abs(lengths[:P] / jax_len - 1)[same_path]
+
+    def stats_on(values, keep):
+        """matrix_stats of the first P pairs (``keep`` of them) against
+        the stand-in golden, by the port's functions."""
+        sub = dataclasses.replace(
+            art, a=art.a[:P][keep], b=art.b[:P][keep],
+            omega_init=art.omega_init[:P][keep],
+            pair_indices=art.pair_indices[:P][keep],
+            valid=art.valid[:P][keep],
+            pair_labels=[l for l, k in zip(art.pair_labels[:P], keep) if k],
+            omega_optimized=None, geodesic_length=values[keep],
+            euclidean_distance=None)
+        m, labels = distance_matrix(sub)
+        return G.compare_to_golden(m, labels, GOLDEN_SEED, root)["vs_golden"]
+
+    ours_stats = stats_on(lengths[:P], same_path)
+    # the tool's own report, or both sides on the pairs whose paths agree
+    ref_stats = (ref["report"]["vs_golden"] if same_path.all()
+                 else stats_on(jax_len, same_path))
+    stats_rel = {k: abs(ours_stats[k] / ref_stats[k] - 1)
+                 for k in ours_stats if k not in ("n_common", "n_total")}
+
+    # K2 at M=1, f32x3, B=500: the first chunk's init curves
+    dec = load_single_vae_mean_decoder(
+        os.path.join(root, "src", "artifacts",
+                     f"vae_best_seed{GOLDEN_SEED}.pth"), dev)
+    ws, bs = ef.stack_weights({"layers": [
+        {k: v[None] for k, v in l.items()} for l in dec["layers"]]})
+    t = t_grid(GOLDEN_T, dev)
+    B = GOLDEN_BATCH
+    gamma = eval_spline_design(
+        torch.as_tensor(art.omega_init[:B], device=dev),
+        torch.as_tensor(art.a[:B], device=dev),
+        torch.as_tensor(art.b[:B], device=dev),
+        design_matrix(t, art.basis, art.n_poly), t).contiguous()
+    wmb = ef.uniform_weights(1, B, dev)
+    ct = torch.ones(B, dtype=torch.float32, device=dev)
+    g_k = ef.energy_bwd(ws, bs, gamma, wmb, ct, "f32x3")
+    g_p = ef.energy_bwd_plain(ws, bs, gamma, wmb, ct, "f32x3")
+    k2_ms = time_ms(lambda: ef.energy_bwd(ws, bs, gamma, wmb, ct, "f32x3"),
+                    20)
+    k2_plain_ms = time_ms(lambda: ef.energy_bwd_plain(ws, bs, gamma, wmb, ct,
+                                                      "f32x3"), 3)
+    # K2 at M=1 and a reduced rung is held to the float64 function, as in
+    # phase shapes (K2_M1_FLOAT64): no farther from it than its plain version
+    truth = float64_function(ef.energy_bwd_plain, ws, bs, gamma, wmb, ct)
+    k2_f64 = dgamma_stats(g_k.double(), truth)
+    plain_f64 = dgamma_stats(g_p.double(), truth)
+    del truth
+    D, H, X = gamma.shape[2], ws[1].shape[1], ws[2].shape[2]
+    n_bytes = 4 * (2 * gamma.numel() + sum(w.numel() for w in ws)
+                   + sum(b.numel() for b in bs) + 2 * B)
+    k2_bound = rung_bound([D, H, H, X], GOLDEN_T * B, "f32x3", True,
+                          n_bytes)
+    cross = rep.get("golden_cross_seed_scale")
+    opt_s = rep["seconds"]["optimize"]
+    rec = {"phase": "golden", "pairs": n_pairs,
+           "chunks": n_chunks,
+           "steps": GOLDEN_STEPS, "num_t": GOLDEN_T, "batch": GOLDEN_BATCH,
+           "mode": "single_fused", "kernel_precision": "f32x3",
+           "seconds_by_stage": rep["seconds"], "cli_wall_s": wall,
+           "steps_per_s": GOLDEN_STEPS * n_chunks / opt_s,
+           "launches": launches,
+           "resume_launches": launches2, "resume_wall_s": wall2,
+           "resume_matrix_bitwise": bool(np.array_equal(mat, mat2,
+                                                        equal_nan=True)),
+           "lengths_finite": bool(np.isfinite(lengths[art.valid]).all()),
+           "n_valid": int(art.valid.sum()),
+           "matrix_shape": list(mat.shape),
+           "vs_jax_cpu_pairs": P,
+           "paths_differ": int((~same_path).sum()),
+           "len_rel_median": float(np.median(rel)),
+           "len_rel_max": float(rel.max()),
+           "stats": ours_stats, "stats_jax": ref_stats,
+           "stats_rel_max": max(stats_rel.values()),
+           "vs_golden_standin": rep["vs_golden"],
+           "cross_seed_scale": cross,
+           "k2_M1_f32x3_B500_ms": k2_ms,
+           "k2_M1_f32x3_B500_plain_ms": k2_plain_ms,
+           "k2_M1_f32x3_B500_bound_ms": 1e3 * max(k2_bound),
+           "k2_M1_f32x3_B500_bound_by":
+               "operations" if k2_bound[0] >= k2_bound[1] else "bytes",
+           "k2_M1_f32x3_B500_max_abs_err": float((g_k - g_p).abs().max()),
+           "k2_M1_f32x3_B500_vs_plain": dgamma_stats(g_k, g_p),
+           "k2_M1_f32x3_B500_vs_float64": k2_f64,
+           "k2_M1_f32x3_B500_plain_vs_float64": plain_f64,
+           "k2_M1_f32x3_B500_within_float64_rule": all(
+               k2_f64[k] <= K2_M1_FLOAT64 * plain_f64[k] for k in k2_f64),
+           "card": card_line()}
+    emit(rec)
+    want = {"energy_bwd": GOLDEN_STEPS * n_chunks, "energy_fwd": n_chunks}
+    for name, count in launches.items():
+        if count != want.get(name, 0):
+            fail(f"golden: {name} launched {count} times, expected "
+                 f"{want.get(name, 0)}")
+    if any(launches2.values()):
+        fail(f"golden: the resumed call launched kernels: {launches2}")
+    if not rec["resume_matrix_bitwise"]:
+        fail("golden: the resumed call's matrix differs from the first's")
+    if not (rec["lengths_finite"] and mat.shape == (133, 133)):
+        fail("golden: output malformed")
+    if (~same_path).mean() > GOLDEN_PATH_SHARE:
+        fail(f"golden: {int((~same_path).sum())} of {P} init paths differ "
+             "from the JAX package's")
+    if rec["len_rel_median"] > LEN_MED or rec["len_rel_max"] > LEN_MAX:
+        fail(f"golden: lengths vs the JAX package on the CPU: median "
+             f"{rec['len_rel_median']:.3g}, max {rec['len_rel_max']:.3g}")
+    if (ours_stats["n_common"] != ref_stats["n_common"]
+            or rec["stats_rel_max"] > GOLDEN_STATS_RTOL):
+        fail(f"golden: matrix_stats vs the JAX package's: "
+             f"{ours_stats} vs {ref_stats}")
+    if cross is None or not all(np.isfinite(v) for v in cross.values()):
+        fail(f"golden: cross-seed scale bar {cross}")
+    if not rec["k2_M1_f32x3_B500_within_float64_rule"]:
+        fail(f"golden: K2 at M=1 f32x3 B=500 farther from the float64 "
+             f"function than K2_M1_FLOAT64 x its plain version's: "
+             f"{rec['k2_M1_f32x3_B500_vs_float64']} vs "
+             f"{rec['k2_M1_f32x3_B500_plain_vs_float64']}")
+    return rec
+
+
+def plot_phase(params, out_art, dev, cfg):
+    """CLI ``plot`` (every kind) and ``eval --mode matrix`` on the seed-42
+    model, the surrogate data and the main path's optimized artifact; the
+    figures' device functions (``pullback_metrics`` along a path,
+    ``kde_density`` on a grid) against the port on the CPU; the name of
+    ``trace_annotation`` in a torch.profiler trace of one optimizer step."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.data.tasic import load_tasic
+    from vae_latent_geometry_tpu_torch.io.artifacts import save_spline_batch
+    from vae_latent_geometry_tpu_torch.models.evae import (
+        decoder_member, encode)
+    from vae_latent_geometry_tpu_torch.optim.geodesic import optimize_splines
+    from vae_latent_geometry_tpu_torch.pipeline.select_pairs import save_pairs
+    from vae_latent_geometry_tpu_torch.utils import trace_annotation
+    from vae_latent_geometry_tpu_torch.viz import plotting
+
+    pdir = os.path.join(OUT_DIR, "plots")
+    shutil.rmtree(pdir, ignore_errors=True)
+    os.makedirs(pdir)
+    splines = os.path.join(pdir, "main_opt.npz")
+    save_spline_batch(out_art, splines)
+    pairfile = os.path.join(pdir, "pairs.json")
+    save_pairs(out_art.representatives, pairfile)
+    have_mpl = plotting.matplotlib_available()
+    figures, refusals = {}, {}
+    for kind in PLOT_KINDS:
+        png = os.path.join(pdir, f"{kind}.png")
+        code, text = run_cli(["plot", kind, "--model", MODEL, "--splines",
+                              splines, "--pairfile", pairfile, "--output",
+                              png])
+        figures[kind] = os.path.getsize(png) if os.path.exists(png) else 0
+        if code != 0:
+            refusals[kind] = text.strip().splitlines()[-1]
+    mjson = os.path.join(pdir, "matrix.json")
+    code, text = run_cli(["eval", "--mode", "matrix", "--splines", splines,
+                          "--output", mjson])
+    heatmap = mjson[:-5] + ".png"
+    figures["eval_matrix_heatmap"] = (os.path.getsize(heatmap)
+                                      if os.path.exists(heatmap) else 0)
+
+    # device functions against the port on the CPU
+    data = load_tasic()
+    with torch.no_grad():
+        latents = encode(params, torch.as_tensor(
+            data.x, device=dev))[0].cpu().numpy()
+    path = plotting._spline_points(out_art.omega_optimized[0], out_art.a[0],
+                                   out_art.b[0], out_art.basis,
+                                   out_art.n_poly, n=PLOT_PATH_POINTS)
+    dec = decoder_member(params.decoders, 0)
+    dec_cpu = {"layers": [{k: v.cpu() for k, v in l.items()}
+                          for l in dec["layers"]]}
+    G_gpu = plotting.pullback_metrics(dec, path)
+    G_cpu = plotting.pullback_metrics(dec_cpu, path)
+    scale = np.abs(G_cpu).max(axis=(1, 2), keepdims=True)
+    g_rel = float((np.abs(G_gpu - G_cpu) / scale).max())
+    xlim, ylim = plotting._square_limits(latents)
+    xi, yi = np.mgrid[xlim[0]:xlim[1]:PLOT_GRID * 1j,
+                      ylim[0]:ylim[1]:PLOT_GRID * 1j]
+    grid = np.stack([xi.ravel(), yi.ravel()], axis=-1).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k_gpu = plotting.kde_density(latents, grid, device=dev)
+    kde_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k_cpu = plotting.kde_density(latents, grid, device="cpu")
+    kde_cpu_s = time.perf_counter() - t0
+    pos = k_cpu > 0
+    k_rel = float((np.abs(k_gpu - k_cpu)[pos] / k_cpu[pos]).max())
+
+    # trace_annotation's range in a profiler trace of one optimizer step
+    name = "vlg.optimizer_step"
+    one = dataclasses.replace(cfg, steps=1)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with trace_annotation(name):
+            optimize_splines(params.decoders, out_art.omega_init[:8],
+                             out_art.a[:8], out_art.b[:8], out_art.basis,
+                             one, device=dev)
+        torch.cuda.synchronize()
+    traced = any(e.key == name for e in prof.key_averages())
+    rec = {"phase": "plot", "matplotlib": have_mpl, "figure_bytes": figures,
+           "refusals": refusals, "eval_exit": code,
+           "pullback_points": PLOT_PATH_POINTS, "pullback_rel_max": g_rel,
+           "pullback_psd": bool((np.linalg.eigvalsh(G_gpu) > -1e-5).all()),
+           "kde_grid": PLOT_GRID ** 2, "kde_latents": int(len(latents)),
+           "kde_rel_max": k_rel, "kde_zero_points": int((~pos).sum()),
+           "kde_card_s": kde_s, "kde_cpu_s": kde_cpu_s,
+           "trace_annotation_in_trace": traced}
+    emit(rec)
+    if code != 0:
+        fail(f"plot: eval --mode matrix exited {code}")
+    if have_mpl:
+        empty = [k for k, n in figures.items() if n == 0]
+        if empty or refusals:
+            fail(f"plot: no figure for {empty}; refusals {refusals}")
+    elif not (len(refusals) == len(PLOT_KINDS) and all(
+            "matplotlib" in r for r in refusals.values())):
+        fail(f"plot: without matplotlib every kind must refuse by name: "
+             f"{refusals}")
+    if g_rel > PLOT_RTOL or k_rel > PLOT_RTOL or not rec["pullback_psd"]:
+        fail(f"plot: card vs CPU: pullback {g_rel:.3g}, kde {k_rel:.3g}")
+    if not traced:
+        fail(f"plot: '{name}' not in the profiler trace")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3310,17 +3656,21 @@ def main() -> int:
     resume_phase(params, art, cfg, dev, ef)
     es_rec = early_stop_phase(params, art, cfg, dev, ef, lengths)
     backstop_phase(params, art, cfg, dev, ef)
+    # 14d. the golden single-decoder reproduction through the CLI; the
+    # figures and their device functions
+    golden_rec = golden_phase(dev, ef)
+    plot_phase(params, out, dev, cfg)
 
     # 15. kernels line ------------------------------------------------------
     P = T * B
     in_bytes = 4 * (gamma.numel() + sum(w.numel() for w in ws_all)
                     + sum(b.numel() for b in bs_all) + M * B)
     k1_flops = P * M * decode_flops(D, H, X, 1)
-    k2_flops = P * M * (decode_flops(D, H, X, 2) + 2 * H * X + 2 * H * H
-                        + 2 * H * D)
+    k2_bounds = rung_bound([D, H, H, X], P * M, "f32x2", True,
+                           in_bytes + 4 * B + 4 * gamma.numel())
+    k2_flops = k2_bounds[0] * PEAK_BF16
     k1_bound = max(k1_flops / PEAK_FP32, (in_bytes + 4 * B) / PEAK_BYTES)
-    k2_bound = max(k2_flops / PEAK_BF16,
-                   (in_bytes + 4 * B + 4 * gamma.numel()) / PEAK_BYTES)
+    k2_bound = max(k2_bounds)
     # MC kernels: a point needs only the decoders drawn there (at most 2S
     # of M), counted from the planes this run timed; one decode each
     # (K5/K7), decode + chain as K2 (K6/K8).  Bytes: the inputs and the
@@ -3465,7 +3815,8 @@ def main() -> int:
          "launches_early_stop": es_rec["expected_fused"]["launches"][
              "energy_fwd"],
          "launches_early_stop_mc": es_rec["mc_fused"]["launches"].get(
-             "energy_fwd", 0)},
+             "energy_fwd", 0),
+         "launches_golden": golden_rec["launches"]["energy_fwd"]},
         {"name": "energy_bwd (K2, f32x2 trajectory steps)",
          "route": "cuda",
          "source": "vae_latent_geometry_tpu_torch/ops/csrc/energy_expected.cu",
@@ -3483,7 +3834,10 @@ def main() -> int:
          "ms_M1_bfloat16": errors[(1, "bfloat16")]["bwd_ms"],
          "launches_single_bf16": single_rec["launches"]["energy_bwd"],
          "launches_early_stop": es_rec["expected_fused"]["launches"][
-             "energy_bwd"]},
+             "energy_bwd"],
+         "launches_golden": golden_rec["launches"]["energy_bwd"],
+         **{f"{k}_M1_f32x3_B500": golden_rec[f"k2_M1_f32x3_B500_{k}"]
+            for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}},
         {**stats_kernel("stats_fwd (K3, f32x2 trajectory steps, M_loc=10)",
                         472, ep_rec["launches"]["stats_fwd"], "yb_max_abs",
                         "stats_fwd", k3_bound),

@@ -29,6 +29,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tools", "golden_tree.py")   # chip_smoke's
 
 
 def _imported_roots(path):
@@ -60,6 +61,40 @@ def test_import_in_fresh_process_loads_no_jax():
         "bad = [n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'vae_latent_geometry_tpu')]\n"
         "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+
+
+def test_figures_golden_and_utils_load_no_jax(tmp_path):
+    """Drawing figures (matplotlib, seaborn, scipy) and running the golden,
+    stability, interop and utils modules pulls in no JAX either."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from tools.golden_tree import write_tree\n"
+        "from vae_latent_geometry_tpu_torch.viz import plotting\n"
+        "from vae_latent_geometry_tpu_torch.pipeline import golden, stability\n"
+        "from vae_latent_geometry_tpu_torch.models import torch_import\n"
+        "from vae_latent_geometry_tpu_torch.utils import Timer, nan_guard\n"
+        f"out = {str(tmp_path)!r}\n"
+        "z = np.random.default_rng(0).normal(size=(200, 2)).astype('f4')\n"
+        "plotting.plot_distance_matrix(np.eye(3), list('abc'), out + '/m.png')\n"
+        "plotting.plot_cov_hist(z[:, 0] ** 2, out + '/h.png')\n"
+        "plotting.plot_latents_with_selected(z, [{'index': 0}], out + '/l.png')\n"
+        "root = write_tree(out + '/ref', n_classes=3, n_points=60)\n"
+        "m, l = golden.golden_matrix(12, root)\n"
+        "stability.frobenius_comparison(m, l, m, l)\n"
+        "torch_import.load_single_vae_mean_decoder(\n"
+        "    root + '/src/artifacts/vae_best_seed12.pth', 'cpu')\n"
+        "with Timer(), nan_guard():\n"
+        "    torch.ones(2).sum()\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'vae_latent_geometry_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert 'matplotlib' in sys.modules and 'seaborn' in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

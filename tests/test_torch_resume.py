@@ -815,6 +815,10 @@ def test_backstop_mc_modes_compare_noise_free(toy_problem):
 def _cli(*args, cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    # one intra-op thread, as in-process (torch_parity_inputs): beside the
+    # other pytest-xdist workers a CLI process's thread pool oversubscribes
+    # the CPU, and its 1000-step backstop arm once ran past the time limit
+    env["OMP_NUM_THREADS"] = "1"
     r = subprocess.run([sys.executable, "-m", "vae_latent_geometry_tpu_torch",
                         *args], cwd=cwd, env=env, capture_output=True,
                        text=True, timeout=600)

@@ -1,6 +1,6 @@
 """Command line of the PyTorch port: ``train``, ``train-single``,
-``select-pairs``, ``init-splines``, ``optimize`` and ``eval --mode
-matrix|cov``.
+``select-pairs``, ``init-splines``, ``optimize``, ``eval --mode
+matrix|cov``, ``plot``, ``stability`` and ``golden``.
 
   python -m vae_latent_geometry_tpu_torch train --seeds 12 123 --epochs 600
   python -m vae_latent_geometry_tpu_torch train-single --seed 12
@@ -12,10 +12,18 @@ matrix|cov``.
   python -m vae_latent_geometry_tpu_torch eval --mode matrix --splines <opt artifact>
   python -m vae_latent_geometry_tpu_torch eval --mode cov --seeds 12 123 \\
       --pairfile experiment/pairs/selected_pairs_20.json --energy-mode mc_fused
+  python -m vae_latent_geometry_tpu_torch plot density --model experiment/model_seed42.npz \\
+      --splines <artifact>
+  python -m vae_latent_geometry_tpu_torch stability frobenius --a <matrix.json> --b <matrix.json>
+  python -m vae_latent_geometry_tpu_torch golden --seed 12 --reference-root /root/reference
 
 Flags and defaults follow ``vae_latent_geometry_tpu.cli``; the artifacts are
-the same format.  ``--device`` picks the torch device (default ``cuda``;
-``--device cpu`` runs the plain PyTorch versions of the kernels).
+the same format.  ``--model`` takes either model family (the ensemble VAE
+or the legacy single VAE) from the port's or the JAX package's ``.npz``, or
+a reference ``.pt``/``.pth`` state dict.  The JAX CLI's ``bench`` runs that
+package's TPU benchmark and has no counterpart here.  ``--device`` picks
+the torch device (default ``cuda``; ``--device cpu`` runs the plain
+PyTorch versions of the kernels).
 ``train --train-state PATH`` writes the whole training state there after
 every block and resumes from it when it exists; ``optimize`` checkpoints
 every chunk to its ``--output`` and resumes from it, so re-running the same
@@ -31,6 +39,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -80,15 +90,52 @@ def _load_data(args):
     return data
 
 
+def _load_model(path: str, device):
+    """An ``EVAEParams`` or a legacy ``VAEParams`` on ``device``: from a
+    reference ``.pt``/``.pth`` state dict (tried as an ensemble first), or
+    from an ``.npz`` checkpoint of either family (``evae.load_npz``)."""
+    from vae_latent_geometry_tpu_torch.models.evae import load_npz
+
+    if str(path).endswith((".pt", ".pth")):
+        from vae_latent_geometry_tpu_torch.models.torch_import import (
+            load_evae_checkpoint,
+            load_single_vae_checkpoint,
+        )
+
+        try:
+            return load_evae_checkpoint(path, device)
+        except KeyError:
+            return load_single_vae_checkpoint(path, device)
+    return load_npz(path, device)
+
+
 def _encode(params, x, device) -> np.ndarray:
-    """Latent means of the dataset."""
+    """Latent means of the dataset, for either model family."""
     import torch
 
-    from vae_latent_geometry_tpu_torch.models.evae import encode
+    from vae_latent_geometry_tpu_torch.models import evae, vae
 
+    enc = vae.encode if isinstance(params, vae.VAEParams) else evae.encode
     with torch.no_grad():
-        return encode(params, torch.as_tensor(
+        return enc(params, torch.as_tensor(
             np.asarray(x, np.float32), device=device))[0].cpu().numpy()
+
+
+def _decoders_of(params):
+    """The ensemble's decoders, or None for a single-decoder model."""
+    from vae_latent_geometry_tpu_torch.models.evae import EVAEParams
+
+    return params.decoders if isinstance(params, EVAEParams) else None
+
+
+def _plot_or_warn(what: str, fn, *args, **kw) -> None:
+    """A companion figure ``fn(*args, **kw)``; a failure (matplotlib absent
+    included) is reported and never fails the run, as in the JAX package's
+    CLI."""
+    try:
+        fn(*args, **kw)
+    except Exception as ex:
+        print(f"[warn] {what} failed: {type(ex).__name__}: {ex}")
 
 
 def cmd_train(args):
@@ -104,6 +151,7 @@ def cmd_train(args):
         train_evae,
         train_evae_multiseed,
     )
+    from vae_latent_geometry_tpu_torch.viz import plotting
 
     device = resolve_device(args.device)
     data = _load_data(args)
@@ -132,6 +180,9 @@ def cmd_train(args):
                                 "model_config": to_dict(mcfg)})
         np.save(out / f"train_losses_seed{seed}.npy", res.train_losses)
         np.save(out / f"val_losses_seed{seed}.npy", res.val_losses)
+        _plot_or_warn("loss-curve plot", plotting.plot_loss_curves,
+                      res.train_losses, res.val_losses,
+                      str(out / "plots" / f"loss_curve_seed{seed}.png"))
         print(f"[ok] saved {ckpt}")
 
 
@@ -165,7 +216,6 @@ def cmd_train_single(args):
 
 def cmd_select_pairs(args):
     from vae_latent_geometry_tpu_torch.device import resolve_device
-    from vae_latent_geometry_tpu_torch.models.evae import load_npz
     from vae_latent_geometry_tpu_torch.pipeline.select_pairs import (
         save_pairs,
         select_representatives,
@@ -173,7 +223,7 @@ def cmd_select_pairs(args):
 
     device = resolve_device(args.device)
     data = _load_data(args)
-    latents = _encode(load_npz(args.model, device), data.x, device)
+    latents = _encode(_load_model(args.model, device), data.x, device)
     reps = select_representatives(latents, data.labels, args.max_labels)
     out = Path(args.output or
                f"experiment/pairs/selected_pairs_{args.max_labels}.json")
@@ -186,7 +236,6 @@ def cmd_init_splines(args):
     from vae_latent_geometry_tpu_torch.device import resolve_device
     from vae_latent_geometry_tpu_torch.graph.shortest_path import backend
     from vae_latent_geometry_tpu_torch.io.artifacts import save_spline_batch
-    from vae_latent_geometry_tpu_torch.models.evae import load_npz
     from vae_latent_geometry_tpu_torch.pipeline.init_splines import (
         initialize_splines,
         to_artifact,
@@ -195,12 +244,12 @@ def cmd_init_splines(args):
 
     device = resolve_device(args.device)
     data = _load_data(args)
-    params = load_npz(args.model, device)
+    params = _load_model(args.model, device)
     latents = _encode(params, data.x, device)
     reps, pairs = load_pairs(args.pairfile)
     cfg = InitConfig(grid_points_per_axis=args.grid,
                      use_entropy=args.use_entropy)
-    init = initialize_splines(latents, pairs, decoders=params.decoders,
+    init = initialize_splines(latents, pairs, decoders=_decoders_of(params),
                               cfg=cfg, device=device)
     art = to_artifact(init, reps, Path(args.pairfile).stem.split("_")[-1])
     model_name = Path(args.model).stem
@@ -232,14 +281,18 @@ def cmd_optimize(args):
     from vae_latent_geometry_tpu_torch.config import EnergyConfig, GeodesicConfig
     from vae_latent_geometry_tpu_torch.device import resolve_device
     from vae_latent_geometry_tpu_torch.io.artifacts import load_spline_batch
-    from vae_latent_geometry_tpu_torch.models.evae import load_npz
     from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        SINGLE_MODES,
         optimize_spline_batch,
         optimize_spline_batch_backstop,
     )
 
     device = resolve_device(args.device)
-    params = load_npz(args.model, device)
+    params = _load_model(args.model, device)
+    if _decoders_of(params) is None and args.energy_mode not in SINGLE_MODES:
+        raise SystemExit(
+            f"{args.model} is a single-decoder model: --energy-mode must be "
+            f"one of {', '.join(SINGLE_MODES)} (got {args.energy_mode!r})")
     model_name = Path(args.model).stem
     spline_path = args.splines or (
         f"experiment/splines_init_{model_name}/"
@@ -305,6 +358,7 @@ def cmd_eval(args):
         return _eval_cov(args)
     from vae_latent_geometry_tpu_torch.io.artifacts import load_spline_batch
     from vae_latent_geometry_tpu_torch.pipeline.evaluate import distance_matrix
+    from vae_latent_geometry_tpu_torch.viz import plotting
 
     spline_path = args.splines or (
         f"experiment/splines_opt_model_seed{args.seed}/"
@@ -321,14 +375,18 @@ def cmd_eval(args):
                             for row in mat],
     }))
     print(f"[ok] wrote {out_json}")
+    _plot_or_warn("heatmap", plotting.plot_distance_matrix, mat, labels,
+                  str(out_json.with_suffix(".png")),
+                  title=f"{args.len_type} matrix seed {args.seed} "
+                        f"({args.init_type})")
 
 
 def _eval_cov(args):
     from vae_latent_geometry_tpu_torch.device import resolve_device
-    from vae_latent_geometry_tpu_torch.models.evae import load_npz
     from vae_latent_geometry_tpu_torch.parallel.multihost import is_primary
     from vae_latent_geometry_tpu_torch.pipeline.evaluate import cov_analysis
     from vae_latent_geometry_tpu_torch.pipeline.select_pairs import load_pairs
+    from vae_latent_geometry_tpu_torch.viz import plotting
 
     device = resolve_device(args.device)
     data = _load_data(args)
@@ -337,15 +395,17 @@ def _eval_cov(args):
     _, pairs = load_pairs(pairfile)
     models, seeds = [], []
     for seed in args.seeds:
-        path = Path(args.model_dir) / f"model_seed{seed}.npz"
-        if path.exists():
-            models.append(load_npz(str(path), device))
-            seeds.append(seed)
+        for ext in (".npz", ".pt"):
+            path = Path(args.model_dir) / f"model_seed{seed}{ext}"
+            if path.exists():
+                models.append(_load_model(str(path), device))
+                seeds.append(seed)
+                break
         else:
-            print(f"[warn] no checkpoint {path}; skipping seed {seed}")
+            print(f"[warn] no checkpoint for seed {seed}; skipping")
     if not models:
-        raise SystemExit(f"no model_seed<N>.npz for seeds {args.seeds} in "
-                         f"{args.model_dir}")
+        raise SystemExit(f"no model_seed<N>.npz or .pt for seeds "
+                         f"{args.seeds} in {args.model_dir}")
     mesh = None
     if args.dp or args.ep > 1:
         from vae_latent_geometry_tpu_torch.parallel.mesh import make_mesh
@@ -362,6 +422,117 @@ def _eval_cov(args):
     if is_primary():
         res.save(out)
         print(f"[ok] wrote {out}")
+        plot_dir = out.parent
+        _plot_or_warn("cov plot", plotting.plot_cov_curves, res,
+                      str(plot_dir / f"cov_plot_{args.pair_count}_alldec.png"))
+        # per-pair CoV histogram at the full ensemble size (reference
+        # artifact cov_hist_euclidean_10.png)
+        _plot_or_warn("cov histogram", plotting.plot_cov_hist,
+                      res.raw_cov_geodesic[max(res.raw_cov_geodesic)],
+                      str(plot_dir / f"cov_hist_{args.pair_count}.png"))
+
+
+def cmd_plot(args):
+    from vae_latent_geometry_tpu_torch.device import resolve_device
+    from vae_latent_geometry_tpu_torch.io.artifacts import load_spline_batch
+    from vae_latent_geometry_tpu_torch.viz import plotting
+
+    if args.kind in ("density", "splines", "illustration") \
+            and not args.splines:
+        raise SystemExit(
+            f"plot {args.kind} requires --splines <spline-batch artifact> "
+            "(the curves to draw)")
+    if not plotting.matplotlib_available():
+        raise SystemExit("plot needs matplotlib, which is not installed")
+    device = resolve_device(args.device)
+    data = _load_data(args)
+    params = _load_model(args.model, device)
+    if args.kind == "uncertainty" and _decoders_of(params) is None:
+        raise SystemExit(
+            "plot uncertainty maps ENSEMBLE decoder disagreement and "
+            f"needs an EVAE checkpoint; {args.model} loaded as "
+            f"{type(params).__name__} (a single-decoder model has no "
+            "disagreement to map)")
+    latents = _encode(params, data.x, device)
+    out = args.output or f"experiment/plots/{args.kind}.png"
+    if args.kind == "density":
+        plotting.plot_latent_density_with_splines(
+            latents, data.labels, load_spline_batch(args.splines), out,
+            res=args.resolution, device=device)
+    elif args.kind == "uncertainty":
+        plotting.plot_uncertainty_map(params, latents, out,
+                                      colors=data.colors,
+                                      resolution=args.resolution)
+    elif args.kind == "latents":
+        from vae_latent_geometry_tpu_torch.pipeline.select_pairs import (
+            load_pairs,
+        )
+
+        reps, _ = load_pairs(args.pairfile)
+        plotting.plot_latents_with_selected(latents, reps, out)
+    elif args.kind == "splines":
+        art = load_spline_batch(args.splines)
+        if art.omega_optimized is not None:
+            plotting.plot_initial_and_optimized_splines(latents, art, out)
+        else:
+            plotting.plot_initialized_splines(latents, art, out)
+    elif args.kind == "illustration":
+        # the reference figure's title carries the model seed
+        # (density_illustration_examples{seed}.png): model_seed12 -> 12
+        m = re.search(r"seed(\d+)", Path(args.model).stem)
+        plotting.plot_density_illustration(
+            latents, load_spline_batch(args.splines), out,
+            point_colors=data.colors, labels=data.labels,
+            res=args.resolution, seed=int(m.group(1)) if m else None,
+            device=device)
+    print(f"[ok] wrote {out}")
+
+
+def cmd_stability(args):
+    from vae_latent_geometry_tpu_torch.pipeline.stability import (
+        check_pair_determinism,
+        frobenius_from_json,
+    )
+
+    # both kinds read JSON artifacts: parse once here (a binary artifact
+    # would otherwise end in a raw UnicodeDecodeError) and hand the dicts on
+    expected = ("distance-matrix JSONs (eval --mode matrix output)"
+                if args.kind == "frobenius"
+                else "selected-pairs JSONs (select-pairs output)")
+    parsed = []
+    for path in (args.a, args.b):
+        try:
+            parsed.append(json.loads(Path(path).read_text()))
+        except (UnicodeDecodeError, json.JSONDecodeError, OSError) as ex:
+            raise SystemExit(
+                f"[stability] {path} is not readable as JSON "
+                f"({type(ex).__name__}: {ex}); `stability {args.kind}` "
+                f"compares two {expected}")
+    da, db = parsed
+    if args.kind == "frobenius":
+        res = frobenius_from_json(da, db)
+        print(json.dumps({
+            "common": len(res.common_labels),
+            "only_in_a": res.only_in_a, "only_in_b": res.only_in_b,
+            "frob_a": res.frob_a, "frob_b": res.frob_b,
+            "frob_diff": res.frob_diff, "rel_diff": res.rel_diff,
+        }, indent=2))
+    else:
+        same = check_pair_determinism(da, db)
+        print(f"pair files {'MATCH' if same else 'DIFFER'}")
+        sys.exit(0 if same else 1)
+
+
+def cmd_golden(args):
+    """Real-data golden reproduction of the reference's 133x133
+    single-decoder matrix (``pipeline/golden.py``)."""
+    from vae_latent_geometry_tpu_torch.pipeline.golden import run_golden
+
+    report = run_golden(args.seed, args.output, root=args.reference_root,
+                        steps=args.steps, num_t=args.num_t,
+                        batch_size=args.batch_size, mode=args.energy_mode,
+                        pairs_limit=args.pairs_limit, device=args.device)
+    print(json.dumps(report, indent=2))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -433,7 +604,8 @@ def build_parser() -> argparse.ArgumentParser:
     o = sub.add_parser("optimize", help="batched geodesic optimization")
     add_common(o)
     o.add_argument("--model", required=True,
-                   help="path-keyed EVAE checkpoint (.npz)")
+                   help="EVAE or legacy single-VAE checkpoint (.npz, or a "
+                        "reference .pt/.pth state dict)")
     o.add_argument("--splines", default=None)
     o.add_argument("--init-type", default="entropy",
                    choices=["entropy", "euclidean"])
@@ -510,9 +682,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "re-running the command resumes")
     o.set_defaults(fn=cmd_optimize)
 
-    e = sub.add_parser(
-        "eval", help="distance matrix / CoV analysis (JSON only: the port "
-                     "has no plotting, so no companion figures)")
+    e = sub.add_parser("eval", help="distance matrix / CoV analysis")
     add_common(e)
     e.add_argument("--mode", required=True, choices=["matrix", "cov"])
     e.add_argument("--len-type", default="geodesic",
@@ -523,7 +693,7 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--seed", type=int, default=12)
     e.add_argument("--seeds", nargs="*", type=int, default=[12, 123],
                    help="cov: model seeds; each needs "
-                        "<model-dir>/model_seed<N>.npz (no .pt import)")
+                        "<model-dir>/model_seed<N>.npz or .pt")
     e.add_argument("--splines", default=None)
     e.add_argument("--pairfile", default=None)
     e.add_argument("--model-dir", default="experiment")
@@ -545,9 +715,48 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--output", default=None,
                    help="result JSON path (matrix: the distance matrix; "
                         "cov: the CoV values, the JAX package's format); "
+                        "companion figures are written next to it; "
                         "default: the experiment/plots/ naming convention "
                         "under the cwd")
     e.set_defaults(fn=cmd_eval)
+
+    pl_ = sub.add_parser("plot", help="latent-space visualizations")
+    add_common(pl_)
+    pl_.add_argument("kind", choices=["density", "uncertainty", "latents",
+                                      "splines", "illustration"])
+    pl_.add_argument("--model", required=True)
+    pl_.add_argument("--splines", default=None)
+    pl_.add_argument("--pairfile", default=None)
+    pl_.add_argument("--resolution", type=int, default=100)
+    pl_.add_argument("--output", default=None)
+    pl_.set_defaults(fn=cmd_plot)
+
+    st = sub.add_parser("stability", help="cross-seed stability checks")
+    st.add_argument("kind", choices=["frobenius", "pairs"])
+    st.add_argument("--a", required=True,
+                    help="first artifact: a distance-matrix JSON (eval "
+                         "--mode matrix output) for `frobenius`, a "
+                         "selected-pairs JSON (select-pairs output) for "
+                         "`pairs`")
+    st.add_argument("--b", required=True,
+                    help="second artifact, same kind as --a")
+    st.set_defaults(fn=cmd_stability)
+
+    gd = sub.add_parser(
+        "golden", help="reproduce the reference's real-data 133x133 "
+        "single-decoder matrix and compare to its golden JSON")
+    gd.add_argument("--seed", type=int, default=12, choices=[12, 123])
+    gd.add_argument("--output", default="experiment")
+    gd.add_argument("--reference-root", default="/root/reference")
+    gd.add_argument("--steps", type=int, default=500)
+    gd.add_argument("--num-t", type=int, default=2000)
+    gd.add_argument("--batch-size", type=int, default=500)
+    gd.add_argument("--energy-mode", default="single_fused")
+    gd.add_argument("--pairs-limit", type=int, default=None)
+    gd.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs the plain "
+                         "PyTorch versions of the kernels)")
+    gd.set_defaults(fn=cmd_golden)
     return p
 
 

@@ -66,3 +66,14 @@ def nullspace_basis(n_poly: int) -> tuple[np.ndarray, np.ndarray]:
     if resid > 1e-8:
         raise RuntimeError(f"||C @ basis|| = {resid:.2e} too large")
     return basis.astype(np.float32), C.astype(np.float32)
+
+
+def rebase_omega(omega, src_basis, dst_basis):
+    """Spline parameters carried from one orthonormal nullspace basis to
+    another of the same subspace: omega' = (dst^T src) omega, so the raw
+    coefficients (and the curve) are unchanged.  The SVD nullspace is unique
+    only up to rotation: the reference's (torch LAPACK) coefficients are not
+    elementwise comparable with these (numpy LAPACK) until rebased.
+    omega: (..., K, D); bases: (4*n_poly, K)."""
+    R = np.asarray(dst_basis).T @ np.asarray(src_basis)
+    return np.einsum("kl,...ld->...kd", R, np.asarray(omega))

@@ -11,7 +11,8 @@
   ``energy_mc_from_indices`` is the estimator on given index planes and
   ``energy_mc_scan`` the same distribution streamed over T in chunks;
   ``sample_decoder_indices`` draws the planes.
-- ``geodesic_lengths``: data-space arc length through one decoder.
+- ``geodesic_lengths``: data-space arc length through one decoder;
+  ``arc_lengths`` the latent-space one.
 - ``energy_jvp`` / ``energy_jvp_ensemble``: the T -> infinity forms, a
   trapezoid quadrature of ||J_f(g) g'||^2 (the decoder JVP along the curve
   velocity) plus, for the ensemble, the decoder-disagreement term;
@@ -46,6 +47,12 @@ def geodesic_lengths(decoder_params, gamma):
     x = nets.decoder_apply(decoder_params, gamma)
     diffs = x[1:] - x[:-1]
     return torch.sum(torch.linalg.norm(diffs, dim=2), dim=0)
+
+
+def arc_lengths(gamma):
+    """Latent-space curve length sum_i ||g_{i+1} - g_i|| (reference
+    ``optimize_energy.py:167-172``): gamma (T, B, D) -> (B,)."""
+    return torch.sum(torch.linalg.norm(gamma[1:] - gamma[:-1], dim=2), dim=0)
 
 
 def _mean_weights(num_active, m_dec, B, dtype, device):

@@ -85,6 +85,21 @@ def eval_spline_velocity(omega, a, b, dphi):
     return (b - a)[None] + torch.einsum("tk,bkd->tbd", dphi, omega)
 
 
+def eval_spline(omega, a, b, basis, t, n_poly: int = 4):
+    """Curve points the reference's way (``src/optimize.py:22-35``): raw
+    coefficients (n_poly, 4, B, D), the segment's four picked per t, local
+    powers, plus the straight line.  omega (B, K, D), a/b (B, D), basis
+    (4*n_poly, K), t (T,) -> (T, B, D)."""
+    B, K, D = omega.shape
+    basis = torch.as_tensor(basis, dtype=omega.dtype, device=omega.device)
+    coeffs = torch.einsum("nk,bkd->nbd", basis, omega).reshape(n_poly, 4,
+                                                                 B, D)
+    seg_idx, powers = _segment_powers(t, n_poly)
+    poly = torch.einsum("ti,tibd->tbd", powers, coeffs[seg_idx])
+    t = t[:, None, None]
+    return (1.0 - t) * a[None] + t * b[None] + poly
+
+
 def fit_spline_lstsq(paths, mask, a, b, phi, t, ridge: float = 0.0):
     """Closed-form least-squares fit of omega to (padded, masked) target
     paths, batched: the ridge solution with an unconditional

@@ -67,14 +67,19 @@ def from_jax_params(tree, device: Optional[Union[str, torch.device]] = None
                       decoders=_to_tensors(get("decoders"), dev))
 
 
-def load_npz(path: str, device: Optional[Union[str, torch.device]] = None
-             ) -> EVAEParams:
-    """Load a path-keyed EVAE checkpoint written by the JAX package."""
+def load_npz(path: str, device: Optional[Union[str, torch.device]] = None):
+    """Load a path-keyed checkpoint written by either package: an
+    ``EVAEParams``, or a legacy single VAE's ``models.vae.VAEParams`` when
+    the sidecar's ``model_config`` is heteroscedastic (``train-single``'s
+    ``vae_best_seed<N>.npz``)."""
     tree, meta = load_tree(path)
     cfg = from_dict(ModelConfig, meta.get("model_config"))
     if cfg.heteroscedastic:
-        raise ValueError(f"{path}: the legacy heteroscedastic single-VAE "
-                         "family is not available in the PyTorch port")
+        from vae_latent_geometry_tpu_torch.models.vae import VAEParams
+
+        dev = resolve_device(device)
+        return VAEParams(encoder=_to_tensors(tree["encoder"], dev),
+                         decoder=_to_tensors(tree["decoder"], dev))
     if "decoders" not in tree:
         raise KeyError(f"{path}: no 'decoders' tree — not an EVAE checkpoint")
     return from_jax_params(tree, device)
