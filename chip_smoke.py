@@ -2993,6 +2993,7 @@ def plot_phase(params, out_art, dev, cfg):
     from vae_latent_geometry_tpu_torch.optim.geodesic import optimize_splines
     from vae_latent_geometry_tpu_torch.pipeline.select_pairs import save_pairs
     from vae_latent_geometry_tpu_torch.utils import trace_annotation
+    from vae_latent_geometry_tpu_torch.utils.profiling import recording
     from vae_latent_geometry_tpu_torch.viz import plotting
 
     pdir = os.path.join(OUT_DIR, "plots")
@@ -3048,13 +3049,14 @@ def plot_phase(params, out_art, dev, cfg):
     pos = k_cpu > 0
     k_rel = float((np.abs(k_gpu - k_cpu)[pos] / k_cpu[pos]).max())
 
-    # trace_annotation's range in a profiler trace of one optimizer step
+    # trace_annotation's range in a profiler trace of one optimizer step,
+    # with the span recorder on
     name = "vlg.optimizer_step"
     one = dataclasses.replace(cfg, steps=1)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        with trace_annotation(name):
+        with recording(), trace_annotation(name):
             optimize_splines(params.decoders, out_art.omega_init[:8],
                              out_art.a[:8], out_art.b[:8], out_art.basis,
                              one, device=dev)
@@ -3114,7 +3116,9 @@ def main() -> int:
     card = card_line()
 
     # 1. build --------------------------------------------------------------
-    build_s = _build.build_all()
+    t_build = time.perf_counter()
+    build_by_source = _build.build_all()
+    build_s = time.perf_counter() - t_build
     with open(os.path.join(OUT_DIR, "nvcc_build.log"), "w") as f:
         f.write("\n".join(_build.BUILD_LOG.values()))
     ptxas = [l.strip() for log in _build.BUILD_LOG.values()
@@ -3127,7 +3131,7 @@ def main() -> int:
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     emit({"phase": "build", "seconds": build_s,
-          "seconds_by_source": _build.BUILD_SECONDS, "card": card,
+          "seconds_by_source": build_by_source, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc, "ptxas": ptxas, "k2_sass_hmma": hmma,
           "k1_sass_hmma": k1_hmma, "mc_sass_hmma": mc_hmma,

@@ -16,6 +16,7 @@ from vae_latent_geometry_tpu_torch.utils import (
     time_fn,
     trace_annotation,
 )
+from vae_latent_geometry_tpu_torch.utils.profiling import recording, spans
 
 
 def test_timer_measures_the_scope(capsys):
@@ -60,11 +61,14 @@ def test_nan_guard_raises_on_a_backward_nan():
 
 
 def test_trace_annotation_names_a_profiler_range():
+    """With the span recorder on, a span is a named profiler range (off,
+    it is nothing at all: tests/test_torch_tracing.py)."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with trace_annotation("vlg.test_range"):
+        with recording(), trace_annotation("vlg.test_range"):
             torch.ones(4) @ torch.ones(4)
     assert any(e.key == "vlg.test_range" for e in prof.key_averages())
+    assert [s.name for s in spans()] == ["vlg.test_range"]
 
 
 def test_get_logger_is_configured_once():

@@ -92,7 +92,6 @@ def main():
         _build.CSRC = type(_build.CSRC)(os.path.join(dst, "csrc"))
         _build.BUILD_DIR = type(_build.BUILD_DIR)(os.path.join(dst, "lib"))
         _build._LIBS.clear()
-        _build.BUILD_SECONDS.clear()
         _build.build_all(["energy_expected", "energy_mc"])
         rec = {"variant": name,
                "K1": smoke.time_ms(lambda: ef.energy_fwd(

@@ -27,7 +27,8 @@ PyTorch versions of the kernels).
 ``train --train-state PATH`` writes the whole training state there after
 every block and resumes from it when it exists; ``optimize`` checkpoints
 every chunk to its ``--output`` and resumes from it, so re-running the same
-command continues an interrupted run.
+command continues an interrupted run; ``optimize --spans PATH`` writes the
+run's spans there as Chrome trace-event JSON.
 
 Several ranks (``optimize --dp N --ep M``): start dp*ep processes with the
 same command, each with ``--coordinator host:port --num-processes N
@@ -38,6 +39,7 @@ same command, each with ``--coordinator host:port --num-processes N
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import sys
@@ -286,6 +288,7 @@ def cmd_optimize(args):
         optimize_spline_batch,
         optimize_spline_batch_backstop,
     )
+    from vae_latent_geometry_tpu_torch.utils import profiling
 
     device = resolve_device(args.device)
     params = _load_model(args.model, device)
@@ -329,23 +332,27 @@ def cmd_optimize(args):
                f"spline_batch_opt_{args.init_type}_{args.pair_count}.npz")
     kw = dict(data=data, device=device, checkpoint_path=str(out),
               generator=torch.Generator().manual_seed(args.seed), mesh=mesh)
-    if args.backstop_fixed:
-        # never worse than the fixed reference recipe on any pair, at the
-        # configured grid and estimator (the lengths must measure one
-        # objective for the merge to mean anything)
-        if args.num_t != 2000:
-            print(f"[backstop] note: --num-t {args.num_t} — the guarantee "
-                  "is vs the 1000-step fixed recipe at THIS grid, not the "
-                  "reference's T=2000")
-        res = optimize_spline_batch_backstop(
-            params, art, cfg=cfg,
-            backstop_cfg=GeodesicConfig(steps=1000, lr=1e-3,
-                                        batch_size=args.batch_size,
-                                        energy=energy), **kw)
-    else:
-        res = optimize_spline_batch(params, art, cfg=cfg, **kw)
+    with (profiling.recording() if args.spans else contextlib.nullcontext()):
+        if args.backstop_fixed:
+            # never worse than the fixed reference recipe on any pair, at
+            # the configured grid and estimator (the lengths must measure
+            # one objective for the merge to mean anything)
+            if args.num_t != 2000:
+                print(f"[backstop] note: --num-t {args.num_t} — the "
+                      "guarantee is vs the 1000-step fixed recipe at THIS "
+                      "grid, not the reference's T=2000")
+            res = optimize_spline_batch_backstop(
+                params, art, cfg=cfg,
+                backstop_cfg=GeodesicConfig(steps=1000, lr=1e-3,
+                                            batch_size=args.batch_size,
+                                            energy=energy), **kw)
+        else:
+            res = optimize_spline_batch(params, art, cfg=cfg, **kw)
     from vae_latent_geometry_tpu_torch.parallel.multihost import is_primary
 
+    if args.spans and is_primary():
+        profiling.write_chrome_trace(args.spans, profiling.spans())
+        print(f"[spans] {args.spans}")
     if is_primary():
         n_bk = res.metadata.get("backstop_selected")
         if n_bk is not None:
@@ -680,6 +687,11 @@ def build_parser() -> argparse.ArgumentParser:
     o.add_argument("--output", default=None,
                    help="result artifact, also the per-chunk checkpoint: "
                         "re-running the command resumes")
+    o.add_argument("--spans", default=None, metavar="PATH",
+                   help="record the run's spans (chunks, optimizer steps "
+                        "with their device times, kernel launches, kernel "
+                        "loading) and write them to PATH as Chrome "
+                        "trace-event JSON, for Perfetto")
     o.set_defaults(fn=cmd_optimize)
 
     e = sub.add_parser("eval", help="distance matrix / CoV analysis")

@@ -20,6 +20,11 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+from vae_latent_geometry_tpu_torch.utils.profiling import (
+    record_interval,
+    trace_annotation,
+)
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 # --split-compile=0: cicc and ptxas work on parts of a source (ptxas on its
@@ -76,7 +81,6 @@ COMMON = {"vlg_any_scratch_words": [_I, _P, _I], "vlg_any_head_words": [_I]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}   # nvcc output (register / spill report)
-BUILD_SECONDS: Dict[str, float] = {}   # wall seconds of each nvcc
 
 
 def _nvcc() -> str:
@@ -112,12 +116,14 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: List[str] = None) -> float:
+def build_all(names: List[str] = None) -> Dict[str, float]:
     """Compile every missing library, one ``nvcc`` per source, all started
-    together.  Returns the wall seconds spent; raises with the compiler's
-    output when a build fails."""
+    together, and wait for each of them.  Returns the wall seconds of each
+    compiler this call ran, by source (an ``ops.build`` span each while the
+    recorder is on); raises with the compiler's output when a build
+    fails."""
     names = list(SIGNATURES) if names is None else names
-    t0 = time.perf_counter()
+    t0 = time.time_ns()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -129,11 +135,17 @@ def build_all(names: List[str] = None) -> float:
         procs[name] = (subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT, text=True), tmp, out, log)
-    while len(BUILD_SECONDS.keys() & procs.keys()) < len(procs):
-        for name, (proc, *_) in procs.items():
-            if name not in BUILD_SECONDS and proc.poll() is not None:
-                BUILD_SECONDS[name] = time.perf_counter() - t0
-        time.sleep(0.1)
+    seconds: Dict[str, float] = {}
+    running = dict(procs)
+    while running:
+        for name, (proc, *_) in list(running.items()):
+            if proc.poll() is not None:
+                t1 = time.time_ns()
+                seconds[name] = (t1 - t0) * 1e-9
+                record_interval("ops.build", t0, t1, source=name)
+                del running[name]
+        if running:
+            time.sleep(0.1)
     for name, (proc, tmp, out, log) in procs.items():
         log.seek(0)
         BUILD_LOG[name] = log.read()
@@ -142,18 +154,20 @@ def build_all(names: List[str] = None) -> float:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{BUILD_LOG[name]}")
         os.replace(tmp, out)
-    return time.perf_counter() - t0
+    return seconds
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built if missing)."""
+    """The loaded library of ``csrc/<name>.cu`` (built if missing; the
+    first call is an ``ops.library`` span)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in {**SIGNATURES[name], **COMMON}.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+        with trace_annotation("ops.library", source=name):
+            build_all([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in {**SIGNATURES[name], **COMMON}.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 

@@ -35,6 +35,8 @@ import functools
 
 import torch
 
+from vae_latent_geometry_tpu_torch.utils.profiling import trace_annotation
+
 PRECISIONS = ("float32", "f32x3", "f32x2", "bfloat16")
 _RUNG = {"float32": 0, "f32x3": 1, "f32x2": 2, "bfloat16": 3}
 # The decoders the CUDA kernels take (``csrc/decode_any.cuh``): two or more
@@ -53,7 +55,8 @@ MAX_X = 128
 INDEX_LIMIT = 2**31 - 2**16
 
 # Launches of each kernel's wrapper (one per wrapper call that launched the
-# CUDA kernel; the plain CPU version does not count).
+# CUDA kernel; the plain CPU version does not count).  The launching part of
+# each wrapper is an ``op.<wrapper>`` span.
 LAUNCHES = {"energy_fwd": 0, "energy_bwd": 0, "stats_fwd": 0, "stats_bwd": 0}
 
 
@@ -391,9 +394,10 @@ def energy_fwd(ws, bs, gamma, wmb, precision):
         LAUNCHES["energy_fwd"] += 1
         return out
 
-    return by_splines(T, B, ws, lambda b0, b1: sum_slices(
-        ws, bs, lambda wsx, bsx, c0, c1: launch(
-            wsx, bsx, _splines(gamma, b0, b1), _splines(wmb, b0, b1))))
+    with trace_annotation("op.energy_fwd"):
+        return by_splines(T, B, ws, lambda b0, b1: sum_slices(
+            ws, bs, lambda wsx, bsx, c0, c1: launch(
+                wsx, bsx, _splines(gamma, b0, b1), _splines(wmb, b0, b1))))
 
 
 def energy_bwd(ws, bs, gamma, wmb, ct, precision):
@@ -425,10 +429,11 @@ def energy_bwd(ws, bs, gamma, wmb, ct, precision):
         LAUNCHES["energy_bwd"] += 1
         return dgamma
 
-    return by_splines(T, B, ws, lambda b0, b1: sum_slices(
-        ws, bs, lambda wsx, bsx, c0, c1: launch(
-            wsx, bsx, _splines(gamma, b0, b1), _splines(wmb, b0, b1),
-            ct[b0:b1].contiguous())))
+    with trace_annotation("op.energy_bwd"):
+        return by_splines(T, B, ws, lambda b0, b1: sum_slices(
+            ws, bs, lambda wsx, bsx, c0, c1: launch(
+                wsx, bsx, _splines(gamma, b0, b1), _splines(wmb, b0, b1),
+                ct[b0:b1].contiguous())))
 
 
 def _splines(x, b0, b1):
@@ -604,7 +609,8 @@ def stats_fwd(ws, bs, gamma, wmb, precision):
         return (torch.cat([p[0] for p in parts], -1),
                 torch.cat([p[1] for p in parts], -1), sq)
 
-    return by_splines(T, B, ws, over_slices)
+    with trace_annotation("op.stats_fwd"):
+        return by_splines(T, B, ws, over_slices)
 
 
 def stats_bwd(ws, bs, gamma, wmb, dx0, dyb, dsq, precision):
@@ -645,7 +651,8 @@ def stats_bwd(ws, bs, gamma, wmb, dx0, dyb, dsq, precision):
             wsx, bsx, g, w_b, _cols(dx0_b, c0, c1, X), _cols(dyb_b, c0, c1, X),
             dsq_b))
 
-    return by_splines(T, B, ws, over_slices)
+    with trace_annotation("op.stats_bwd"):
+        return by_splines(T, B, ws, over_slices)
 
 
 def _cols(x, c0, c1, X):

@@ -55,6 +55,7 @@ from vae_latent_geometry_tpu_torch.ops.energy_fused import (
     stack_weights,
     sum_slices,
 )
+from vae_latent_geometry_tpu_torch.utils.profiling import trace_annotation
 
 LAUNCHES.update({"energy_mc_fwd": 0, "energy_mc_bwd": 0,
                  "energy_mc_fwd_rng": 0, "energy_mc_bwd_rng": 0})
@@ -283,8 +284,9 @@ def _launch(name, backward, ws, bs, gamma, precision, S, d1, d2, kmax, seed,
         LAUNCHES[name] += 1
         return out
 
-    return by_splines(T, B, ws, lambda b0, b1: sum_slices(
-        ws, bs, lambda wsx, bsx, c0, c1: launch(wsx, bsx, b0, b1)))
+    with trace_annotation(f"op.{name}"):
+        return by_splines(T, B, ws, lambda b0, b1: sum_slices(
+            ws, bs, lambda wsx, bsx, c0, c1: launch(wsx, bsx, b0, b1)))
 
 
 def energy_mc_fwd(ws, bs, gamma, d1, d2, precision):

@@ -42,6 +42,7 @@ from vae_latent_geometry_tpu_torch.geometry.spline import (
 )
 from vae_latent_geometry_tpu_torch.ops import energy_fused, energy_mc_fused
 from vae_latent_geometry_tpu_torch.parallel.collectives import all_reduce_sum
+from vae_latent_geometry_tpu_torch.utils.profiling import trace_annotation
 
 ENERGY_MODES = ("mc", "mc_scan", "mc_fused", "mc_fused_bf16",
                 "expected", "expected_fused", "expected_fused_bf16",
@@ -415,18 +416,25 @@ def optimize_splines(decoders, omega0, a, b, basis, cfg: GeodesicConfig,
         opt = _make_opt(pcfg)
         state = opt.init(omega)
         phase_seed = fold_seed(root, 1 + i)
-        for step in range(pcfg.steps):
-            om = omega.detach().requires_grad_(True)
-            total, e = loss_fn(om, a, b, fold_seed(phase_seed, step),
-                               num_active)
-            (grad,) = torch.autograd.grad(total, om)
-            # each ep rank's gradient covers only its decoder subset's share
-            # of the energy; the gradient of the replicated omega is the sum
-            grad = all_reduce_sum(grad, ep_group)
-            if record_history:
-                hists.append(e.detach())
-            opt.step(omega, grad, state)
-    with torch.no_grad():
+        with trace_annotation("opt.phase", phase=i, steps=pcfg.steps):
+            for step in range(pcfg.steps):
+                with trace_annotation("opt.step", device=dev, step=step):
+                    om = omega.detach().requires_grad_(True)
+                    with trace_annotation("opt.loss"):
+                        total, e = loss_fn(om, a, b,
+                                           fold_seed(phase_seed, step),
+                                           num_active)
+                    with trace_annotation("opt.backward"):
+                        (grad,) = torch.autograd.grad(total, om)
+                        # each ep rank's gradient covers only its decoder
+                        # subset's share of the energy; the gradient of the
+                        # replicated omega is the sum
+                        grad = all_reduce_sum(grad, ep_group)
+                    if record_history:
+                        hists.append(e.detach())
+                    with trace_annotation("opt.adam"):
+                        opt.step(omega, grad, state)
+    with torch.no_grad(), trace_annotation("opt.final"):
         exact_loss = make_loss_fn(decoders, basis, _exact_cfg(cfg), dev,
                                   mesh=mesh)
         _, e_final = exact_loss(omega, a, b, fold_seed(root, 0), num_active)
@@ -466,21 +474,27 @@ def _optimize_early_stop(decoders, omega0, a, b, basis, cfg: GeodesicConfig,
     patience = torch.zeros(omega.shape[0], dtype=torch.int32, device=dev)
     step_seed = fold_seed(root, 1)
     step = 0
-    while step < cfg.steps and int(patience.min()) <= cfg.patience:
-        for i in range(step, min(step + block, cfg.steps)):
-            om = omega.detach().requires_grad_(True)
-            total, e = loss_fn(om, a, b, fold_seed(step_seed, i), num_active)
-            (grad,) = torch.autograd.grad(total, om)
-            e = e.detach()
-            improved = (best_e - e) / best_e > cfg.delta
-            best_e = torch.where(improved, e, best_e)
-            best_omega = torch.where(improved[:, None, None], omega,
-                                     best_omega)
-            patience = torch.where(improved, 0, patience + 1)
-            opt.step(omega, grad, state)
-        step = min(step + block, cfg.steps)
+    with trace_annotation("opt.phase", phase=0, steps=cfg.steps):
+        while step < cfg.steps and int(patience.min()) <= cfg.patience:
+            for i in range(step, min(step + block, cfg.steps)):
+                with trace_annotation("opt.step", device=dev, step=i):
+                    om = omega.detach().requires_grad_(True)
+                    with trace_annotation("opt.loss"):
+                        total, e = loss_fn(om, a, b, fold_seed(step_seed, i),
+                                           num_active)
+                    with trace_annotation("opt.backward"):
+                        (grad,) = torch.autograd.grad(total, om)
+                    e = e.detach()
+                    improved = (best_e - e) / best_e > cfg.delta
+                    best_e = torch.where(improved, e, best_e)
+                    best_omega = torch.where(improved[:, None, None], omega,
+                                             best_omega)
+                    patience = torch.where(improved, 0, patience + 1)
+                    with trace_annotation("opt.adam"):
+                        opt.step(omega, grad, state)
+            step = min(step + block, cfg.steps)
     # exact energies at the restored params (reduced rungs only steer)
-    with torch.no_grad():
+    with torch.no_grad(), trace_annotation("opt.final"):
         exact_loss = make_loss_fn(decoders, basis, _exact_cfg(cfg), dev)
         _, e_final = exact_loss(best_omega, a, b, fold_seed(root, 0),
                                 num_active)

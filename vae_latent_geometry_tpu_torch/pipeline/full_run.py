@@ -1,13 +1,13 @@
 """High-level end-to-end distance-matrix pipeline.
 
 One call runs the reference's four-script sequence (select pairs -> init
-splines -> optimize -> matrix eval) and reports per-stage wall-clock: the
-workload behind the full n x n ensemble geodesic matrix.
+splines -> optimize -> matrix eval) and reports per-stage wall-clock (each
+stage a ``run.<stage>`` span): the workload behind the full n x n ensemble
+geodesic matrix.
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
@@ -31,6 +31,7 @@ from vae_latent_geometry_tpu_torch.pipeline.select_pairs import (
     make_pairs,
     select_representatives,
 )
+from vae_latent_geometry_tpu_torch.utils.profiling import trace_annotation
 
 
 @dataclass
@@ -70,34 +71,34 @@ def run_distance_pipeline(
             torch.cuda.synchronize(dev)
 
     timings: Dict[str, float] = {}
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        latents = evae_lib.encode(params, torch.as_tensor(
-            np.asarray(data, np.float32), device=dev))[0].cpu().numpy()
-    timings["encode"] = time.perf_counter() - t0
+    with trace_annotation("run.encode", timed=True) as span:
+        with torch.no_grad():
+            latents = evae_lib.encode(params, torch.as_tensor(
+                np.asarray(data, np.float32), device=dev))[0].cpu().numpy()
+    timings["encode"] = span.seconds
 
-    t0 = time.perf_counter()
-    reps = select_representatives(latents, labels, max_labels)
-    pairs = make_pairs(reps)
-    timings["select_pairs"] = time.perf_counter() - t0
+    with trace_annotation("run.select_pairs", timed=True) as span:
+        reps = select_representatives(latents, labels, max_labels)
+        pairs = make_pairs(reps)
+    timings["select_pairs"] = span.seconds
 
-    t0 = time.perf_counter()
-    init = initialize_splines(latents, pairs, decoders=params.decoders,
-                              cfg=init_cfg, device=dev)
-    timings["init_splines"] = time.perf_counter() - t0
+    with trace_annotation("run.init_splines", timed=True) as span:
+        init = initialize_splines(latents, pairs, decoders=params.decoders,
+                                  cfg=init_cfg, device=dev)
+    timings["init_splines"] = span.seconds
     art = to_artifact(init, reps, max_labels)
 
-    t0 = time.perf_counter()
-    art = optimize_spline_batch(
-        params, art, data=data if compute_euclidean else None, cfg=geo_cfg,
-        device=dev, checkpoint_path=checkpoint_path, log_every_chunk=verbose,
-        generator=generator, mesh=mesh)
-    sync()
-    timings["optimize"] = time.perf_counter() - t0
+    with trace_annotation("run.optimize", timed=True) as span:
+        art = optimize_spline_batch(
+            params, art, data=data if compute_euclidean else None,
+            cfg=geo_cfg, device=dev, checkpoint_path=checkpoint_path,
+            log_every_chunk=verbose, generator=generator, mesh=mesh)
+        sync()
+    timings["optimize"] = span.seconds
 
-    t0 = time.perf_counter()
-    mat, mat_labels = distance_matrix(art, "geodesic")
-    timings["matrix"] = time.perf_counter() - t0
+    with trace_annotation("run.matrix", timed=True) as span:
+        mat, mat_labels = distance_matrix(art, "geodesic")
+    timings["matrix"] = span.seconds
     timings["total"] = sum(timings.values())
     if verbose:
         print("[timings] " + "  ".join(f"{k}={v:.2f}s"

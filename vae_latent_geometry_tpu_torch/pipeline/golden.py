@@ -48,7 +48,10 @@ from vae_latent_geometry_tpu_torch.pipeline.init_splines import (
 from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
     optimize_spline_batch,
 )
-from vae_latent_geometry_tpu_torch.utils.profiling import Timer
+from vae_latent_geometry_tpu_torch.utils.profiling import (
+    sync,
+    trace_annotation,
+)
 
 REFERENCE_ROOT = "/root/reference"
 
@@ -119,30 +122,37 @@ def reproduce_matrix(
     seconds: Optional[dict] = None,
 ) -> Tuple[np.ndarray, list, SplineBatchArtifact]:
     """The whole real-data single-decoder run -> (matrix, labels, blob);
-    each stage's seconds (``init``, ``optimize``, ``matrix``, the device
-    synchronized at both ends) go into ``seconds`` when given."""
+    each stage's seconds (``init``, ``optimize``, ``matrix``: ``golden.*``
+    spans, the device synchronized at both ends) go into ``seconds`` when
+    given."""
     from vae_latent_geometry_tpu_torch.models.torch_import import (
         load_single_vae_mean_decoder,
     )
 
     dev = resolve_device(device)
     seconds = {} if seconds is None else seconds
-    with Timer() as t:
+    sync()
+    with trace_annotation("golden.init", timed=True) as span:
         art = build_init_artifact(seed, root, pairs_limit=pairs_limit,
                                   device=dev)
-    seconds["init"] = t.elapsed
+        sync()
+    seconds["init"] = span.seconds
     params = load_single_vae_mean_decoder(
         _artifacts(root, f"vae_best_seed{seed}.pth"), dev)
     cfg = GeodesicConfig(steps=steps, batch_size=batch_size,
                          energy=EnergyConfig(num_t=num_t, mode=mode))
-    with Timer() as t:
+    sync()
+    with trace_annotation("golden.optimize", timed=True) as span:
         out = optimize_spline_batch(params, art, cfg=cfg, device=dev,
                                     checkpoint_path=checkpoint_path,
                                     log_every_chunk=log)
-    seconds["optimize"] = t.elapsed
-    with Timer() as t:
+        sync()
+    seconds["optimize"] = span.seconds
+    sync()
+    with trace_annotation("golden.matrix", timed=True) as span:
         mat, labels = distance_matrix(out)
-    seconds["matrix"] = t.elapsed
+        sync()
+    seconds["matrix"] = span.seconds
     return mat, labels, out
 
 

@@ -54,6 +54,10 @@ from vae_latent_geometry_tpu_torch.parallel.multihost import (
 from vae_latent_geometry_tpu_torch.parallel.shard import (
     sharded_optimize_splines,
 )
+from vae_latent_geometry_tpu_torch.utils.profiling import (
+    read_device_times,
+    trace_annotation,
+)
 
 # GeodesicConfig fields that cannot change any produced value; left out of
 # the recipe stamp (same set as the JAX package): a mismatch discards every
@@ -211,124 +215,133 @@ def optimize_spline_batch(
     patience (``optim.geodesic.optimize_spline_early_stopping``); refused
     with a mesh and with the multi-phase recipes, as in the JAX package.
     """
-    dev = resolve_device(device)
-    primary = is_primary()
-    log_every_chunk = log_every_chunk and primary
-    if cfg.early_stop:
-        if cfg.phase_plan or (cfg.traj_num_t is not None
-                              and cfg.polish_steps > 0):
-            raise ValueError(
-                "early_stop and the multi-phase fast recipes "
-                "(traj_num_t + polish_steps, or phase_plan) are mutually "
-                "exclusive — pick one")
+    with trace_annotation("pipeline.optimize"):
+        dev = resolve_device(device)
+        primary = is_primary()
+        log_every_chunk = log_every_chunk and primary
+        if cfg.early_stop:
+            if cfg.phase_plan or (cfg.traj_num_t is not None
+                                  and cfg.polish_steps > 0):
+                raise ValueError(
+                    "early_stop and the multi-phase fast recipes "
+                    "(traj_num_t + polish_steps, or phase_plan) are mutually "
+                    "exclusive — pick one")
+            if mesh is not None:
+                raise ValueError(
+                    "early_stop is not supported on a sharded (mesh) run: "
+                    "drop early_stop or run without a mesh")
+        single = cfg.energy.mode in SINGLE_MODES
+        energy_params = _energy_params(params, single)
+        P = len(art)
+        omega_opt = np.array(art.omega_init, np.float32, copy=True)
+        lengths = np.full(P, np.nan, np.float32)
+        done = np.zeros(P, bool)
+        stamp = config_stamp(art, cfg)
+        root = root_seed(generator)
+
+        prev = None
+        if checkpoint_path and primary and os.path.exists(checkpoint_path):
+            resumed = _resume_state(art, checkpoint_path, stamp,
+                                    log_every_chunk)
+            if resumed is not None:
+                omega_opt, lengths, done, prev = resumed
         if mesh is not None:
-            raise ValueError(
-                "early_stop is not supported on a sharded (mesh) run: drop "
-                "early_stop or run without a mesh")
-    single = cfg.energy.mode in SINGLE_MODES
-    energy_params = _energy_params(params, single)
-    P = len(art)
-    omega_opt = np.array(art.omega_init, np.float32, copy=True)
-    lengths = np.full(P, np.nan, np.float32)
-    done = np.zeros(P, bool)
-    stamp = config_stamp(art, cfg)
-    root = root_seed(generator)
+            # the chunk schedule drives collective programs: every rank must
+            # run the same chunks, so rank 0's resume state goes to all
+            omega_opt, lengths, done = (np.array(v) for v in
+                                        broadcast_from_primary(
+                                            (omega_opt, lengths, done)))
 
-    prev = None
-    if checkpoint_path and primary and os.path.exists(checkpoint_path):
-        resumed = _resume_state(art, checkpoint_path, stamp, log_every_chunk)
-        if resumed is not None:
-            omega_opt, lengths, done, prev = resumed
-    if mesh is not None:
-        # the chunk schedule drives collective programs: every rank must run
-        # the same chunks, so rank 0's resume state goes to all
-        omega_opt, lengths, done = (np.array(v) for v in
-                                    broadcast_from_primary(
-                                        (omega_opt, lengths, done)))
-
-    eucl = None
-    if data is not None and hasattr(params, "encoder"):
-        x = torch.as_tensor(np.asarray(data, np.float32), device=dev)
-        with torch.no_grad():
-            z = (vae_lib.encode(params, x) if isinstance(
-                params, vae_lib.VAEParams) else evae_lib.encode(params, x)
-                 )[0].cpu().numpy()
-        eucl = np.linalg.norm(z[art.pair_indices[:, 0]]
-                              - z[art.pair_indices[:, 1]],
-                              axis=1).astype(np.float32)
-    elif prev is not None and prev.euclidean_distance is not None:
-        eucl = np.asarray(prev.euclidean_distance, np.float32)
-
-    saver = None
-    if checkpoint_path and primary:
-        def _save_snapshot(snap):
-            om, ln = snap
-            save_spline_batch(dataclasses.replace(
-                art, omega_optimized=om, geodesic_length=ln,
-                euclidean_distance=eucl,
-                metadata={**art.metadata, **stamp}), checkpoint_path)
-
-        saver = _AsyncCheckpointer(_save_snapshot)
-
-    bs = cfg.batch_size
-    n_chunks = (P - 1) // bs + 1 if P else 0
-    for c, start in enumerate(range(0, P, bs)):
-        stop = min(start + bs, P)
-        if done[start:stop].all():
-            continue
-        n_sl = stop - start
-        idx = np.arange(start, stop)
-        if n_sl < bs:   # canonical chunk shape: edge-replicate the tail
-            idx = np.concatenate([idx, np.full(bs - n_sl, stop - 1)])
-        gen = torch.Generator().manual_seed(fold_seed(root, start))
-        args = (energy_params, art.omega_init[idx], art.a[idx], art.b[idx],
-                art.basis, cfg)
-        if mesh is not None:
-            res = sharded_optimize_splines(*args, mesh, generator=gen,
-                                           device=dev)
-        elif cfg.early_stop:
-            res = optimize_spline_early_stopping(*args, device=dev,
-                                                 generator=gen)
-        else:
-            res = optimize_splines(*args, device=dev, generator=gen)
-        om = res.omega[:n_sl].cpu().numpy()
-        e = res.energy[:n_sl].cpu().numpy()
-        omega_opt[start:stop] = om
-        if single:
-            # legacy semantics: data-space arc length, not sqrt(energy)
+        eucl = None
+        if data is not None and hasattr(params, "encoder"):
+            x = torch.as_tensor(np.asarray(data, np.float32), device=dev)
             with torch.no_grad():
-                t = t_grid(cfg.energy.num_t, dev)
-                phi = design_matrix(t, art.basis, art.n_poly)
-                gamma = eval_spline_design(
-                    res.omega[:n_sl],
-                    torch.as_tensor(art.a[start:stop], device=dev),
-                    torch.as_tensor(art.b[start:stop], device=dev), phi, t)
-                lengths[start:stop] = energy_lib.geodesic_lengths(
-                    energy_params, gamma).cpu().numpy()
-        else:
-            lengths[start:stop] = np.sqrt(e)
-        done[start:stop] = True
-        if log_every_chunk:
-            print(f"[chunk {c + 1}/{n_chunks}] mean energy "
-                  f"{float(np.mean(e)):.4f}")
-        if saver is not None:
-            # copies: the loop keeps writing these arrays while the writer
-            # thread serializes
-            saver.submit((omega_opt.copy(), lengths.copy()))
-    if saver is not None:
-        err = saver.close()
-        if err is not None:
-            print(f"[checkpoint] background snapshot writes failed "
-                  f"({type(err).__name__}: {err}); relying on the final "
-                  "synchronous save", file=sys.stderr)
+                z = (vae_lib.encode(params, x) if isinstance(
+                    params, vae_lib.VAEParams) else evae_lib.encode(params, x)
+                     )[0].cpu().numpy()
+            eucl = np.linalg.norm(z[art.pair_indices[:, 0]]
+                                  - z[art.pair_indices[:, 1]],
+                                  axis=1).astype(np.float32)
+        elif prev is not None and prev.euclidean_distance is not None:
+            eucl = np.asarray(prev.euclidean_distance, np.float32)
 
-    lengths = np.where(art.valid, lengths, np.nan)
-    out = dataclasses.replace(
-        art, omega_optimized=omega_opt, geodesic_length=lengths,
-        euclidean_distance=eucl, metadata={**art.metadata, **stamp})
-    if checkpoint_path and primary:
-        save_spline_batch(out, checkpoint_path)
-    return out
+        saver = None
+        if checkpoint_path and primary:
+            def _save_snapshot(snap):
+                om, ln = snap
+                save_spline_batch(dataclasses.replace(
+                    art, omega_optimized=om, geodesic_length=ln,
+                    euclidean_distance=eucl,
+                    metadata={**art.metadata, **stamp}), checkpoint_path)
+
+            saver = _AsyncCheckpointer(_save_snapshot)
+
+        bs = cfg.batch_size
+        n_chunks = (P - 1) // bs + 1 if P else 0
+        for c, start in enumerate(range(0, P, bs)):
+            stop = min(start + bs, P)
+            if done[start:stop].all():
+                continue
+            n_sl = stop - start
+            with trace_annotation("pipeline.chunk", chunk=c, pairs=n_sl):
+                idx = np.arange(start, stop)
+                if n_sl < bs:   # canonical chunk shape: edge-replicate
+                    idx = np.concatenate([idx, np.full(bs - n_sl, stop - 1)])
+                gen = torch.Generator().manual_seed(fold_seed(root, start))
+                args = (energy_params, art.omega_init[idx], art.a[idx],
+                        art.b[idx], art.basis, cfg)
+                if mesh is not None:
+                    res = sharded_optimize_splines(*args, mesh, generator=gen,
+                                                   device=dev)
+                elif cfg.early_stop:
+                    res = optimize_spline_early_stopping(*args, device=dev,
+                                                         generator=gen)
+                else:
+                    res = optimize_splines(*args, device=dev, generator=gen)
+                with trace_annotation("pipeline.readback"):
+                    om = res.omega[:n_sl].cpu().numpy()
+                    # the read-back waited for the whole chunk: the device
+                    # spans' events are all reached
+                    read_device_times()
+                    e = res.energy[:n_sl].cpu().numpy()
+                    omega_opt[start:stop] = om
+                    if single:
+                        # legacy semantics: data-space arc length, not
+                        # sqrt(energy)
+                        with torch.no_grad():
+                            t = t_grid(cfg.energy.num_t, dev)
+                            phi = design_matrix(t, art.basis, art.n_poly)
+                            gamma = eval_spline_design(
+                                res.omega[:n_sl],
+                                torch.as_tensor(art.a[start:stop], device=dev),
+                                torch.as_tensor(art.b[start:stop], device=dev),
+                                phi, t)
+                            lengths[start:stop] = energy_lib.geodesic_lengths(
+                                energy_params, gamma).cpu().numpy()
+                    else:
+                        lengths[start:stop] = np.sqrt(e)
+            done[start:stop] = True
+            if log_every_chunk:
+                print(f"[chunk {c + 1}/{n_chunks}] mean energy "
+                      f"{float(np.mean(e)):.4f}")
+            if saver is not None:
+                # copies: the loop keeps writing these arrays while the
+                # writer thread serializes
+                saver.submit((omega_opt.copy(), lengths.copy()))
+        if saver is not None:
+            err = saver.close()
+            if err is not None:
+                print(f"[checkpoint] background snapshot writes failed "
+                      f"({type(err).__name__}: {err}); relying on the final "
+                      "synchronous save", file=sys.stderr)
+
+        lengths = np.where(art.valid, lengths, np.nan)
+        out = dataclasses.replace(
+            art, omega_optimized=omega_opt, geodesic_length=lengths,
+            euclidean_distance=eucl, metadata={**art.metadata, **stamp})
+        if checkpoint_path and primary:
+            save_spline_batch(out, checkpoint_path)
+        return out
 
 
 def merge_spline_batches(primary: SplineBatchArtifact,
