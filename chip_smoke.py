@@ -36,7 +36,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
              committed TPU result on the same init blob; then the same run
              through the unfused plain-PyTorch ``expected`` mode (float32,
              200 steps) as the end-to-end yardstick; profile — device time
-             by kernel (torch.profiler): the two launches of K2, K6 and K8,
+             by kernel (torch.profiler): the launches of K2, K6 and K8,
              and 50 steps of the main path, of the MC main path and of the
              decoder-sharded path with the device's busy share (and K3's
              and K4's ms per launch and share there).
@@ -478,8 +478,8 @@ def dgamma_stats(g_k, g_p, prefix=""):
 def sass_hmma(lib_path, prefix):
     """Tensor-core instructions (HMMA) in the SASS of each kernel template
     ``<prefix>...<R>`` of the built library, by ``cuobjdump -sass``:
-    {"k2_xbar_mma<R>": n, ...}, R the rung (0 float32, 1 f32x3, 2 f32x2, 3
-    bfloat16).  cuobjdump ships with every CUDA toolkit that nvcc comes
+    {"k2_onepass_mma<R>": n, ...}, R the rung (0 float32, 1 f32x3, 2 f32x2,
+    3 bfloat16).  cuobjdump ships with every CUDA toolkit that nvcc comes
     from: without it, or when it cannot read the library, the run fails."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -1116,6 +1116,8 @@ def transposed_phase(params, ws_all, bs_all, gamma, dev):
                 rec["vs_k1_energy_max_rel"] = float(
                     ((e - e1).abs() / e1.abs()).max())
                 rec.update(dgamma_stats(d, d2, "vs_k2_"))
+                if prec != "float32":   # K2's one-pass body: bit for bit
+                    rec["vs_k2_bitwise"] = bool(torch.equal(d, d2))
             if M > 1:
                 tr = {"k9_ms": time_ms(lambda: eft.energy_t_fwd(
                           ws, bs, gamma, prec), 3),
@@ -1383,12 +1385,12 @@ def step_profile(params, art, cfg, dev, tag, mesh=None):
 
 def profile_phase(ef, mc, params, art, cfg, dev, ws, bs, gamma, wmb, ct):
     """Device time by kernel from torch.profiler: K2 at f32x2 split into its
-    two launches, K6 and K8 at f32x2 split into theirs, and PROFILE_STEPS
-    steps of the main path, of the MC main path and of the decoder-sharded
-    path on a 1 x 1 mesh (the device's busy share between its first and last
-    kernel; for the sharded path K3's and K4's ms per launch and share of
-    the span).  A trace without device events is reported as not
-    measured."""
+    two launches (the planes, the one-pass kernel), K6 and K8 at f32x2
+    split into theirs, and PROFILE_STEPS steps of the main path, of the MC
+    main path and of the decoder-sharded path on a 1 x 1 mesh (the device's
+    busy share between its first and last kernel; for the sharded path K3's
+    and K4's ms per launch and share of the span).  A trace without device
+    events is reported as not measured."""
     import torch
 
     from vae_latent_geometry_tpu_torch.parallel.mesh import make_mesh
@@ -1423,8 +1425,8 @@ def profile_phase(ef, mc, params, art, cfg, dev, ws, bs, gamma, wmb, ct):
 
         rec.update({
             "k2_f32x2_ms_per_call": sum(k2.values()),
-            "k2_xbar_mma_ms": of(k2, "k2_xbar_mma"),
-            "k2_chain_mma_ms": of(k2, "k2_chain_mma"),
+            "k2_onepass_mma_ms": of(k2, "k2_onepass_mma"),
+            "k2_prep_planes_ms": of(k2, "k2_prep_planes"),
             "mc_bwd_ms_by_launch": k6, "mc_rng_bwd_ms_by_launch": k8,
             "mc_select_mma_ms": of(k8, "mc_select_mma"),
             "mc_chain_mma_ms": of(k8, "mc_chain_mma"),
@@ -3141,12 +3143,14 @@ def main() -> int:
           "fwd_mma_ptxas": {k: ptxas_of(_build.BUILD_LOG[src], k)
                             for src, k in FWD_MMA},
           "transposed_mma_ptxas": {k: ptxas_of(_build.BUILD_LOG[
-              "energy_transposed"], k) for k in T_MMA}})
+              "energy_transposed"], k) for k in T_MMA},
+          "k2_onepass_ptxas": ptxas_of(_build.BUILD_LOG["energy_expected"],
+                                       "k2_onepass_mma")})
     # K1's, K2's, K3/K4's and K5-K8's reduced rungs run on the tensor cores
     # in the mma kernels of the production shape, their float32 rung does
     # not (TF32 is barred: k1_fwd_fma, mc_fwd_fma, and mc_segments, the
     # float32 K6/K8's first pass), nor does the generic decode at any rung
-    check_hmma(hmma, ("k2_xbar_mma", "k2_chain_mma"), ("k2_xbar", "k2_chain"),
+    check_hmma(hmma, ("k2_onepass_mma",), ("k2_xbar", "k2_chain"),
                ("k2_xbar_any", "k2_chain_any"))
     check_hmma(k1_hmma, ("k1_tiles_mma",), ("k1_fwd_fma",),
                ("k1_energy_tiles_any",))
@@ -3160,8 +3164,9 @@ def main() -> int:
     # kernel (K9) and k10_dgamma<0> at float32, the generic decode's none
     check_hmma(t_hmma, T_MMA, ("k1_fwd_fma", "k10_dgamma"),
                ("k9_energy_spans_any", "k10_dgamma_any"))
-    for k in T_MMA:
-        r = ptxas_of(_build.BUILD_LOG["energy_transposed"], k)
+    for src, k in (*(("energy_transposed", k) for k in T_MMA),
+                   ("energy_expected", "k2_onepass_mma")):
+        r = ptxas_of(_build.BUILD_LOG[src], k)
         if r.get("spill_bytes") != 0 or r.get("stack_bytes") != 0:
             fail(f"ptxas of {k}: {r}")
     # the float32 forward energies (K1, K5/K7) on decode_f32.cuh: FMAs only,
@@ -3831,7 +3836,10 @@ def main() -> int:
          "plain_ms": times["f32x2"]["bwd_plain_ms"],
          "bound_ms": 1e3 * k2_bound, "bound_by": "operations",
          "library_ms": None,
-         "design": "mma.sync bf16 (reduced rungs)",
+         "design": "k2_prep_planes + k2_onepass_mma (reduced rungs: the "
+                   "one-pass body of onepass_mma.cuh, K10's, mma.sync bf16, "
+                   "each point decoded once per decoder); k2_xbar + "
+                   "k2_chain (FMA) at float32",
          "ms_f32x3": errors[(M, "f32x3")]["bwd_ms"],
          "ms_bfloat16": errors[(M, "bfloat16")]["bwd_ms"],
          "ms_float32": times["float32"]["bwd_ms"],
@@ -3884,11 +3892,11 @@ def main() -> int:
          "plain_ms": t_times["f32x2"]["k10_plain_ms"],
          "bound_ms": 1e3 * max(k10_bound), "bound_by": bound_by(k10_bound),
          "library_ms": None,
-         "design": "k10_mma (mma.sync bf16, decode_mma.cuh): one staging "
-                   "per tile and decoder serves the chain of tile k-1 and "
-                   "the decode of tile k; outputs and masks in the block's "
-                   "scratch, prefetched by cp.async; k10_dgamma<0> (FMA) at "
-                   "float32",
+         "design": "k10_mma (K2's one-pass body, onepass_mma.cuh, on the "
+                   "uniform plane; mma.sync bf16): one staging per tile and "
+                   "decoder serves the chain of tile k-1 and the decode of "
+                   "tile k; outputs and masks in the block's scratch, "
+                   "prefetched by cp.async; k10_dgamma<0> (FMA) at float32",
          **{f"ms_{p}": t_times[p]["k10_ms"]
             for p in ("float32", "f32x3", "bfloat16")},
          "k2_ms_same_call": t_times["f32x2"]["k2_ms"]},
@@ -4065,6 +4073,9 @@ def main() -> int:
                  f"{r['vs_k1_energy_max_rel']:.3g}, dgamma median/p99 "
                  f"{r['vs_k2_dgamma_rel_median']:.3g}/"
                  f"{r['vs_k2_dgamma_rel_p99']:.3g}")
+        if r.get("vs_k2_bitwise") is False:
+            fail(f"K10 and K2 on the uniform plane differ at {prec}: one "
+                 "body, the same arithmetic")
     for path, v in t_path["gate_medrel"].items():
         if not v <= GATE_MEDREL:
             fail(f"numerics gate: {path} median rel err {v} > {GATE_MEDREL}")

@@ -191,14 +191,16 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
     headers = {
         "energy_expected": {"decode_mma.cuh", "decode_common.cuh",
                             "decode_f32.cuh", "decode_any.cuh",
-                            "k1_fwd_f32.cuh", "tiles_mma.cuh"},
+                            "k1_fwd_f32.cuh", "tiles_mma.cuh",
+                            "onepass_mma.cuh"},
         "energy_mc": {"decode_mma.cuh", "decode_common.cuh", "decode_f32.cuh",
                       "decode_any.cuh", "tiles_mma.cuh"},
         "energy_stats": {"decode_mma.cuh", "decode_common.cuh",
                          "decode_any.cuh"},
         "energy_transposed": {"decode_mma.cuh", "decode_common.cuh",
                               "decode_f32.cuh", "decode_any.cuh",
-                              "k1_fwd_f32.cuh", "tiles_mma.cuh"}}
+                              "k1_fwd_f32.cuh", "tiles_mma.cuh",
+                              "onepass_mma.cuh"}}
     for name, want in headers.items():
         files = [p.name for p in _build.source_files(name)]
         assert files[0] == f"{name}.cu" and set(files[1:]) == want
@@ -209,7 +211,8 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
     before = {n: _build._target(n).name for n in _build.SIGNATURES}
     # each header renames exactly the libraries that include it
     for header in ("decode_common.cuh", "decode_any.cuh", "decode_mma.cuh",
-                   "decode_f32.cuh", "k1_fwd_f32.cuh", "tiles_mma.cuh"):
+                   "decode_f32.cuh", "k1_fwd_f32.cuh", "tiles_mma.cuh",
+                   "onepass_mma.cuh"):
         with open(tmp_path / header, "a") as f:
             f.write("// edited\n")
         after = {n: _build._target(n).name for n in _build.SIGNATURES}
@@ -235,7 +238,7 @@ def test_console_script_and_package_data_in_pyproject():
     for src in ("energy_expected.cu", "energy_mc.cu", "energy_stats.cu",
                 "energy_transposed.cu", "decode_common.cuh",
                 "decode_mma.cuh", "decode_any.cuh", "decode_f32.cuh",
-                "k1_fwd_f32.cuh", "tiles_mma.cuh"):
+                "k1_fwd_f32.cuh", "tiles_mma.cuh", "onepass_mma.cuh"):
         assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
     from setuptools import find_packages
 

@@ -45,8 +45,10 @@ SIGNATURES = {
         "vlg_energy_fwd_tiles": [_I],
         "vlg_f32_scratch_words": [_I, _I, _I, _P],
         "vlg_energy_fwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _I, _P],
-        "vlg_energy_bwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _P, _I,
-                           _P],
+        "vlg_energy_bwd": [_I, _P, _I, _I, _I, _I, _I, *_DEC, _P, _P, _P, _P,
+                           _P, _I, _P],
+        "vlg_k2_block_words": [_I, _I],
+        "vlg_k2_plane_words": [_I],
         "vlg_mma_selftest": [_I, _P, _P, _P, _I, _P],
     },
     "energy_mc": {
@@ -67,7 +69,7 @@ SIGNATURES = {
                              _P, _P, _P],
         "vlg_t_plane_words": [_I],
         "vlg_energy_t_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, *_DEC, _P, _P,
-                             _P, _P, _P, _P, _P, _P, _P],
+                             _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "energy_stats": {
         "vlg_stats_fwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _P, _I,

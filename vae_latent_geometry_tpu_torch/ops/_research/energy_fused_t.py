@@ -35,6 +35,8 @@ import torch
 from vae_latent_geometry_tpu_torch.ops.energy_fused import (
     _RUNG,
     LAUNCHES,
+    SPAN_ROWS,
+    SPAN_SPLINES,
     _any_scratch,
     _check_cuda,
     _decode_plain,
@@ -47,6 +49,7 @@ from vae_latent_geometry_tpu_torch.ops.energy_fused import (
     by_splines,
     check_precision,
     energy_fwd_plain,
+    pick_spans,
     ship_weights,
     stack_weights,
     uniform_weights,
@@ -54,8 +57,6 @@ from vae_latent_geometry_tpu_torch.ops.energy_fused import (
 
 LAUNCHES.update({"energy_t_fwd": 0, "energy_t_bwd": 0})
 
-SPAN_SPLINES = 4       # splines per chunk of the kernels
-SPAN_ROWS = 32         # curve rows per chunk
 _BB = 256              # the JAX op's lane block: only its shape rule reads it
 
 
@@ -149,24 +150,6 @@ def energy_t_bwd_plain(ws, bs, gamma, ct, precision):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def pick_spans(T: int, B: int, n_sm: int, halo: int,
-               rows: int = SPAN_ROWS):
-    """(span, G): the T-span each block walks and the number of spans per
-    spline.  Blocks are persistent, one per SM, and take the
-    ceil(B / 4) * G (spline group, span) items in a fixed stride; a span's
-    chunks add ``rows`` curve rows each and it decodes ``halo`` extra
-    points; G minimises rounds x chunks per span, the smaller G on a tie."""
-    groups = -(-B // SPAN_SPLINES)
-    best = None
-    for G in range(1, -(-T // rows) + 1):
-        span = -(-T // G)
-        g_eff = -(-T // span)
-        cost = (-(-groups * g_eff // n_sm)) * (-(-(span + halo) // rows))
-        if best is None or cost < best[0]:
-            best = (cost, span, g_eff)
-    return best[1], best[2]
-
-
 def _prepare_cuda(ws, bs, gamma, precision, extra=()):
     check_precision(precision)
     _check_fits(ws, gamma)
@@ -247,9 +230,12 @@ def energy_t_bwd(ws, bs, gamma, ct, precision):
         # the tensor-core kernel's bf16 weight planes, prepared per call
         planes = torch.empty((lib.vlg_t_plane_words(M),), dtype=torch.int32,
                              device=g.device) if rows != SPAN_ROWS else None
+        # the tensor-core kernel (K2's body) takes the weight plane
+        wmb = uniform_weights(M, Bc, g.device)
         dgamma = torch.empty((T, Bc, D), dtype=torch.float32, device=g.device)
         check(lib.vlg_energy_t_bwd(_RUNG[precision], g.data_ptr(), T, Bc, M,
                                    span, G, n_blocks, *dec, w1.data_ptr(),
+                                   wmb.data_ptr(),
                                    ct[b0:b1].contiguous().data_ptr(),
                                    *(x.data_ptr() for x in scratch),
                                    _ptr(any_scratch), dgamma.data_ptr(),

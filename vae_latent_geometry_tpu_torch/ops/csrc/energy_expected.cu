@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernels of vae_latent_geometry_tpu/ops/energy_pallas.py:
 //   K1  _fwd_kernel (:254)  -> k1_fwd_fma (float32) or k1_tiles_mma
 //       (f32x3, f32x2, bfloat16; tiles_mma.cuh), + k1_sum_tiles
-//   K2  _bwd_kernel (:325)  -> k2_xbar_mma + k2_chain_mma (f32x3, f32x2,
-//       bfloat16), k2_xbar + k2_chain (float32)
+//   K2  _bwd_kernel (:325)  -> k2_prep_planes + k2_onepass_mma (f32x3, f32x2,
+//       bfloat16; onepass_mma.cuh), k2_xbar + k2_chain (float32)
 //       (with _backprop_chain_masked :406 and _center_masks :426)
 //
 // Function.  The decoder ensemble is M ReLU MLPs D -> 128 -> 128 -> X applied
@@ -20,43 +20,46 @@
 //
 // The FMA decode, the cotangent chain and the precision rungs are shared
 // with the Monte-Carlo kernels (decode_common.cuh); the tensor-core decode
-// and chain of K2's reduced rungs are in decode_mma.cuh; K1's float32
-// decode (staged asynchronously, vector operands; also K5/K7's) is in
-// decode_f32.cuh.
+// and chain are in decode_mma.cuh; K1's float32 decode (staged
+// asynchronously, vector operands; also K5/K7's) is in decode_f32.cuh.
 //
 // Work (counted from the code, per point per decoder): the float32 decode is
 // 2*D*128 + 2*128*128 + 2*128*X = 46 kFLOP at D=2, X=50, i.e. 1.8e11 FLOP
-// per K1 call at T=2000, B=200, M=10.  K2's function at f32x2 is a two-pass
-// decode plus a single-pass chain, about 138 kFLOP, i.e. 5.5e11 FLOP per
-// step: at the 989 TFLOP/s of the bf16 tensor cores its bound is 0.557 ms.
-// As built (two launches, two decodes) it does ~9.1e11.  Both kernels move a
-// few MB of inputs and outputs (K2's 80 MB xbar scratch aside), so both are
-// bound by operations, not bytes, on this card.
+// per K1 call at T=2000, B=200, M=10.  K2's function at f32x2, counting the
+// decode's two passes and the single-pass chain, is about 138 kFLOP, i.e.
+// 5.5e11 FLOP per step: 0.557 ms at the 989 TFLOP/s of the bf16 tensor
+// cores; counting each decode and chain once (the benchmark's count), 3.69e11
+// FLOP, 0.373 ms.  Both kernels move a few MB of inputs and outputs, so both
+// are bound by operations, not bytes, on this card.
 //
 // Design for Hopper.  The TPU kernel keeps all M decoders' weights resident
 // in VMEM; here a block loops over decoders and stages one at a time.
 // Running statistics live in registers (K1 ybar, sqy) and shared memory (K1
-// x0, K2 neighbour sums and dgamma).  Blocks run in no order, so K1's tile
-// of 32 t-rows x 4 splines recomputes its halo row instead of carrying it
-// (31 owned segments per 32 decoded rows), writes per-tile partial energies
-// to an (n_tiles, B) buffer, and a second launch sums them in a fixed order:
-// no float atomics, so repeated runs are bitwise identical.  K2 is two
-// launches: the xbar pass writes xbar (T, B, X), then the chain pass
-// re-decodes each decoder per tile, forms dx and runs the masked chain.
-// At the reduced rungs K1 (k1_tiles_mma, tiles_mma.cuh: the tile above, x0
-// in shared memory, ybar and the variance share in registers) and both
-// passes of K2 run their products on the tensor cores (mma.sync m16n8k16
-// bf16, decode_mma.cuh): a warp owns 16 points x 128
-// units, activations, cotangents and ReLU masks stay in registers, and each
-// dgamma row is summed by the four lanes that hold it, in a fixed order.
-// K1 decodes with decode_mma<R, true> (each k16 step summed apart): early
-// stopping evaluates it at the trajectory rung on every step, also at M = 1
-// (single_fused), where it must stay within 1e-5 of its plain version.
-// The float32 rung keeps the CUDA-core FMAs (TF32 would round the inputs
-// at 2^-11: barred).  What still holds K2 back: it decodes twice where the
-// TPU kernel decodes once; mma.sync rather than Hopper's wgmma; and each
-// block stages every decoder's weights (converted to bf16 planes) itself,
-// without cp.async, while its tensor cores wait.
+// x0).  Blocks run in no order, so K1's tile of 32 t-rows x 4 splines
+// recomputes its halo row instead of carrying it (31 owned segments per 32
+// decoded rows), writes per-tile partial energies to an (n_tiles, B)
+// buffer, and a second launch sums them in a fixed order: no float atomics,
+// so repeated runs are bitwise identical.  At the reduced rungs K1
+// (k1_tiles_mma, tiles_mma.cuh: the tile above, x0 in shared memory, ybar
+// and the variance share in registers) and K2 run their products on the
+// tensor cores (mma.sync m16n8k16 bf16, decode_mma.cuh): a warp owns 16
+// points x 128 units, activations, cotangents and ReLU masks stay in
+// registers, and each dgamma row is summed by the four lanes that hold it,
+// in a fixed order.  K1 decodes with decode_mma<R, true> (each k16 step
+// summed apart): early stopping evaluates it at the trajectory rung on every
+// step, also at M = 1 (single_fused), where it must stay within 1e-5 of its
+// plain version.  K2 at the reduced rungs runs the one-pass body it shares
+// with K10 (onepass_mma.cuh): persistent blocks, one per SM, walk spans of
+// K1's tiles; each (point, decoder) is decoded once (one row in 31 twice,
+// the tiles' overlap), the chain of the previous tile runs with the same
+// staged decoder, the decoder outputs and masks of two tiles wait in a
+// per-block scratch (~86 MB at T=2000, B=200, M=10 on 132 SMs), and the
+// weights are bf16 planes made once per call (k2_prep_planes) and staged by
+// cp.async.  What still holds K2 back: mma.sync rather than Hopper's wgmma;
+// one block of 8 warps an SM (the body's shared memory is ~227 KB); and
+// nothing but those copies overlaps the staging.  The float32 rung keeps
+// the CUDA-core FMAs and two passes through a (T, B, X) xbar buffer (TF32
+// would round the inputs at 2^-11: barred).
 //
 // Any decoder.  The kernels above take the production shape D <= 4 -> 128 ->
 // 128 -> X <= 64.  Every other decoder (2 to 6 layers, hidden widths up to
@@ -72,11 +75,11 @@
 #include "decode_f32.cuh"
 #include "decode_mma.cuh"
 #include "k1_fwd_f32.cuh"
+#include "onepass_mma.cuh"
 #include "tiles_mma.cuh"
 
 namespace {
 
-constexpr int S_X = XMAX + 1;
 constexpr int K1_COLS = 4;      // K1 tile: 32 t-rows x 4 splines
 constexpr int K1_ROWS = TP / K1_COLS;
 constexpr int K1_SEGS = K1_ROWS - 1;
@@ -93,10 +96,6 @@ struct K12Smem : Base {
 };
 using Smem = K12Smem<DecodeSmem, XMAX>;
 using SmemAny = K12Smem<AnySmem, XMAX_ANY>;
-
-struct SmemMma : MmaSmem {
-  float xs[TP * S_X];       // xbar_{t-1} + xbar_{t+1}
-};
 
 // K1, pass 1, on the CUDA cores: partial energies of tile (by: t-rows
 // t0..t0+31, bx: splines b0..b0+3) -> partial[by * B + b], over decode
@@ -345,111 +344,24 @@ k2_chain_any(const float* __restrict__ gamma, int T, int B, int M, AnyArgs a,
   }
 }
 
-// K2 at a reduced rung, pass 1, on the tensor cores: xbar as k2_xbar.
-template <int R>
-__global__ void __launch_bounds__(NT, 1)
-k2_xbar_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Weights w,
-            const float* __restrict__ wmb, float* __restrict__ xbar) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemMma& s = *reinterpret_cast<SmemMma*>(smem_raw);
-  const int lane = threadIdx.x & 31, q = lane & 3;
-  const int N = T * B, p0 = blockIdx.x * TP;
-  const int p = (threadIdx.x >> 5) * 16 + (lane >> 2);  // rows p, p + 8
-  zero_w3_planes(s);
-  load_points_mma(s, gamma, N, D, p0);
-  float xb[NJ3][4];
-#pragma unroll
-  for (int j = 0; j < NJ3; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) xb[j][c] = 0.f;
-  for (int m = 0; m < M; ++m) {
-    __syncthreads();
-    stage_weights_mma<R>(s, m, D, X, w);
-    __syncthreads();
-    float x[NJ3][4];
-    uint32_t m1[2], m2[2];
-    decode_mma<R>(s, D, X, x, m1, m2);
-    float wm[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) wm[r] = wmb[(size_t)m * B + min(p0 + p + 8 * r, N - 1) % B];
-#pragma unroll
-    for (int j = 0; j < NJ3; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) xb[j][c] = xb[j][c] + wm[c >> 1] * x[j][c];
-  }
-#pragma unroll
-  for (int j = 0; j < NJ3; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int pg = p0 + p + 8 * (c >> 1), n = 8 * j + 2 * q + (c & 1);
-      if (pg < N && n < X) xbar[(size_t)pg * X + n] = xb[j][c];
-    }
+// K2 at a reduced rung, on the tensor cores: one launch of the one-pass
+// body (onepass_mma.cuh) after one that prepares the bf16 weight planes; the
+// dgamma product takes the W1 the decode takes (W1 as shipped).
+__global__ void k2_prep_planes(const float* __restrict__ W2, const float* __restrict__ W3, int M,
+                               int X, __nv_bfloat16* __restrict__ planes) {
+  prep_planes(W2, W3, M, X, planes);
 }
 
-// K2 at a reduced rung, pass 2, on the tensor cores: per decoder, re-decode
-// the tile, form dx in registers and run the masked chain (k2_chain).
 template <int R>
 __global__ void __launch_bounds__(NT, 1)
-k2_chain_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, Weights w,
-             const float* __restrict__ wmb, const float* __restrict__ ct,
-             const float* __restrict__ xbar, float* __restrict__ dgamma) {
+k2_onepass_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int span,
+               int n_items, Weights w, const float* __restrict__ W1c,
+               const float* __restrict__ wmb, const float* __restrict__ ct,
+               float4* __restrict__ xs_scr, uint4* __restrict__ mk_scr,
+               const __nv_bfloat16* __restrict__ planes, float* __restrict__ dgamma) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  SmemMma& s = *reinterpret_cast<SmemMma*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid & 31, q = lane & 3;
-  const int N = T * B, p0 = blockIdx.x * TP;
-  const int p = (tid >> 5) * 16 + (lane >> 2);  // rows p, p + 8
-  zero_w3_planes(s);
-  load_points_mma(s, gamma, N, D, p0);
-  for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
-  for (int e = tid; e < TP * XMAX; e += NT) {
-    const int pp = e / XMAX, n = e % XMAX;
-    const int pg = min(p0 + pp, N - 1), t = pg / B;
-    const float left = (n < X && t > 0) ? xbar[(size_t)(pg - B) * X + n] : 0.f;
-    const float right = (n < X && t < T - 1) ? xbar[(size_t)(pg + B) * X + n] : 0.f;
-    s.xs[pp * S_X + n] = left + right;
-  }
-  // per row: c_t, and whether the point lies past the end (sc = 0 there)
-  float cc[2];
-  int b_of[2];
-  bool live[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int pg = p0 + p + 8 * r, pc = min(pg, N - 1), t = pc / B;
-    cc[r] = (float)((t > 0) + (t < T - 1));
-    b_of[r] = pc % B;
-    live[r] = pg < N;
-  }
-  for (int m = 0; m < M; ++m) {
-    __syncthreads();
-    stage_weights_mma<R>(s, m, D, X, w);
-    __syncthreads();
-    float x[NJ3][4];
-    uint32_t m1[2], m2[2];
-    decode_mma<R>(s, D, X, x, m1, m2);
-    // dx = 2 w_{m,b} ct_b (c_t x - xbar_{t-1} - xbar_{t+1}), in place
-    float sc[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      sc[r] = live[r] ? __fmul_rn(2.f, __fmul_rn(wmb[(size_t)m * B + b_of[r]], ct[b_of[r]]))
-                      : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ3; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c >> 1, n = 8 * j + 2 * q + (c & 1);
-        x[j][c] = n < X ? __fmul_rn(sc[r], __fsub_rn(__fmul_rn(cc[r], x[j][c]),
-                                                     s.xs[(p + 8 * r) * S_X + n]))
-                        : 0.f;
-      }
-    uint32_t dx[NK3][4];
-    to_a<false>(x, dx);
-    chain_mma(s, D, X, dx, m1, m2);
-  }
-  __syncthreads();
-  for (int e = tid; e < TP * D; e += NT) {
-    const int pp = e / D, d = e % D, pg = p0 + pp;
-    if (pg < N) dgamma[(size_t)pg * D + d] = s.dg[pp * DMAX + d];
-  }
+  onepass_body<R>(*reinterpret_cast<OnePassSmem*>(smem_raw), gamma, T, B, D, M, X, span,
+                  n_items, w, W1c, wmb, ct, xs_scr, mk_scr, planes, dgamma);
 }
 
 // The warp product of decode_mma.cuh alone, for its test: out (n, 128) =
@@ -518,33 +430,35 @@ cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, We
   return cudaGetLastError();
 }
 
+// K2 on the production shape: at float32 the two FMA passes through the
+// (T, B, X) xbar buffer; at a reduced rung one launch of k2_onepass_mma over
+// `scratch`: each block's outputs (onepass_xs_words), then each block's
+// masks (onepass_mk_words), then the planes (onepass_plane_words).
 template <int R>
-cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, Weights w,
-                       const float* wmb, const float* ct, float* xbar, float* dgamma,
-                       cudaStream_t st) {
-  const int n_blocks = (T * B + TP - 1) / TP;
-  cudaError_t err;
+cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, int span, int G,
+                       int n_blocks, Weights w, const float* wmb, const float* ct, float* xbar,
+                       void* scratch, float* dgamma, cudaStream_t st) {
   if constexpr (R == F32) {  // CUDA-core FMAs
-    err = prepare<Smem>(k2_xbar<R>);
+    const int n_tiles = (T * B + TP - 1) / TP;
+    cudaError_t err = prepare<Smem>(k2_xbar<R>);
     if (err == cudaSuccess) err = prepare<Smem>(k2_chain<R>);
     if (err != cudaSuccess) return err;
-    k2_xbar<R><<<n_blocks, NT, sizeof(Smem), st>>>(gamma, T, B, D, M, X, w, wmb, xbar);
+    k2_xbar<R><<<n_tiles, NT, sizeof(Smem), st>>>(gamma, T, B, D, M, X, w, wmb, xbar);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    k2_chain<R><<<n_blocks, NT, sizeof(Smem), st>>>(gamma, T, B, D, M, X, w, wmb, ct, xbar,
-                                                     dgamma);
-  } else {  // tensor cores
-    err = prepare<SmemMma>(k2_xbar_mma<R>);
-    if (err == cudaSuccess) err = prepare<SmemMma>(k2_chain_mma<R>);
-    if (err != cudaSuccess) return err;
-    k2_xbar_mma<R><<<n_blocks, NT, sizeof(SmemMma), st>>>(gamma, T, B, D, M, X, w, wmb,
-                                                          xbar);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    k2_chain_mma<R><<<n_blocks, NT, sizeof(SmemMma), st>>>(gamma, T, B, D, M, X, w, wmb, ct,
-                                                           xbar, dgamma);
+    k2_chain<R><<<n_tiles, NT, sizeof(Smem), st>>>(gamma, T, B, D, M, X, w, wmb, ct, xbar,
+                                                    dgamma);
+    return cudaGetLastError();
+  } else {  // tensor cores, one decode
+    if (scratch == nullptr || span < 1 || G < 1 || n_blocks < 1) return cudaErrorInvalidValue;
+    uint32_t* words = static_cast<uint32_t*>(scratch);
+    float4* xs = reinterpret_cast<float4*>(words);
+    uint4* mk = reinterpret_cast<uint4*>(words + n_blocks * onepass_xs_words(M, X));
+    __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(
+        words + n_blocks * (onepass_xs_words(M, X) + onepass_mk_words(M)));
+    return launch_onepass<R>(k2_prep_planes, k2_onepass_mma<R>, gamma, T, B, D, M, X, span, G,
+                             n_blocks, w, w.W1, wmb, ct, xs, mk, planes, dgamma, st);
   }
-  return cudaGetLastError();
 }
 
 template <int R>
@@ -615,10 +529,15 @@ int vlg_energy_fwd(int rung, const float* gamma, int T, int B, int M, int L, con
   });
 }
 
-int vlg_energy_bwd(int rung, const float* gamma, int T, int B, int M, int L, const int* widths,
-                   const float* const* Ws, const float* const* bs, const float* wmb,
-                   const float* ct, float* xbar, float* dgamma, void* scratch, int n_blocks,
-                   void* stream) {
+// K2: the decoder and `scratch` as vlg_energy_fwd's, but at a reduced rung
+// on the fixed shape, where `scratch` holds n_blocks x vlg_k2_block_words +
+// vlg_k2_plane_words words and the blocks take the G spans of `span` rows
+// per group of four splines; `xbar` is the (T, B, X) buffer of the other
+// kernels (unused there).
+int vlg_energy_bwd(int rung, const float* gamma, int T, int B, int M, int span, int G, int L,
+                   const int* widths, const float* const* Ws, const float* const* bs,
+                   const float* wmb, const float* ct, float* xbar, float* dgamma,
+                   void* scratch, int n_blocks, void* stream) {
   Decoder d;
   if (!make_decoder(L, widths, Ws, bs, d)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -631,10 +550,19 @@ int vlg_energy_bwd(int rung, const float* gamma, int T, int B, int M, int L, con
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
     return fixed_shape(d)
-        ? launch_bwd<R>(gamma, T, B, D, M, X, fixed_weights(d), wmb, ct, xbar, dgamma, st)
+        ? launch_bwd<R>(gamma, T, B, D, M, X, span, G, n_blocks, fixed_weights(d), wmb, ct,
+                        xbar, scratch, dgamma, st)
         : launch_bwd_any<R>(gamma, T, B, M, a, n_blocks, wmb, ct, xbar, dgamma, st);
   });
 }
+
+// 32-bit words of K2's one-pass scratch: per block (outputs and masks of two
+// tiles of M decoders), and of the M decoders' weight planes.
+int vlg_k2_block_words(int M, int X) {
+  return (int)(onepass_xs_words(M, X) + onepass_mk_words(M));
+}
+
+int vlg_k2_plane_words(int M) { return (int)onepass_plane_words(M); }
 
 int vlg_mma_selftest(int trans, const float* h, const float* w, float* out, int n,
                      void* stream) {

@@ -7,8 +7,8 @@
 //   K9   _fwd_kernel_T (:119)  -> K1's kernels on the uniform weight plane:
 //        k1_tiles_mma (f32x3, f32x2, bfloat16; tiles_mma.cuh) or k1_fwd_fma
 //        (float32, k1_fwd_f32.cuh), + k9_sum_spans
-//   K10  _bwd_kernel_T (:193)  -> k10_mma (f32x3, f32x2, bfloat16) or
-//        k10_dgamma<0> (float32), one launch
+//   K10  _bwd_kernel_T (:193)  -> k10_mma (f32x3, f32x2, bfloat16; K2's body,
+//        onepass_mma.cuh) or k10_dgamma<0> (float32), one launch
 //
 // Function.  Uniform ensemble weights 1/M over M ReLU MLP decoders
 // D -> 128 -> 128 -> X on the curve points gamma (T, B, D):
@@ -37,20 +37,18 @@
 // 0.371 ms; K10 at f32x2 is a two-pass decode plus a single-pass chain,
 // 5.5e11 FLOP: 0.557 ms.  Both move a few MB: bound by operations.  What the
 // design does about it:
-//   - K10 (k10_mma) does no work twice: every decoder decodes each point
-//     ONCE (K2 decodes twice, in two launches) and stages each decoder once
-//     per tile (the FMA kernel it replaces staged it twice).  Tiles overlap
-//     by one row, so a tile holds the right neighbour of its last owned row;
-//     tile k-1's dgamma is emitted in the round that decodes tile k, with the
-//     same staged decoder.  The kept decoder outputs (M x 128 x X floats per
-//     tile, 256 KB at M = 10) and ReLU masks do not fit beside the staged
-//     weights, so they go to a per-block scratch in device memory and come
-//     back into shared memory by cp.async while the next decoder stages.
-//     Staging was the largest cost (a block stages ~300 times a call), so
-//     the weights are converted to bf16 planes once per call
-//     (t_prep_planes) and staged by 16-byte cp.async copies.  What still
-//     holds it back: one block of 8 warps an SM, nothing overlapping the
-//     staging but those copies, mma.sync rather than wgmma.
+//   - K10 (k10_mma) does no work twice: it runs K2's one-pass body
+//     (onepass_mma.cuh) on the uniform weight plane.  Every decoder decodes
+//     each point ONCE and is staged once per tile; tiles overlap by one row,
+//     tile k-1's dgamma is emitted in the round that decodes tile k with the
+//     same staged decoder, the kept outputs and masks (M x 128 x X floats
+//     per tile, 256 KB at M = 10: they do not fit beside the staged weights)
+//     go to a per-block scratch and come back by cp.async while the next
+//     decoder stages, and the weights are bf16 planes made once per call
+//     (t_prep_planes) and staged by 16-byte cp.async copies.  It differs
+//     from K2's only in the W1 of the dgamma product: float32 W1 at every
+//     rung.  What still holds it back: one block of 8 warps an SM, nothing
+//     overlapping the staging but those copies, mma.sync rather than wgmma.
 //   - K9 runs K1's kernels on the uniform weight plane: k1_tiles_mma at the
 //     reduced rungs (tiles_mma.cuh: K3's statistics over K10's tiles, x0 in
 //     shared memory, ybar and the variance share in registers, each k16
@@ -83,6 +81,7 @@
 #include "decode_f32.cuh"
 #include "decode_mma.cuh"
 #include "k1_fwd_f32.cuh"
+#include "onepass_mma.cuh"
 #include "tiles_mma.cuh"
 
 namespace {
@@ -94,7 +93,8 @@ constexpr int RC = 32;             // curve rows per chunk
 constexpr int PC = NS * RC;        // points per chunk
 constexpr int DT = 2;              // widest latent of the transposed op
 static_assert(PC == TP, "a chunk is one activation tile");
-static_assert(NS == 4, "the narrow tile maps one lane to one row of 4 splines");
+static_assert(NS == 4 && NS == TILE_NS,
+              "the narrow tile maps one lane to one row of 4 splines; span_of's groups");
 
 // The float32 K10's (k10_dgamma<0>) shared memory on the production decoder.
 struct TSmem {
@@ -276,19 +276,6 @@ __device__ void load_chunk(S& s, const float* __restrict__ gamma, int B, int D, 
     const int t = min(t0 + p / NS, t_last), b = min(b0 + p % NS, B - 1);
     s.g[e] = d < D ? gamma[((size_t)t * B + b) * D + d] : 0.f;
   }
-}
-
-// Span of work item `item`: spline group and T-span (first row t_s, end t_e).
-struct Span {
-  int b0, g, t_s, t_e;
-};
-__device__ __forceinline__ Span span_of(int item, int groups, int span, int T) {
-  Span sp;
-  sp.b0 = (item % groups) * NS;
-  sp.g = item / groups;
-  sp.t_s = sp.g * span;
-  sp.t_e = min(T, sp.t_s + span);
-  return sp;
 }
 
 // The generic decode's counterpart of TSmem: the same per-chunk state, the
@@ -699,248 +686,24 @@ k10_dgamma_any(const float* __restrict__ gamma, int T, int B, int M, int span, i
                     ct, xs_scr, nullptr, xb_scr, dgamma);
 }
 
-// ---------------------------------------------------------------------------
-// K10 at the reduced rungs on the tensor cores (production shape)
-// ---------------------------------------------------------------------------
-//
-// The decode and chain of decode_mma.cuh (a warp owns 16 points x 128 units,
-// activations and ReLU masks in registers, mma.sync m16n8k16 bf16).  A tile
-// is 32 curve rows of 4 splines, point p = r * 4 + s (a warp holds rows 4w ..
-// 4w + 3); consecutive tiles of a span overlap by one row, so a tile owns
-// rows 0..30 and its row 31 (the next tile's row 0) is the right neighbour
-// of its row 30: every tile's dgamma needs only its own xbar and the left
-// carry (the previous tile's row 30).  Tile k's dgamma is emitted in the
-// round that decodes tile k+1, with the same staged decoder: per round and
-// decoder one staging, the chain of tile k-1 (its outputs and masks read
-// back from the block's scratch), then the decode of tile k (outputs and
-// masks to the scratch, xbar summed in shared memory in decoder order).
-// Each (point, decoder) is decoded once, but for the overlap row (32 rows
-// decoded per 31 owned) and one row before each span.  At the bfloat16 rung
-// the chain's dgamma product takes float32 W1 (the decode the shipped,
-// bf16-rounded W1), swapped into the staged decoder between the two.
-constexpr int KR = RC - 1;          // rows a tile owns
-constexpr int S_XB = XMAX + 8;      // xbar row stride (floats)
-
-// One decoder's bf16 planes as MmaSmem holds them from w2h on (w2h | w2l |
-// w3h | w3l, pads zero), made once per call by t_prep_planes so that a
-// block stages a decoder with 16-byte cp.async copies and no conversion;
-// the rungs other than f32x3 copy no lo plane.
-constexpr int PLANE_W2 = H * SW2, PLANE_W3 = H * SW3;      // bf16 elements
-constexpr int PLANE_ELEMS = 2 * (PLANE_W2 + PLANE_W3);     // a decoder's four
-static_assert(sizeof(MmaSmem::w2h) == 2 * PLANE_W2 && sizeof(MmaSmem::w3h) == 2 * PLANE_W3,
-              "the planes are MmaSmem's");
-
+// K10 at the reduced rungs on the tensor cores (production shape): the
+// one-pass body of onepass_mma.cuh, K2's, on the uniform weight plane, the
+// dgamma product with float32 W1 (W1f; at the bfloat16 rung the decode takes
+// the shipped, bf16-rounded W1).
 __global__ void t_prep_planes(const float* __restrict__ W2, const float* __restrict__ W3, int M,
                               int X, __nv_bfloat16* __restrict__ planes) {
-  const size_t n = (size_t)M * PLANE_ELEMS;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int m = (int)(e / PLANE_ELEMS);
-    int r = (int)(e % PLANE_ELEMS);
-    const bool w3 = r >= 2 * PLANE_W2;
-    if (w3) r -= 2 * PLANE_W2;
-    const int plane = w3 ? PLANE_W3 : PLANE_W2, ws = w3 ? SW3 : SW2;
-    const bool lo = r >= plane;
-    if (lo) r -= plane;
-    const int k = r / ws, col = r % ws;
-    float v = 0.f;
-    if (w3 && col < X) v = W3[((size_t)m * H + k) * X + col];
-    if (!w3 && col < H) v = W2[((size_t)m * H + k) * H + col];
-    const __nv_bfloat16 h = __float2bfloat16_rn(v);
-    planes[e] = lo ? __float2bfloat16_rn(v - __bfloat162float(h)) : h;
-  }
+  prep_planes(W2, W3, M, X, planes);
 }
 
-// Stage decoder m from its prepared planes: cp.async copies of the planes
-// (the lo planes at f32x3 only), W1 (rows d < D) and the biases (b3's
-// columns < X); committed as one group.  Rows of W1 past D and columns of
-// b3 past X keep the zeros written at kernel start.
-template <int R>
-__device__ void stage_planes(MmaSmem& s, int m, int D, int X, const Weights& w,
-                             const __nv_bfloat16* __restrict__ planes) {
-  const float* src = reinterpret_cast<const float*>(planes + (size_t)m * PLANE_ELEMS);
-  float* w2 = reinterpret_cast<float*>(s.w2h);
-  float* w3 = reinterpret_cast<float*>(s.w3h);
-  if constexpr (R == F32X3) {
-    cp_block16(w2, src, PLANE_ELEMS / 2);   // w2h | w2l | w3h | w3l
-  } else {
-    cp_block16(w2, src, PLANE_W2 / 2);
-    cp_block16(w3, src + PLANE_W2, PLANE_W3 / 2);
-  }
-  cp_block16(s.w1, w.W1 + (size_t)m * D * H, D * H);
-  cp_block16(s.b1, w.b1 + (size_t)m * H, H);
-  cp_block16(s.b2, w.b2 + (size_t)m * H, H);
-  for (int e = threadIdx.x; e < X; e += NT) cp_async4(s.b3 + e, w.b3 + (size_t)m * X + e);
-  cp_commit();
-}
-
-// The round's state, written by thread 0 between barriers and read where it
-// is used, so that no register holds it across the decode and the chain.
-struct K10Round {
-  int b0, t_s, t_e, t0, n_tiles;
-};
-
-struct TMmaSmem : MmaSmem {
-  float xb[2][PC * S_XB];           // xbar of tiles k-1 and k [p][n]
-  float edge[XMAX * NS];            // left carry: xbar of tile k-2's row 30 [n][s]
-  float4 xpre[NJ3 * NT];            // the chain's outputs of tile k-1 [j][thread]
-  uint4 mpre[NT];                   // and its masks, each thread's own
-  float csc[PC], ccl[PC];           // tile k-1's point: 2 wm ct_b (0 if not owned), c_t
-  int cfl[PC];                      // and its neighbours: bit 0 t > 0, bit 1 t < T - 1
-  K10Round rd;
-};
-
-// K10's reduced-rung kernel: persistent blocks take the (spline group, span)
-// items in a fixed stride; xs_scr/mk_scr: each block's outputs [buf][m][j]
-// and masks [buf][m] of two tiles, one float4 / uint4 per thread.
 template <int R>
 __global__ void __launch_bounds__(NT, 1)
 k10_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int span,
-        int n_items, Weights w, const float* __restrict__ W1f, const float* __restrict__ ct,
-        float4* __restrict__ xs_scr, uint4* __restrict__ mk_scr,
+        int n_items, Weights w, const float* __restrict__ W1f, const float* __restrict__ wmb,
+        const float* __restrict__ ct, float4* __restrict__ xs_scr, uint4* __restrict__ mk_scr,
         const __nv_bfloat16* __restrict__ planes, float* __restrict__ dgamma) {
-  static_assert(R != F32, "float32 keeps k10_dgamma<0>");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TMmaSmem& s = *reinterpret_cast<TMmaSmem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int nj = (X + 7) / 8;
-  for (int e = tid; e < DMAX * H; e += NT) s.w1[e] = 0.f;
-  for (int e = tid; e < XMAX; e += NT) s.b3[e] = 0.f;
-  int staged = -1;
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    for (int k = 0;; ++k) {
-      __syncthreads();
-      if (tid == 0) {
-        const Span sp = span_of(item, (B + NS - 1) / NS, span, T);
-        const int t_a = max(sp.t_s - 1, 0);
-        s.rd = K10Round{sp.b0, sp.t_s, sp.t_e, t_a + k * KR,
-                        sp.t_s < T ? (sp.t_e - t_a + KR - 1) / KR : 0};
-      }
-      __syncthreads();
-      const int n_tiles = s.rd.n_tiles;
-      if (n_tiles == 0 || k > n_tiles) break;
-      const int cur = k & 1;
-      if (k < n_tiles) {
-        for (int e = tid; e < PC * DMAX; e += NT) {
-          const int pp = e / DMAX, d = e % DMAX;
-          const int t = min(s.rd.t0 + pp / NS, T - 1), b = min(s.rd.b0 + pp % NS, B - 1);
-          s.g[e] = d < D ? gamma[((size_t)t * B + b) * D + d] : 0.f;
-        }
-        for (int e = tid; e < PC * S_XB; e += NT) s.xb[cur][e] = 0.f;
-      }
-      for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
-      if (k > 0 && tid < PC) {   // tile k-1's points: scale, c_t, neighbours
-        const int row = tid / NS, t = s.rd.t0 - KR + row, b = s.rd.b0 + tid % NS;
-        const bool own = row < KR && t >= s.rd.t_s && t < s.rd.t_e && t < T && b < B;
-        s.csc[tid] = own ? __fmul_rn(__fmul_rn(2.f, 1.f / (float)M), ct[b]) : 0.f;
-        s.ccl[tid] = (float)((int)(t > 0) + (int)(t < T - 1));
-        s.cfl[tid] = (t > 0 ? 1 : 0) | (t < T - 1 ? 2 : 0);
-      }
-      for (int m = 0; m < M; ++m) {
-        const int prv = (k & 1) ^ 1;
-        if (k > 0) {   // tile k-1's outputs and masks of decoder m, in flight while it stages
-          const float4* xm =
-              xs_scr + ((size_t)blockIdx.x * 2 * M + prv * M + m) * nj * NT + tid;
-          for (int j = 0; j < nj; ++j)
-            cp_async16(reinterpret_cast<float*>(&s.xpre[j * NT + tid]),
-                       reinterpret_cast<const float*>(xm + (size_t)j * NT));
-          cp_async16(reinterpret_cast<float*>(&s.mpre[tid]),
-                     reinterpret_cast<const float*>(
-                         mk_scr + ((size_t)blockIdx.x * 2 * M + prv * M + m) * NT + tid));
-          cp_commit();
-        }
-        if (m != staged) {
-          __syncthreads();
-          stage_planes<R>(s, m, D, X, w, planes);
-          staged = m;
-        }
-        cp_wait<0>();   // the staged decoder and the chain's inputs
-        if constexpr (R == BF16) {   // the chain's float32 W1
-          __syncthreads();
-          for (int e = tid; e < DMAX * H; e += NT)
-            s.w1[e] = e < D * H ? W1f[(size_t)m * D * H + e] : 0.f;
-        }
-        __syncthreads();
-        // ---- chain of tile k-1 ----
-        if (k > 0) {
-          // dx = 2 wm ct_b (c_t x - xbar_{t-1} - xbar_{t+1}) on the lane's
-          // rows that tile k-1 owns, packed straight into A fragments
-          const int lane = tid & 31, q = lane & 3, p0 = (tid >> 5) * 16 + (lane >> 2);
-          uint32_t a[NK3][4];
-#pragma unroll
-          for (int j = 0; j < NJ3; ++j) {
-            const float4 v = j < nj ? s.xpre[j * NT + tid] : make_float4(0.f, 0.f, 0.f, 0.f);
-            const float xv[4] = {v.x, v.y, v.z, v.w};
-            float dv[4];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int pp = p0 + 8 * (c >> 1), n = 8 * j + 2 * q + (c & 1);
-              const float sc = s.csc[pp];
-              dv[c] = 0.f;
-              if (sc != 0.f && n < X) {
-                const int fl = s.cfl[pp];
-                const float left = (fl & 1) ? (pp >= NS ? s.xb[prv][(pp - NS) * S_XB + n]
-                                                        : s.edge[n * NS + pp])
-                                            : 0.f;
-                const float right = (fl & 2) ? s.xb[prv][(pp + NS) * S_XB + n] : 0.f;
-                dv[c] = __fmul_rn(sc, __fsub_rn(__fsub_rn(__fmul_rn(s.ccl[pp], xv[c]), left),
-                                                right));
-              }
-            }
-#pragma unroll
-            for (int r = 0; r < 2; ++r) a[j >> 1][(j & 1) * 2 + r] = bf16x2(dv[2 * r], dv[2 * r + 1]);
-          }
-          const uint4 mv = s.mpre[tid];
-          const uint32_t m1[2] = {mv.x, mv.y}, m2[2] = {mv.z, mv.w};
-          chain_mma(s, D, X, a, m1, m2);
-        }
-        // the barrier keeps the chain's registers and the decode's apart
-        __syncthreads();
-        if constexpr (R == BF16) {   // back to the shipped W1 for the decode
-          for (int e = tid; e < DMAX * H; e += NT)
-            s.w1[e] = e < D * H ? w.W1[(size_t)m * D * H + e] : 0.f;
-          __syncthreads();
-        }
-        // ---- decode of tile k ----
-        if (k < s.rd.n_tiles) {
-          float x[NJ3][4];
-          uint32_t m1[2], m2[2];
-          decode_mma<R>(s, D, X, x, m1, m2);
-          const int lane = tid & 31, q = lane & 3, p0 = (tid >> 5) * 16 + (lane >> 2);
-          const int cb = k & 1;
-          float4* xm = xs_scr + ((size_t)blockIdx.x * 2 * M + cb * M + m) * nj * NT + tid;
-          const float wm = 1.f / (float)M;
-#pragma unroll
-          for (int j = 0; j < NJ3; ++j) {
-            if (j >= nj) continue;
-            xm[(size_t)j * NT] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              float2* xb2 =
-                  reinterpret_cast<float2*>(&s.xb[cb][(p0 + 8 * r) * S_XB + 8 * j + 2 * q]);
-              const float2 o = *xb2;
-              *xb2 = make_float2(o.x + wm * x[j][2 * r], o.y + wm * x[j][2 * r + 1]);
-            }
-          }
-          mk_scr[((size_t)blockIdx.x * 2 * M + cb * M + m) * NT + tid] =
-              make_uint4(m1[0], m1[1], m2[0], m2[1]);
-        }
-      }
-      __syncthreads();
-      // dgamma of tile k-1's owned points
-      if (k > 0)
-        for (int e = tid; e < PC * D; e += NT) {
-          const int pp = e / D, d = e % D, row = pp / NS;
-          const int t = s.rd.t0 - KR + row, b = s.rd.b0 + pp % NS;
-          if (row < KR && t >= s.rd.t_s && t < s.rd.t_e && t < T && b < B)
-            dgamma[((size_t)t * B + b) * D + d] = s.dg[pp * DMAX + d];
-        }
-      // left carry of tile k: tile k-1's row 30
-      if (k > 0 && k < s.rd.n_tiles)
-        for (int e = tid; e < XMAX * NS; e += NT)
-          s.edge[e] = s.xb[(k & 1) ^ 1][((KR - 1) * NS + e % NS) * S_XB + e / NS];
-    }
-  }
+  onepass_body<R>(*reinterpret_cast<OnePassSmem*>(smem_raw), gamma, T, B, D, M, X, span,
+                  n_items, w, W1f, wmb, ct, xs_scr, mk_scr, planes, dgamma);
 }
 
 // Rows of K9's partial-energy buffer: K1's float32 tiles of 127 segments,
@@ -978,31 +741,22 @@ cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, We
 
 template <int R>
 cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, int span, int G,
-                       int n_blocks, Weights w, const float* W1f, const float* ct, float* xs_scr,
-                       unsigned int* mk_scr, float* xb_scr, __nv_bfloat16* planes,
-                       float* dgamma, cudaStream_t st) {
-  const int n_items = G * ((B + NS - 1) / NS);
-  cudaError_t err;
+                       int n_blocks, Weights w, const float* W1f, const float* wmb,
+                       const float* ct, float* xs_scr, unsigned int* mk_scr, float* xb_scr,
+                       __nv_bfloat16* planes, float* dgamma, cudaStream_t st) {
   if constexpr (R == F32) {  // CUDA-core FMAs (TF32 is barred)
-    err = prepare<TSmem>(k10_dgamma<R>);
+    const cudaError_t err = prepare<TSmem>(k10_dgamma<R>);
     if (err != cudaSuccess) return err;
     k10_dgamma<R><<<n_blocks, NT, sizeof(TSmem), st>>>(
-        gamma, T, B, D, M, X, span, n_items, w, W1f, ct, reinterpret_cast<float4*>(xs_scr),
-        reinterpret_cast<uint4*>(mk_scr), reinterpret_cast<float4*>(xb_scr), dgamma);
-  } else {  // tensor cores
-    err = prepare<TMmaSmem>(k10_mma<R>);
-    if (err != cudaSuccess) return err;
-    if ((reinterpret_cast<uintptr_t>(w.W1) | reinterpret_cast<uintptr_t>(w.b1) |
-         reinterpret_cast<uintptr_t>(w.b2) | reinterpret_cast<uintptr_t>(planes)) % 16 != 0)
-      return cudaErrorMisalignedAddress;
-    t_prep_planes<<<n_blocks, NT, 0, st>>>(w.W2, w.W3, M, X, planes);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    k10_mma<R><<<n_blocks, NT, sizeof(TMmaSmem), st>>>(
-        gamma, T, B, D, M, X, span, n_items, w, W1f, ct, reinterpret_cast<float4*>(xs_scr),
-        reinterpret_cast<uint4*>(mk_scr), planes, dgamma);
+        gamma, T, B, D, M, X, span, G * ((B + NS - 1) / NS), w, W1f, ct,
+        reinterpret_cast<float4*>(xs_scr), reinterpret_cast<uint4*>(mk_scr),
+        reinterpret_cast<float4*>(xb_scr), dgamma);
+    return cudaGetLastError();
+  } else {  // tensor cores (onepass_mma.cuh)
+    return launch_onepass<R>(t_prep_planes, k10_mma<R>, gamma, T, B, D, M, X, span, G,
+                             n_blocks, w, W1f, wmb, ct, reinterpret_cast<float4*>(xs_scr),
+                             reinterpret_cast<uint4*>(mk_scr), planes, dgamma, st);
   }
-  return cudaGetLastError();
 }
 
 template <int R>
@@ -1043,21 +797,20 @@ extern "C" {
 int vlg_t_chunk_rows(int rung, int L, const int* widths, int bwd) {
   Decoder d;
   if (L != 3 || !make_decoder(L, widths, nullptr, nullptr, d)) return -1;
-  return bwd && rung != F32 && fixed_shape(d) && d.D <= DT ? KR : RC;
+  return bwd && rung != F32 && fixed_shape(d) && d.D <= DT ? TILE_KR : RC;
 }
 
 // Scratch sizes of K10 per block, in 32-bit words: decoder outputs, masks
 // (the fixed decode's), the chunk's xbar.
 int vlg_t_scratch_words(int M, int X, int which) {
-  const int ni = (X + 7) / 8;
-  if (which == 0) return 2 * M * ni * NT * 4;
-  if (which == 1) return 2 * M * NT * 4;
-  return ni * NT * 4;
+  if (which == 0) return (int)onepass_xs_words(M, X);
+  if (which == 1) return (int)onepass_mk_words(M);
+  return (X + 7) / 8 * NT * 4;
 }
 
 // 32-bit words of the tensor-core K10's prepared weight planes (all of them,
 // not per block).
-int vlg_t_plane_words(int M) { return M * PLANE_ELEMS / 2; }
+int vlg_t_plane_words(int M) { return (int)onepass_plane_words(M); }
 
 // Rows of K9's (rows, B) partial-energy buffer in the kernel that this rung
 // and decoder run, with G spans per spline in the generic kernels.
@@ -1073,7 +826,8 @@ int vlg_t_fwd_rows(int rung, int T, int G, int L, const int* widths) {
 // (K1's float32 kernel); the generic kernels' scratch (any_scr for K10) is
 // vlg_any_head_words(3) + n_blocks x vlg_any_scratch_words(3, widths, n)
 // words, n = 1 for K9 and 2 M for K10 (every decoder's masks of two
-// chunks).
+// chunks).  K10 at a reduced rung on the production decoder takes the
+// uniform weight plane too (K2's body) and `planes` of vlg_t_plane_words.
 int vlg_energy_t_fwd(int rung, const float* gamma, int T, int B, int M, int span, int G,
                      int n_blocks, int L, const int* widths, const float* const* Ws,
                      const float* const* bs, const float* wmb, float* partial, float* out,
@@ -1099,9 +853,9 @@ int vlg_energy_t_fwd(int rung, const float* gamma, int T, int B, int M, int span
 
 int vlg_energy_t_bwd(int rung, const float* gamma, int T, int B, int M, int span, int G,
                      int n_blocks, int L, const int* widths, const float* const* Ws,
-                     const float* const* bs, const float* W1f, const float* ct, float* xs_scr,
-                     unsigned int* mk_scr, float* xb_scr, void* any_scr, float* dgamma,
-                     void* planes, void* stream) {
+                     const float* const* bs, const float* W1f, const float* wmb,
+                     const float* ct, float* xs_scr, unsigned int* mk_scr, float* xb_scr,
+                     void* any_scr, float* dgamma, void* planes, void* stream) {
   Decoder d;
   if (L != 3 || !make_decoder(L, widths, Ws, bs, d) || d.D > DT)
     return cudaErrorInvalidValue;
@@ -1115,7 +869,7 @@ int vlg_energy_t_bwd(int rung, const float* gamma, int T, int B, int M, int span
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
     return fixed_shape(d) ? launch_bwd<R>(gamma, T, B, D, M, X, span, G, n_blocks,
-                                          fixed_weights(d), W1f, ct, xs_scr, mk_scr, xb_scr,
+                                          fixed_weights(d), W1f, wmb, ct, xs_scr, mk_scr, xb_scr,
                                           static_cast<__nv_bfloat16*>(planes), dgamma, st)
                           : launch_bwd_any<R>(gamma, T, B, M, span, G, n_blocks, a, W1f, ct,
                                               xs_scr, xb_scr, dgamma, st);

@@ -58,11 +58,55 @@ INDEX_LIMIT = 2**31 - 2**16
 # CUDA kernel; the plain CPU version does not count).  The launching part of
 # each wrapper is an ``op.<wrapper>`` span.
 LAUNCHES = {"energy_fwd": 0, "energy_bwd": 0, "stats_fwd": 0, "stats_bwd": 0}
+# K2's launches again, by the route each took (:func:`k2_route`).  Kept out
+# of LAUNCHES, whose values callers sum as the op's launch count.
+K2_ROUTES = {"one_decode": 0, "fma": 0, "any": 0}
+# The production decoder shape of the fixed kernels (``csrc/decode_any.cuh``
+# fixed_shape): D <= 4 -> 128 -> 128 -> X <= 64.
+FIXED_D, FIXED_H, FIXED_X = 4, 128, 64
+# The one-pass kernels' tiles (``csrc/tiles_mma.cuh``): curve rows of this
+# many splines, this many rows a tile (one of them the next tile's first).
+SPAN_SPLINES = 4
+SPAN_ROWS = 32
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, K2_ROUTES):
+        for k in counts:
+            counts[k] = 0
+
+
+def k2_route(precision: str, widths) -> str:
+    """The kernels K2 launches for a rung and a decoder of ``widths`` (D,
+    ..., X): ``"one_decode"`` (one launch that decodes every point once per
+    decoder, on the tensor cores, after one that prepares the weight planes)
+    at a reduced rung on the production shape, ``"fma"`` (two passes through
+    an xbar buffer) at float32 there, ``"any"`` (the generic decode's two
+    passes) for every other decoder."""
+    check_precision(precision)
+    D, *hidden, X = widths
+    if not (D <= FIXED_D and hidden == [FIXED_H, FIXED_H] and X <= FIXED_X):
+        return "any"
+    return "fma" if precision == "float32" else "one_decode"
+
+
+def pick_spans(T: int, B: int, n_sm: int, halo: int,
+               rows: int = SPAN_ROWS):
+    """(span, G): the T-span each block walks and the number of spans per
+    spline, for the kernels whose persistent blocks (one per SM) take the
+    ceil(B / 4) * G (spline group, span) items in a fixed stride (K2's
+    one-pass kernel, K10); a span's chunks add ``rows`` curve rows each and
+    it decodes ``halo`` extra points; G minimises rounds x chunks per span,
+    the smaller G on a tie."""
+    groups = -(-B // SPAN_SPLINES)
+    best = None
+    for G in range(1, -(-T // rows) + 1):
+        span = -(-T // G)
+        g_eff = -(-T // span)
+        cost = (-(-groups * g_eff // n_sm)) * (-(-(span + halo) // rows))
+        if best is None or cost < best[0]:
+            best = (cost, span, g_eff)
+    return best[1], best[2]
 
 
 def check_precision(precision: str) -> None:
@@ -254,6 +298,11 @@ def spline_ranges(T, B, widths):
     return [(b0, min(B, b0 + size)) for b0 in range(0, B, size)]
 
 
+def _slice_widths(X):
+    """The output widths of :func:`x_slices`' column slices."""
+    return [min(MAX_X, X - c0) for c0 in range(0, X, MAX_X)]
+
+
 def x_slices(ws, bs):
     """The decoder with its output layer cut into column slices of at most
     :data:`MAX_X`: [(ws, bs, c0, c1)] (the decoder itself when X fits)."""
@@ -401,7 +450,7 @@ def energy_fwd(ws, bs, gamma, wmb, precision):
 
 
 def energy_bwd(ws, bs, gamma, wmb, ct, precision):
-    """K2: dgamma (T, B, D) of sum_b ct_b E_b."""
+    """K2: dgamma (T, B, D) of sum_b ct_b E_b (route: :func:`k2_route`)."""
     if gamma.device.type == "cpu":
         return energy_bwd_plain(ws, bs, gamma, wmb, ct, precision)
     if gamma.device.type != "cuda":
@@ -414,26 +463,52 @@ def energy_bwd(ws, bs, gamma, wmb, ct, precision):
     if tuple(ct.shape) != (B,):
         raise ValueError(f"ct must be (B,) = ({B},), got {tuple(ct.shape)}")
     lib = library("energy_expected")
+    hidden = [w.shape[-1] for w in ws[:-1]]
+    routes = [k2_route(precision, [D, *hidden, x]) for x in _slice_widths(X)]
+    if "one_decode" in routes:   # its kernel stages W1, b1, b2 by cp.async
+        ws = [_aligned16(ws[0]), *ws[1:]]
+        bs = [_aligned16(bs[0]), _aligned16(bs[1]), *bs[2:]]
 
     def launch(wsx, bsx, g, w_b, ct_b):
         Bc, Xs = g.shape[1], wsx[-1].shape[-1]
         widths, dec = _decoder_args(wsx, bsx)
-        scratch, n_blocks = _any_scratch(lib, widths, 1, g.device)
-        xbar = torch.empty((T, Bc, Xs), dtype=torch.float32, device=g.device)
+        route = k2_route(precision, widths)
+        xbar = None
+        if route == "one_decode":
+            n_sm = _n_sm(g.device)
+            span, G = pick_spans(T, Bc, n_sm, 1, SPAN_ROWS - 1)
+            n_blocks = min(G * -(-Bc // SPAN_SPLINES), n_sm)
+            scratch = torch.empty(
+                (n_blocks * lib.vlg_k2_block_words(M, Xs)
+                 + lib.vlg_k2_plane_words(M),), dtype=torch.int32,
+                device=g.device)
+        else:
+            span = G = 0
+            scratch, n_blocks = _any_scratch(lib, widths, 1, g.device)
+            xbar = torch.empty((T, Bc, Xs), dtype=torch.float32,
+                               device=g.device)
         dgamma = torch.empty((T, Bc, D), dtype=torch.float32, device=g.device)
         check(lib.vlg_energy_bwd(_RUNG[precision], g.data_ptr(), T, Bc, M,
-                                 *dec, w_b.data_ptr(), ct_b.data_ptr(),
-                                 xbar.data_ptr(), dgamma.data_ptr(),
-                                 _ptr(scratch), n_blocks, _stream(g.device)),
+                                 span, G, *dec, w_b.data_ptr(),
+                                 ct_b.data_ptr(), _ptr(xbar),
+                                 dgamma.data_ptr(), _ptr(scratch), n_blocks,
+                                 _stream(g.device)),
               "energy_bwd")
         LAUNCHES["energy_bwd"] += 1
+        K2_ROUTES[route] += 1
         return dgamma
 
-    with trace_annotation("op.energy_bwd"):
+    with trace_annotation("op.energy_bwd",
+                          route="+".join(dict.fromkeys(routes))):
         return by_splines(T, B, ws, lambda b0, b1: sum_slices(
             ws, bs, lambda wsx, bsx, c0, c1: launch(
                 wsx, bsx, _splines(gamma, b0, b1), _splines(wmb, b0, b1),
                 ct[b0:b1].contiguous())))
+
+
+def _aligned16(x):
+    """x, or a copy of it where its data does not start on 16 bytes."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _splines(x, b0, b1):
