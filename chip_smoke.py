@@ -14,7 +14,20 @@ Phases, each printing one JSON line; any failure exits nonzero:
              float32 forward kernels on decode_f32.cuh (``k1_fwd_fma``,
              ``mc_fwd_fma``); no stack and no spill in the reduced-rung
              forward kernels on tiles_mma.cuh (``k1_tiles_mma``,
-             ``mc_tiles_mma``).
+             ``mc_tiles_mma``); the softmax route's CUDA kernels
+             (``k1s_rows``, ``k2s_rows``, ``k2s_chain``): HMMA at the
+             reduced rungs only; no stack and no spill at any rung but
+             ``SOFTMAX_SPILLS``' (K1 at f32x3 and f32x2).
+1b. softmax — scVI's decoder on the softmax route (``ops/energy_softmax.py``):
+             K1 and K2 against their plain versions on the card at every
+             rung, on a ragged small shape, the benchmark cell's (T=2000,
+             B=8, 10 decoders 10-128-2000) and at B=16, each call repeated
+             bit for bit and counted on the route; the next rung down
+             outside the limits at the cell's rungs; ms per call
+             (``softmax``); then ``optimize_spline_batch`` on an scVI
+             ensemble at the cell's recipe, 100 steps, with the launch
+             counts and routes of that run alone (``softmax_main``).  Both
+             are entries of the last ``kernels`` line.
 2. kernels — at full width (seed-42 10-decoder EVAE, the 190 seed-42 init
              curves padded to B=200, T=2000, S=2 MC samples): each kernel
              against its plain PyTorch version on the same inputs, every
@@ -326,6 +339,19 @@ EP2_E_RTOL = 1e-4
 EP2_OMEGA_RTOL, EP2_OMEGA_ATOL = 1e-3, 1e-5
 EP2_OMEGA_MAX = 2e-3
 EP2_JOIN_S = 420.0
+# scVI's decoder on the softmax route (ops/energy_softmax.py): the checks'
+# shapes (T, B, M, D, H, G), ragged and small (G over several column
+# tiles), the benchmark cell's (scvi10.expected: chunks of 8) and twice as
+# wide.  K1 against its plain version at E_RTOL, K2 at DG_MED / DG_P99.  The
+# next rung down must fail them where its arithmetic is coarser for the
+# kernel: K1 at f32x3 and f32x2 (f32x3 keeps K1 within 7e-7 of float32 on
+# the card), K2 at f32x2, the cell's (its chain is single-pass bf16 at f32x3
+# and f32x2 alike).  SOFTMAX_STEPS optimizer steps of the main path on the
+# cell's shape.
+SOFTMAX_SHAPES = {"small": (33, 5, 3, 10, 16, 300),
+                  "cell": (2000, 8, 10, 10, 128, 2000),
+                  "b16": (2000, 16, 10, 10, 128, 2000)}
+SOFTMAX_STEPS = 100
 # Transposed kernels (K9/K10) against their plain versions: the limits of
 # K1/K2 (E_RTOL, E_RTOL_BF16_M1, DG_*).  Against K1/K2 on the same inputs
 # (the same function in another layout): energies within E_RTOL at float32
@@ -526,11 +552,18 @@ FWD_FMA = (("energy_expected", "k1_fwd_fma"), ("energy_mc", "mc_fwd_fma"))
 FWD_MMA = (("energy_expected", "k1_tiles_mma"), ("energy_mc", "mc_tiles_mma"))
 # K9's and K10's tensor-core kernels (energy_transposed.cu; K9's is K1's)
 T_MMA = ("k1_tiles_mma", "k10_mma")
+# the softmax route's CUDA kernels (energy_softmax.cu), and the
+# instantiations that spill: K1 at f32x3 and f32x2 (early stopping's rungs;
+# the cell runs K1 at float32) spills 4 and 80-96 bytes at 255 registers
+SOFTMAX_CUDA = ("k1s_rows", "k2s_rows", "k2s_chain")
+SOFTMAX_SPILLS = ("k1s_rows<1>", "k1s_rows<2>")
 
 
-def ptxas_of(log, kernel):
+def ptxas_of(log, kernel, rung=None):
     """Registers, stack and spill bytes that ``nvcc -Xptxas -v`` reported
-    for the instantiation of ``kernel`` in a build log."""
+    for the instantiation of ``kernel`` in a build log (the last one, or
+    that of template argument ``rung``)."""
+    key = f"{len(kernel)}{kernel}I" + ("" if rung is None else f"Li{rung}E")
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -538,7 +571,7 @@ def ptxas_of(log, kernel):
         if m:
             fn = m.group(1)
             continue
-        if fn is None or f"{len(kernel)}{kernel}I" not in fn:
+        if fn is None or key not in fn:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -3090,6 +3123,244 @@ def plot_phase(params, out_art, dev, cfg):
     return rec
 
 
+def softmax_inputs(T, B, M, D, H, G, seed, dev):
+    """A folded scVI ensemble (ws, bs, library sizes), smooth curves
+    between prior endpoints, a random weight simplex and a cotangent."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def lin(i, o):
+        bd = i ** -0.5
+        return (rng.uniform(-bd, bd, (M, i, o)), rng.uniform(-bd, bd, (M, o)))
+
+    (w1, b1), (w2, b2) = lin(D, H), lin(H, G)
+    k = (1 + rng.uniform(-0.1, 0.1, (M, H))) / np.sqrt(
+        rng.uniform(0.5, 2, (M, H)) + 1e-3)
+    w1 = w1 * k[:, None, :]
+    b1 = (b1 - rng.normal(0, 0.1, (M, H))) * k + rng.uniform(-0.1, 0.1,
+                                                             (M, H))
+    t = np.linspace(0, 1, T)[:, None, None]
+    a, b = rng.normal(size=(1, B, D)), rng.normal(size=(1, B, D))
+    g = (1 - t) * a + t * b + 0.1 * np.sin(np.pi * t) * rng.normal(
+        size=(1, B, D))
+    w = rng.exponential(size=(M, B))
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    return ([f(w1), f(w2)], [f(b1), f(b2)], f(np.full(M, 1e4)), f(g),
+            f(w / w.sum(0)), f(rng.uniform(0.5, 2, B)))
+
+
+def softmax_bounds(T, B, M, D, H, G):
+    """(K1 at float32, K2 at a reduced rung) lower bounds in seconds: the
+    decode's products once a point and decoder (K2 with the chain's
+    transposes) at the fp32 or the bf16 peak, against the curve, the
+    weights and the output read or written once."""
+    n = T * B * M
+    w_bytes = 4 * M * (D * H + H + H * G + G)
+    k1 = (n * 2 * (D * H + H * G) / PEAK_FP32,
+          (w_bytes + 4 * T * B * D + 4 * B) / PEAK_BYTES)
+    k2 = (n * 4 * (D * H + H * G) / PEAK_BF16,
+          (w_bytes + 8 * T * B * D + 4 * B) / PEAK_BYTES)
+    return k1, k2
+
+
+def softmax_phase(ef, dev):
+    """K1 and K2 on the softmax route against their plain versions on the
+    card at every rung and shape, each call repeated bit for bit, every
+    launch on the route, the next rung down shown outside the limits at
+    the cell's rungs; ms per call on the cell's shape and at B=16."""
+    import torch
+
+    recs = {}
+    for name, shape in SOFTMAX_SHAPES.items():
+        ws, bs, lib, g, wmb, ct = softmax_inputs(*shape, seed=1, dev=dev)
+        args = (ws, bs, g, wmb)
+        for i, p in enumerate(ef.PRECISIONS):
+            ef.reset_launch_counts()
+            e = ef.energy_fwd(*args, p, lib)
+            e2 = ef.energy_fwd(*args, p, lib)
+            d = ef.energy_bwd(*args, ct, p, lib)
+            d2 = ef.energy_bwd(*args, ct, p, lib)
+            torch.cuda.synchronize()
+            rec = {"phase": "softmax", "shape": name, "precision": p,
+                   "k1_repeat_bitwise": bool(torch.equal(e, e2)),
+                   "k2_repeat_bitwise": bool(torch.equal(d, d2)),
+                   "k1_routes": dict(ef.K1_ROUTES),
+                   "k2_routes": dict(ef.K2_ROUTES),
+                   "launches": dict(ef.LAUNCHES),
+                   "passes": dict(ef.SOFTMAX_PASSES),
+                   "finite": bool(torch.isfinite(e).all()
+                                  and torch.isfinite(d).all())}
+            e_p = ef.energy_fwd_plain(*args, p, lib)
+            d_p = ef.energy_bwd_plain(*args, ct, p, lib)
+            rec["k1_rel_max"] = float(((e - e_p).abs() / e_p.abs()).max())
+            rec["k1_max_abs"] = float((e - e_p).abs().max())
+            rec.update(dgamma_stats(d, d_p, "k2_"))
+            if i + 1 < len(ef.PRECISIONS):
+                lower = ef.PRECISIONS[i + 1]
+                e_l = ef.energy_fwd(*args, lower, lib)
+                d_l = ef.energy_bwd(*args, ct, lower, lib)
+                rec["next_down_k1_rel_max"] = float(
+                    ((e_l - e_p).abs() / e_p.abs()).max())
+                rec.update(dgamma_stats(d_l, d_p, "next_down_k2_"))
+            if name != "small":
+                rec["k1_ms"] = time_ms(lambda: ef.energy_fwd(*args, p, lib),
+                                       3)
+                rec["k2_ms"] = time_ms(
+                    lambda: ef.energy_bwd(*args, ct, p, lib), 10)
+                rec["k1_plain_ms"] = time_ms(
+                    lambda: ef.energy_fwd_plain(*args, p, lib), 1)
+                rec["k2_plain_ms"] = time_ms(
+                    lambda: ef.energy_bwd_plain(*args, ct, p, lib), 1)
+            del e_p, d_p
+            emit(rec)
+            recs[(name, p)] = rec
+    return recs
+
+
+def softmax_main(ef, dev):
+    """``optimize_spline_batch`` on an scVI ensemble (BatchNorm and head in
+    the tree, as loaded) at the cell's recipe: 8 pairs, T=2000,
+    SOFTMAX_STEPS f32x2 steps, the final energies at float32; the launch
+    counts and routes of that run alone."""
+    import torch
+
+    from vae_latent_geometry_tpu_torch.config import (EnergyConfig,
+                                                      GeodesicConfig)
+    from vae_latent_geometry_tpu_torch.geometry.basis import nullspace_basis
+    from vae_latent_geometry_tpu_torch.io.artifacts import SplineBatchArtifact
+    from vae_latent_geometry_tpu_torch.models.evae import EVAEParams
+    from vae_latent_geometry_tpu_torch.pipeline.optimize_stage import (
+        optimize_spline_batch)
+
+    T, B, M, D, H, G = SOFTMAX_SHAPES["cell"]
+    ws, bs, lib, _, _, _ = softmax_inputs(*SOFTMAX_SHAPES["cell"], seed=3,
+                                          dev=dev)
+    one = lambda v: torch.full((M, H), v, device=dev)
+    decoders = {"layers": [{"w": w, "b": b} for w, b in zip(ws, bs)],
+                "norms": [{"mean": one(0.05), "var": one(1.5),
+                           "scale": one(0.9), "bias": one(-0.02),
+                           "eps": torch.full((M,), 1e-3, device=dev)}],
+                "softmax": {"library": lib}}
+    rng = np.random.default_rng(5)
+    n_poly = 4
+    basis = nullspace_basis(n_poly)[0]
+    art = SplineBatchArtifact(
+        a=rng.normal(size=(B, D)).astype(np.float32),
+        b=rng.normal(size=(B, D)).astype(np.float32),
+        omega_init=(0.01 * rng.normal(size=(B, basis.shape[1], D))).astype(
+            np.float32),
+        basis=basis.astype(np.float32), n_poly=n_poly,
+        pair_indices=np.stack([np.arange(B), np.arange(B) + B], 1),
+        valid=np.ones(B, bool), pair_labels=[["a", "b"]] * B,
+        representatives=[])
+    cfg = GeodesicConfig(steps=SOFTMAX_STEPS, lr=1e-3, lr_schedule="constant",
+                         batch_size=B, energy=EnergyConfig(
+                             mode="expected_fused", num_t=T,
+                             kernel_precision="f32x2"))
+    params = EVAEParams(encoder=None, decoders=decoders)
+    ef.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = optimize_spline_batch(params, art, None, cfg, dev)
+    torch.cuda.synchronize()
+    rec = {"phase": "softmax_main", "seconds": time.perf_counter() - t0,
+           "launches": dict(ef.LAUNCHES), "k1_routes": dict(ef.K1_ROUTES),
+           "k2_routes": dict(ef.K2_ROUTES),
+           "passes": dict(ef.SOFTMAX_PASSES),
+           "lengths_finite": bool(np.isfinite(out.geodesic_length).all()),
+           "moved_from_init": float(np.abs(
+               out.omega_optimized - art.omega_init).max())}
+    emit(rec)
+    return rec
+
+
+def check_softmax(recs, main_rec):
+    """Fail on a softmax-route record outside its limits."""
+    for (name, p), r in recs.items():
+        if not (r["finite"] and r["k1_repeat_bitwise"]
+                and r["k2_repeat_bitwise"]):
+            fail(f"softmax route {name} {p}: non-finite or a repeat differs")
+        if (r["k1_routes"]["softmax"] != 2 or r["k2_routes"]["softmax"] != 2
+                or r["passes"] != {"energy_fwd": 4, "energy_bwd": 8}):
+            fail(f"softmax route {name} {p}: routes {r['k1_routes']} "
+                 f"{r['k2_routes']}, passes {r['passes']}")
+        if not (r["k1_rel_max"] <= E_RTOL
+                and r["k2_dgamma_rel_median"] <= DG_MED
+                and r["k2_dgamma_rel_p99"] <= DG_P99):
+            fail(f"softmax route {name} {p} vs its plain version: K1 "
+                 f"{r['k1_rel_max']:.3g}, K2 median/p99 "
+                 f"{r['k2_dgamma_rel_median']:.3g}/"
+                 f"{r['k2_dgamma_rel_p99']:.3g}")
+        if p in ("f32x3", "f32x2") and r["next_down_k1_rel_max"] <= E_RTOL:
+            fail(f"softmax route {name}: K1 one rung down reads "
+                 f"{r['next_down_k1_rel_max']:.3g}, inside E_RTOL")
+        if p == "f32x2" and (r["next_down_k2_dgamma_rel_median"] <= DG_MED
+                             and r["next_down_k2_dgamma_rel_p99"] <= DG_P99):
+            fail(f"softmax route {name}: K2 one rung down inside the limits")
+    n_bwd = main_rec["launches"]["energy_bwd"]
+    n_fwd = main_rec["launches"]["energy_fwd"]
+    if not (n_bwd >= SOFTMAX_STEPS and n_fwd >= 1
+            and main_rec["k2_routes"] == {**{k: 0 for k in
+                                             main_rec["k2_routes"]},
+                                          "softmax": n_bwd}
+            and main_rec["k1_routes"] == {**{k: 0 for k in
+                                             main_rec["k1_routes"]},
+                                          "softmax": n_fwd}
+            and main_rec["passes"] == {"energy_fwd": 2 * n_fwd,
+                                       "energy_bwd": 4 * n_bwd}):
+        fail(f"softmax main path: launches {main_rec['launches']}, routes "
+             f"{main_rec['k1_routes']} {main_rec['k2_routes']}")
+    if not (main_rec["lengths_finite"] and main_rec["moved_from_init"] > 0):
+        fail("softmax main path: output malformed")
+
+
+def softmax_kernels(recs, main_rec):
+    """The kernels line's entries of the softmax route."""
+    k1_bound, k2_bound = softmax_bounds(*SOFTMAX_SHAPES["cell"])
+    cell = {p: recs[("cell", p)] for p in ("float32", "f32x3", "f32x2",
+                                           "bfloat16")}
+    wide = recs[("b16", "f32x2")]
+
+    def bound(b):
+        return {"bound_ms": 1e3 * max(b),
+                "bound_by": "operations" if b[0] >= b[1] else "bytes"}
+
+    src = ("vae_latent_geometry_tpu_torch/ops/csrc/energy_softmax.cu, "
+           "softmax_passes.py")
+    return [
+        {"name": "energy_fwd softmax route (K1, scVI's head, float32 final)",
+         "route": "cuda", "source": src,
+         "replaces": "none (the JAX package has no softmax-headed decoder)",
+         "launches": main_rec["launches"]["energy_fwd"],
+         "max_abs_err": cell["float32"]["k1_max_abs"],
+         "ms": cell["float32"]["k1_ms"],
+         "plain_ms": cell["float32"]["k1_plain_ms"], **bound(k1_bound),
+         "library_ms": None,
+         "design": "k1s_rows (CUDA: 128 rows a block, W2 tiles of 64 "
+                   "columns staged by cp.async; mma.sync bf16 hi/lo at the "
+                   "reduced rungs, fp32 FMA at float32; the log-sum-exps, "
+                   "then xbar and var centred on decoder 0) + k1s_segments "
+                   "(Triton)",
+         **{f"ms_{p}": cell[p]["k1_ms"] for p in ("f32x3", "f32x2",
+                                                  "bfloat16")}},
+        {"name": "energy_bwd softmax route (K2, scVI's head, f32x2 "
+                 "trajectory steps)",
+         "route": "cuda", "source": src,
+         "replaces": "none (the JAX package has no softmax-headed decoder)",
+         "launches": main_rec["launches"]["energy_bwd"],
+         "max_abs_err": cell["f32x2"]["k2_dgamma_max_abs"],
+         "ms": cell["f32x2"]["k2_ms"],
+         "plain_ms": cell["f32x2"]["k2_plain_ms"], **bound(k2_bound),
+         "library_ms": None,
+         "design": "k2s_rows (the log-sum-exps, then xbar) + k2s_neighbours "
+                   "(Triton) + k2s_chain (<s, g>, then du W2^T on mma.sync "
+                   "bf16, the ReLU mask and dh W1^T)",
+         **{f"ms_{p}": cell[p]["k2_ms"] for p in ("float32", "f32x3",
+                                                  "bfloat16")},
+         "ms_B16_f32x2": wide["k2_ms"]},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -3130,6 +3401,7 @@ def main() -> int:
     mc_hmma = sass_hmma(_build._target("energy_mc"), "mc_")
     stats_hmma = sass_hmma(_build._target("energy_stats"), "k[34]_")
     t_hmma = sass_hmma(_build._target("energy_transposed"), "k(?:1|9|10)_")
+    sm_hmma = sass_hmma(_build._target("energy_softmax"), "k[12]s_")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     emit({"phase": "build", "seconds": build_s,
@@ -3145,7 +3417,11 @@ def main() -> int:
           "transposed_mma_ptxas": {k: ptxas_of(_build.BUILD_LOG[
               "energy_transposed"], k) for k in T_MMA},
           "k2_onepass_ptxas": ptxas_of(_build.BUILD_LOG["energy_expected"],
-                                       "k2_onepass_mma")})
+                                       "k2_onepass_mma"),
+          "softmax_sass_hmma": sm_hmma,
+          "softmax_ptxas": {
+              f"{k}<{r}>": ptxas_of(_build.BUILD_LOG["energy_softmax"], k, r)
+              for k in SOFTMAX_CUDA for r in range(4)}})
     # K1's, K2's, K3/K4's and K5-K8's reduced rungs run on the tensor cores
     # in the mma kernels of the production shape, their float32 rung does
     # not (TF32 is barred: k1_fwd_fma, mc_fwd_fma, and mc_segments, the
@@ -3180,6 +3456,22 @@ def main() -> int:
         r = ptxas_of(_build.BUILD_LOG[src], k)
         if r.get("spill_bytes") != 0 or r.get("stack_bytes") != 0:
             fail(f"ptxas of {k}: {r}")
+    # the softmax route's CUDA kernels: tensor cores at the reduced rungs,
+    # FMA at float32; no stack, no spill at any rung but SOFTMAX_SPILLS'
+    check_hmma(sm_hmma, SOFTMAX_CUDA, SOFTMAX_CUDA, ())
+    for k in SOFTMAX_CUDA:
+        for rung in range(4):
+            r = ptxas_of(_build.BUILD_LOG["energy_softmax"], k, rung)
+            if "registers" not in r or (
+                    f"{k}<{rung}>" not in SOFTMAX_SPILLS
+                    and (r.get("spill_bytes") != 0
+                         or r.get("stack_bytes") != 0)):
+                fail(f"ptxas of {k}<{rung}>: {r}")
+
+    # 1b. scVI's decoder on the softmax route -------------------------------
+    sm_recs = softmax_phase(ef, dev)
+    sm_main = softmax_main(ef, dev)
+    check_softmax(sm_recs, sm_main)
 
     # 2. kernels vs plain versions at full width ----------------------------
     params = load_npz(MODEL, dev)
@@ -4118,6 +4410,7 @@ def main() -> int:
     if not (r["len_rel_median"] <= LEN_MED and r["len_rel_max"] <= LEN_MAX):
         fail(f"cov expected_fused: lengths vs the JAX package on the CPU: "
              f"median {r['len_rel_median']:.3g}, max {r['len_rel_max']:.3g}")
+    kernels += softmax_kernels(sm_recs, sm_main)
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on its path")

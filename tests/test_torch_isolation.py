@@ -197,6 +197,7 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
                       "decode_any.cuh", "tiles_mma.cuh"},
         "energy_stats": {"decode_mma.cuh", "decode_common.cuh",
                          "decode_any.cuh"},
+        "energy_softmax": {"decode_mma.cuh", "decode_common.cuh"},
         "energy_transposed": {"decode_mma.cuh", "decode_common.cuh",
                               "decode_f32.cuh", "decode_any.cuh",
                               "k1_fwd_f32.cuh", "tiles_mma.cuh",
@@ -236,7 +237,8 @@ def test_console_script_and_package_data_in_pyproject():
     assert "ops/csrc/*.cu" in data["vae_latent_geometry_tpu_torch"]
     assert "ops/csrc/*.cuh" in data["vae_latent_geometry_tpu_torch"]
     for src in ("energy_expected.cu", "energy_mc.cu", "energy_stats.cu",
-                "energy_transposed.cu", "decode_common.cuh",
+                "energy_transposed.cu", "energy_softmax.cu",
+                "softmax_passes.py", "decode_common.cuh",
                 "decode_mma.cuh", "decode_any.cuh", "decode_f32.cuh",
                 "k1_fwd_f32.cuh", "tiles_mma.cuh", "onepass_mma.cuh"):
         assert os.path.exists(os.path.join(PKG, "ops", "csrc", src))
@@ -262,7 +264,8 @@ def test_new_modules_are_scanned_and_stats_kernel_is_registered():
                 "pipeline/full_run.py", "ops/_research/energy_fused_t.py"):
         assert mod in rel, mod
     assert set(_build.SIGNATURES) == {"energy_expected", "energy_mc",
-                                      "energy_stats", "energy_transposed"}
+                                      "energy_stats", "energy_transposed",
+                                      "energy_softmax"}
     assert set(_build.SIGNATURES["energy_stats"]) == {"vlg_stats_fwd",
                                                       "vlg_stats_bwd"}
 

@@ -55,7 +55,7 @@ def test_route_counter_stays_out_of_the_launch_count():
     """Callers sum LAUNCHES' values as the op's launches: the route counter
     is a dict of its own, reset with it, and the plain CPU version counts in
     neither."""
-    assert set(ef.K2_ROUTES) == {"one_decode", "fma", "any"}
+    assert set(ef.K2_ROUTES) == {"one_decode", "fma", "any", "softmax"}
     assert not set(ef.K2_ROUTES) & set(ef.LAUNCHES)
     ef.K2_ROUTES["one_decode"] += 3
     ef.reset_launch_counts()
@@ -194,7 +194,8 @@ def test_k2_one_decode_on_gpu(precision, T, B, M, D, X, weights):
     ef.reset_launch_counts()
     d = ef.energy_bwd(ws, bs, g, wmb, ct, precision)
     torch.cuda.synchronize()
-    assert ef.K2_ROUTES == {"one_decode": 1, "fma": 0, "any": 0}
+    assert ef.K2_ROUTES == {"one_decode": 1, "fma": 0, "any": 0,
+                            "softmax": 0}
     assert ef.LAUNCHES["energy_bwd"] == 1
     d_p = ef.energy_bwd_plain(ws, bs, g, wmb, ct, precision)
     err = ((d - d_p).abs() / d_p.abs().max()).flatten()

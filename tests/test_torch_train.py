@@ -39,7 +39,11 @@ from vae_latent_geometry_tpu.io.checkpoint import _flatten_with_paths
 from vae_latent_geometry_tpu.models import evae as jevae
 from vae_latent_geometry_tpu.models import vae as jvae
 from vae_latent_geometry_tpu.pipeline import train as jtrain
-from vae_latent_geometry_tpu_torch.config import ModelConfig, TrainConfig
+from vae_latent_geometry_tpu_torch.config import (
+    ModelConfig,
+    TrainConfig,
+    to_dict,
+)
 from vae_latent_geometry_tpu_torch.data.tasic import train_val_split
 from vae_latent_geometry_tpu_torch.io.checkpoint import (
     flatten_with_paths,
@@ -335,7 +339,7 @@ def test_cfg_stamp_json_matches_jax():
              (TrainConfig(lr=2e-3), ModelConfig(**TINY),
               {"drop_seed": True, "seeds": [12, 123]})]
     for cfg, mcfg, extra in cases:
-        jm = JModel(**dataclasses.asdict(mcfg))
+        jm = JModel(**to_dict(mcfg))
         jc = JTrain(**dataclasses.asdict(cfg))
         assert ptrain._cfg_stamp(cfg, mcfg, **extra) == \
             jtrain._cfg_stamp(jc, jm, **extra)

@@ -28,6 +28,22 @@ class ModelConfig:
     heteroscedastic: bool = False
     encoder_logstd_clamp: tuple[float, float] = (-4.0, 2.0)
     decoder_logstd_clamp: tuple[float, float] = (-2.0, 2.0)
+    # The decoder family of scVI (scvi-tools ``DecoderSCVI``): "linear" is
+    # the reference's output layer, "softmax" scVI's mean head
+    # library_size * softmax(W h + b).  ``decoder_batchnorm``: an eval-mode
+    # BatchNorm1d (running statistics, affine, ``batchnorm_eps``) after each
+    # hidden layer's affine map, before its ReLU.  Port-only fields: at
+    # their defaults :func:`to_dict` leaves them out, so a stamp or sidecar
+    # of every other model is the JAX package's JSON.
+    decoder_head: str = "linear"
+    decoder_batchnorm: bool = False
+    batchnorm_eps: float = 1e-3
+    library_size: float = 1.0
+
+
+# ModelConfig's fields that the JAX package's ModelConfig does not have
+PORT_ONLY_FIELDS = ("decoder_head", "decoder_batchnorm", "batchnorm_eps",
+                    "library_size")
 
 
 @dataclass(frozen=True)
@@ -122,7 +138,15 @@ class TrainConfig:
 
 
 def to_dict(cfg: Any) -> dict:
-    return dataclasses.asdict(cfg)
+    """The config as a dict; a ModelConfig without the port-only fields
+    that are at their defaults (:data:`PORT_ONLY_FIELDS`)."""
+    out = dataclasses.asdict(cfg)
+    if isinstance(cfg, ModelConfig):
+        default = ModelConfig()
+        for name in PORT_ONLY_FIELDS:
+            if getattr(cfg, name) == getattr(default, name):
+                del out[name]
+    return out
 
 
 def _merge(cls, base: Any, overrides: dict):

@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from vae_latent_geometry_tpu_torch.io.checkpoint import tree_map
 from vae_latent_geometry_tpu_torch.models import nets
 from vae_latent_geometry_tpu_torch.models.evae import decode_all
 
@@ -190,9 +191,12 @@ def energy_mc_scan(decoders, gamma, generator, mc_samples: int = 2,
 # ---------------------------------------------------------------------------
 
 def decode_all_jvp(decoders, z, z_dot):
-    """Every ensemble member: (x, x_dot), both (M, ..., X)."""
+    """Every ensemble member: (x, x_dot), both (M, ..., X).  scVI's
+    decoders carry the tangent through their eval-mode BatchNorms (a
+    per-feature scale) and their head, L s (u_dot - <s, u_dot>)."""
     lead = z.shape[:-1]
     layers = decoders["layers"]
+    norms = decoders.get("norms")
     m_dec = layers[0]["w"].shape[0]
     h = z.reshape(1, -1, z.shape[-1]).expand(m_dec, -1, -1)
     h_dot = z_dot.reshape(1, -1, z.shape[-1]).expand(m_dec, -1, -1)
@@ -200,8 +204,18 @@ def decode_all_jvp(decoders, z, z_dot):
         h = torch.baddbmm(lyr["b"][:, None, :], h, lyr["w"])
         h_dot = torch.bmm(h_dot, lyr["w"])
         if i < len(layers) - 1:
+            if norms:
+                p = norms[i]
+                h = nets.batchnorm_eval(p, h)
+                h_dot = h_dot * (p["scale"] * torch.rsqrt(
+                    p["var"] + p["eps"][:, None]))[:, None, :]
             h_dot = h_dot * (h > 0).to(h.dtype)
             h = torch.relu(h)
+    if nets.decoder_head(decoders) == "softmax":
+        lib = decoders["softmax"]["library"][:, None, None]
+        s = torch.softmax(h, -1)
+        h_dot = lib * s * (h_dot - (s * h_dot).sum(-1, keepdim=True))
+        h = lib * s
     return (h.reshape(m_dec, *lead, h.shape[-1]),
             h_dot.reshape(m_dec, *lead, h.shape[-1]))
 
@@ -220,8 +234,7 @@ def energy_jvp(decoder_params, gamma, gamma_dot):
     """Quadrature JVP energy through one decoder:
     dt^2 sum_i w_i ||J_f(g_i) g'_i||^2, trapezoid weights, dt = 1/(T-1)
     (the discrete estimators' units as T grows).  (T, B, D) -> (B,)."""
-    stacked = {"layers": [{"w": l["w"][None], "b": l["b"][None]}
-                          for l in decoder_params["layers"]]}
+    stacked = tree_map(lambda x: x[None], decoder_params)
     tangents = decode_all_jvp(stacked, gamma, gamma_dot)[1][0]
     return _trapezoid_dt2((tangents * tangents).sum(dim=-1))
 

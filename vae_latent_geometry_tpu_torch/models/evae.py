@@ -63,7 +63,11 @@ def from_jax_params(tree, device: Optional[Union[str, torch.device]] = None
     def get(name):
         return tree[name] if isinstance(tree, dict) else getattr(tree, name)
 
-    return EVAEParams(encoder=_to_tensors(get("encoder"), dev),
+    enc = (tree.get("encoder") if isinstance(tree, dict)
+           else getattr(tree, "encoder", None))
+    # an scVI ensemble's artifact holds its decoders alone: the geodesic
+    # stages never encode
+    return EVAEParams(encoder=None if enc is None else _to_tensors(enc, dev),
                       decoders=_to_tensors(get("decoders"), dev))
 
 
@@ -82,6 +86,13 @@ def load_npz(path: str, device: Optional[Union[str, torch.device]] = None):
                          decoder=_to_tensors(tree["decoder"], dev))
     if "decoders" not in tree:
         raise KeyError(f"{path}: no 'decoders' tree — not an EVAE checkpoint")
+    head = nets.decoder_head(tree["decoders"])
+    norms = bool(tree["decoders"].get("norms"))
+    if head != cfg.decoder_head or norms != cfg.decoder_batchnorm:
+        raise ValueError(f"{path}: the sidecar's decoder_head "
+                         f"{cfg.decoder_head!r} and decoder_batchnorm "
+                         f"{cfg.decoder_batchnorm} do not match the decoders "
+                         f"(a {head!r} head, BatchNorms: {norms})")
     return from_jax_params(tree, device)
 
 
@@ -145,16 +156,22 @@ def decode_one(decoders: Params, idx, z):
 
 
 def decode_all(decoders: Params, z):
-    """Decode z (..., D) with every ensemble member: (M, ..., X)."""
+    """Decode z (..., D) with every ensemble member: (M, ..., X).  scVI's
+    decoders apply their BatchNorms (explicitly, in eval mode) and their
+    head."""
     lead = z.shape[:-1]
     h = z.reshape(1, -1, z.shape[-1])
     layers = decoders["layers"]
+    norms = decoders.get("norms")
     for i, lyr in enumerate(layers):
         w = lyr["w"]
         h = torch.baddbmm(lyr["b"][:, None, :], h.expand(w.shape[0], -1, -1),
                           w)
         if i < len(layers) - 1:
+            if norms:
+                h = nets.batchnorm_eval(norms[i], h)
             h = torch.relu(h)
+    h = nets.apply_head(decoders, h)
     return h.reshape(h.shape[0], *lead, h.shape[-1])
 
 

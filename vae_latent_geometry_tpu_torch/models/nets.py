@@ -11,6 +11,19 @@ and the legacy single-decoder family (``src/single_decoder/vae.py:15-42``):
 - encoder: Linear(50,128) ReLU Linear(128,64) ReLU Linear(64, 2*latent_dim)
 - decoder: Linear(2,128) ReLU Linear(128,128) ReLU Linear(128, 2*output_dim)
 
+and scVI's decoder (scvi-tools ``scvi/nn/_base_components.py``
+``DecoderSCVI`` with ``FCLayers``, n_layers 1, BatchNorm in the decoder),
+whose mean is the rate ``px_rate``:
+
+- decoder: Linear(10,128) BatchNorm1d(128, eps 1e-3, eval) ReLU
+  Linear(128, G) softmax, times the library size L
+
+A decoder tree is ``{"layers": [...]}``, and for scVI's family also
+``"norms"`` (one eval-mode BatchNorm per hidden layer: ``mean``, ``var``,
+``scale``, ``bias``, ``eps``) and ``"softmax"`` (the head: ``library``).
+Every leaf carries the same leading axes as the layers (a member or seed
+axis), so the trees stack, select and save as the linear ones do.
+
 Weights keep the JAX package's ``(in, out)`` layout and apply as
 ``x @ w + b`` — not ``nn.Linear``'s ``(out, in)`` — so parameters carry
 across the packages without a transpose that could slip in or out.  Every
@@ -99,17 +112,64 @@ def decoder_init(generator: torch.Generator, latent_dim: int = 2,
                        for i in range(len(dims) - 1)]}
 
 
+def decoder_head(decoders) -> str:
+    """"softmax" for a tree with scVI's head, else "linear"."""
+    return "softmax" if "softmax" in decoders else "linear"
+
+
+def _per_row(v):
+    """A per-member scalar (..., ) broadcast over (..., N, F)."""
+    return v.reshape(*v.shape, 1, 1)
+
+
+def batchnorm_eval(p, h):
+    """BatchNorm1d in eval mode on (..., N, F): the running statistics and
+    the affine map."""
+    return ((h - _row(p["mean"])) * torch.rsqrt(_row(p["var"])
+                                                + _per_row(p["eps"]))
+            * _row(p["scale"]) + _row(p["bias"]))
+
+
+def apply_head(params, out):
+    """The output head on the last layer's output (..., N, X): the identity,
+    or ``library * softmax`` over the features."""
+    if "softmax" not in params:
+        return out
+    return _per_row(params["softmax"]["library"]) * torch.softmax(out, -1)
+
+
+def fold_batchnorm(decoders):
+    """The tree with each eval-mode BatchNorm folded into the affine map
+    before it: w k and (b - mean) k + bias, k = scale / sqrt(var + eps)
+    (the same function up to float32 rounding)."""
+    norms = decoders.get("norms")
+    if not norms:
+        return decoders
+    layers = list(decoders["layers"])
+    for i, p in enumerate(norms):
+        k = p["scale"] * torch.rsqrt(p["var"] + p["eps"][..., None])
+        layers[i] = {"w": layers[i]["w"] * k.unsqueeze(-2),
+                     "b": (layers[i]["b"] - p["mean"]) * k + p["bias"]}
+    return {**{k: v for k, v in decoders.items() if k != "norms"},
+            "layers": layers}
+
+
 def decoder_apply(params, z, activation: str = "relu"):
     """Decoder mean head: (..., latent_dim) -> (..., output_dim).  The
     ensemble family's observation noise is a fixed sigma
     (``ModelConfig.decoder_sigma``), so only the mean is produced here;
-    heteroscedastic decoders use :func:`decoder_apply_full`."""
+    heteroscedastic decoders use :func:`decoder_apply_full`.  scVI's
+    decoder applies its BatchNorms and its head."""
     act = _activation(activation)
     layers = params["layers"]
+    norms = params.get("norms")
     h = z
-    for lyr in layers[:-1]:
-        h = act(h @ lyr["w"] + _row(lyr["b"]))
-    return h @ layers[-1]["w"] + _row(layers[-1]["b"])
+    for i, lyr in enumerate(layers[:-1]):
+        h = h @ lyr["w"] + _row(lyr["b"])
+        if norms:
+            h = batchnorm_eval(norms[i], h)
+        h = act(h)
+    return apply_head(params, h @ layers[-1]["w"] + _row(layers[-1]["b"]))
 
 
 def decoder_apply_full(params, z, clamp=(-2.0, 2.0),

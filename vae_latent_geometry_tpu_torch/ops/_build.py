@@ -71,6 +71,10 @@ SIGNATURES = {
         "vlg_energy_t_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, *_DEC, _P, _P,
                              _P, _P, _P, _P, _P, _P, _P, _P],
     },
+    "energy_softmax": {
+        "vlg_softmax_rows": [_I, _I, *[_P] * 11, _I, _I, _I, _I, _I, _P],
+        "vlg_softmax_chain": [_I, *[_P] * 12, _I, _I, _I, _I, _I, _P],
+    },
     "energy_stats": {
         "vlg_stats_fwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _P, _I,
                           _P],
@@ -78,7 +82,7 @@ SIGNATURES = {
                           _I, _P],
     },
 }
-# exported by every library (csrc/decode_any.cuh)
+# exported by every library that includes csrc/decode_any.cuh
 COMMON = {"vlg_any_scratch_words": [_I, _P, _I], "vlg_any_head_words": [_I]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -167,7 +171,9 @@ def library(name: str) -> ctypes.CDLL:
         with trace_annotation("ops.library", source=name):
             build_all([name])
             lib = ctypes.CDLL(str(_target(name)))
-            for fn, argtypes in {**SIGNATURES[name], **COMMON}.items():
+            common = COMMON if any(p.name == "decode_any.cuh"
+                                   for p in source_files(name)) else {}
+            for fn, argtypes in {**SIGNATURES[name], **common}.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib

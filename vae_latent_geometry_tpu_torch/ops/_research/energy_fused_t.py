@@ -273,7 +273,7 @@ def energy_expected_fused_t(decoders, gamma, precision: str = "float32"):
     (T, B, D) curve -> (B,) energies, differentiable in ``gamma`` only (the
     decoders get no gradient).  A shape outside :func:`fused_t_fits` raises.
     """
-    ws, bs = stack_weights(decoders)
+    ws, bs = stack_weights(decoders, "transposed (K9/K10)")
     ws = [w.detach() for w in ws]
     bs = [b.detach().contiguous() for b in bs]
     return _EnergyExpectedFusedT.apply(gamma.contiguous(), ws, bs, precision)

@@ -16,6 +16,12 @@ Four kernels, each beside a plain PyTorch version of the same function:
   a local decoder subset and their gradient, from which
   :func:`energy_expected_sharded` assembles the decoder-sharded energy.
 
+A decoder with scVI's softmax head (``models/nets.py``: x = L softmax(u))
+couples every output column of a row through the softmax's sum, so K1 and
+K2 take it on a route of their own, ``"softmax"``
+(``ops/energy_softmax.py``); every other fused path refuses such a
+decoder (:func:`stack_weights`).
+
 A CUDA tensor launches the kernel (``csrc/energy_expected.cu``,
 ``csrc/energy_stats.cu``) or raises;
 only a CPU tensor takes the plain version.  Both follow the precision-rung
@@ -58,9 +64,15 @@ INDEX_LIMIT = 2**31 - 2**16
 # CUDA kernel; the plain CPU version does not count).  The launching part of
 # each wrapper is an ``op.<wrapper>`` span.
 LAUNCHES = {"energy_fwd": 0, "energy_bwd": 0, "stats_fwd": 0, "stats_bwd": 0}
-# K2's launches again, by the route each took (:func:`k2_route`).  Kept out
-# of LAUNCHES, whose values callers sum as the op's launch count.
-K2_ROUTES = {"one_decode": 0, "fma": 0, "any": 0}
+# K1's and K2's launches again, by the route each took (:func:`k1_route`,
+# :func:`k2_route`).  Kept out of LAUNCHES, whose values callers sum as the
+# op's launch count.
+K1_ROUTES = {"fma": 0, "tiles_mma": 0, "any": 0, "softmax": 0}
+K2_ROUTES = {"one_decode": 0, "fma": 0, "any": 0, "softmax": 0}
+# Passes over the G output columns of every (point, decoder) row that the
+# softmax route's K1 and K2 launches made, summed over launches
+# (``energy_softmax.PLAN``: K2 makes 4 a launch).
+SOFTMAX_PASSES = {"energy_fwd": 0, "energy_bwd": 0}
 # The production decoder shape of the fixed kernels (``csrc/decode_any.cuh``
 # fixed_shape): D <= 4 -> 128 -> 128 -> X <= 64.
 FIXED_D, FIXED_H, FIXED_X = 4, 128, 64
@@ -71,21 +83,41 @@ SPAN_ROWS = 32
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, K2_ROUTES):
+    for counts in (LAUNCHES, K1_ROUTES, K2_ROUTES, SOFTMAX_PASSES):
         for k in counts:
             counts[k] = 0
 
 
-def k2_route(precision: str, widths) -> str:
-    """The kernels K2 launches for a rung and a decoder of ``widths`` (D,
-    ..., X): ``"one_decode"`` (one launch that decodes every point once per
-    decoder, on the tensor cores, after one that prepares the weight planes)
-    at a reduced rung on the production shape, ``"fma"`` (two passes through
-    an xbar buffer) at float32 there, ``"any"`` (the generic decode's two
-    passes) for every other decoder."""
-    check_precision(precision)
+def _fixed_shape(widths) -> bool:
     D, *hidden, X = widths
-    if not (D <= FIXED_D and hidden == [FIXED_H, FIXED_H] and X <= FIXED_X):
+    return D <= FIXED_D and hidden == [FIXED_H, FIXED_H] and X <= FIXED_X
+
+
+def k1_route(precision: str, widths, head: str = "linear") -> str:
+    """The kernels K1 launches: ``"softmax"`` for scVI's head
+    (``energy_softmax``), on the production shape ``"fma"`` (float32, CUDA
+    cores) or ``"tiles_mma"`` (a reduced rung, tensor cores), ``"any"``
+    (the generic decode) for every other decoder."""
+    check_precision(precision)
+    if head == "softmax":
+        return "softmax"
+    if not _fixed_shape(list(widths)):
+        return "any"
+    return "fma" if precision == "float32" else "tiles_mma"
+
+
+def k2_route(precision: str, widths, head: str = "linear") -> str:
+    """The kernels K2 launches for a rung and a decoder of ``widths`` (D,
+    ..., X): ``"softmax"`` for scVI's head (``energy_softmax``: the
+    row reductions, then the chain), ``"one_decode"`` (one launch that
+    decodes every point once per decoder, on the tensor cores, after one
+    that prepares the weight planes) at a reduced rung on the production
+    shape, ``"fma"`` (two passes through an xbar buffer) at float32 there,
+    ``"any"`` (the generic decode's two passes) for every other decoder."""
+    check_precision(precision)
+    if head == "softmax":
+        return "softmax"
+    if not _fixed_shape(list(widths)):
         return "any"
     return "fma" if precision == "float32" else "one_decode"
 
@@ -128,8 +160,23 @@ def active_weights(num_active, M: int, B: int, device=None):
     return mask / k.float()[None, :]
 
 
-def stack_weights(decoders):
-    """(ws, bs): stacked (M, in, out) weights and (M, out) biases."""
+def refuse_head(decoders, path: str) -> None:
+    """Raise for a decoder with scVI's head or BatchNorms: the ``path``
+    kernels compute a linear head's energy, which is another function."""
+    head = "softmax" if "softmax" in decoders else "linear"
+    if head != "linear" or decoders.get("norms"):
+        raise ValueError(
+            f"the {path} kernels take decoders with a linear output head; "
+            f"these decoders have a {head!r} head"
+            + (" and BatchNorms" if decoders.get("norms") else "")
+            + " (scVI's decoder): run expected_fused, or a plain mode "
+            "(expected, mc, jvp_ensemble)")
+
+
+def stack_weights(decoders, path: str = "fused"):
+    """(ws, bs): stacked (M, in, out) weights and (M, out) biases of a
+    linear-headed decoder (any other is refused, :func:`refuse_head`)."""
+    refuse_head(decoders, path)
     layers = decoders["layers"]
     return [l["w"] for l in layers], [l["b"] for l in layers]
 
@@ -169,9 +216,10 @@ def _mp_matmul(h, w, precision):
     return out
 
 
-def _decode_plain(g, ws, bs, m, precision):
+def _decode_plain(g, ws, bs, m, precision, library_size=None):
     """One decoder on (N, D) points -> (x (N, X), ReLU masks of the hidden
-    layers)."""
+    layers); with ``library_size`` (M,) the softmax head: x = L softmax(u),
+    the logits u at the rung and the softmax in float32."""
     w1 = ws[0][m]
     h = bs[0][m]
     for d in range(g.shape[1]):
@@ -184,21 +232,25 @@ def _decode_plain(g, ws, bs, m, precision):
         if i < n_layers - 1:
             h = torch.relu(h)
             masks.append(h > 0)
+    if library_size is not None:
+        h = library_size[m] * torch.softmax(h, -1)
     return h, masks
 
 
-def energy_fwd_plain(ws, bs, gamma, wmb, precision):
+def energy_fwd_plain(ws, bs, gamma, wmb, precision, library_size=None):
     """Plain version of K1 (same arguments as :func:`energy_fwd`)."""
     check_precision(precision)
     ws = ship_weights(ws, precision)
     T, B, D = gamma.shape
     M = ws[0].shape[0]
     g = gamma.reshape(T * B, D)
-    x0 = _decode_plain(g, ws, bs, 0, precision)[0].reshape(T, B, -1)
+    x0 = _decode_plain(g, ws, bs, 0, precision,
+                       library_size)[0].reshape(T, B, -1)
     ybar = torch.zeros_like(x0)
     sqy = torch.zeros((T, B), dtype=torch.float32, device=gamma.device)
     for m in range(1, M):
-        y = _decode_plain(g, ws, bs, m, precision)[0].reshape(T, B, -1) - x0
+        y = _decode_plain(g, ws, bs, m, precision,
+                          library_size)[0].reshape(T, B, -1) - x0
         ybar = ybar + wmb[m][None, :, None] * y
         sqy = sqy + wmb[m][None, :] * (y * y).sum(-1)
     xbar = x0 + ybar
@@ -210,8 +262,10 @@ def energy_fwd_plain(ws, bs, gamma, wmb, precision):
     return seg.sum(0)
 
 
-def energy_bwd_plain(ws, bs, gamma, wmb, ct, precision):
-    """Plain version of K2 (same arguments as :func:`energy_bwd`)."""
+def energy_bwd_plain(ws, bs, gamma, wmb, ct, precision, library_size=None):
+    """Plain version of K2 (same arguments as :func:`energy_bwd`).  With
+    the softmax head the cotangent g of x = L s reaches the logits as
+    L s (g - <s, g>): a reduction over every output column of the row."""
     check_precision(precision)
     ws = ship_weights(ws, precision)
     T, B, D = gamma.shape
@@ -220,7 +274,8 @@ def energy_bwd_plain(ws, bs, gamma, wmb, ct, precision):
     g = gamma.reshape(T * B, D)
     xbar = 0.0
     for m in range(M):
-        x = _decode_plain(g, ws, bs, m, precision)[0].reshape(T, B, -1)
+        x = _decode_plain(g, ws, bs, m, precision,
+                          library_size)[0].reshape(T, B, -1)
         xbar = xbar + wmb[m][None, :, None] * x
     nb = torch.zeros_like(xbar)
     nb[1:] = xbar[:-1]
@@ -230,8 +285,14 @@ def energy_bwd_plain(ws, bs, gamma, wmb, ct, precision):
     dg = torch.zeros((T * B, D), dtype=torch.float32, device=gamma.device)
     for m in range(M):
         x, masks = _decode_plain(g, ws, bs, m, precision)
+        if library_size is not None:
+            s = torch.softmax(x, -1)
+            x = library_size[m] * s
         scale = 2.0 * (wmb[m] * ct)[None, :, None]
         dh = (scale * (c * x.reshape(T, B, -1) - nb)).reshape(T * B, -1)
+        if library_size is not None:
+            dh = library_size[m] * s * (dh - (s * dh).sum(-1,
+                                                          keepdim=True))
         for i in range(len(ws) - 1, 0, -1):
             dh = _mp_matmul(dh, ws[i][m].T, chain) * masks[i - 1]
         dg = dg + dh @ ws[0][m].T
@@ -415,18 +476,24 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def energy_fwd(ws, bs, gamma, wmb, precision):
-    """K1: (T, B, D) curve -> (B,) expected energies."""
+def energy_fwd(ws, bs, gamma, wmb, precision, library_size=None):
+    """K1: (T, B, D) curve -> (B,) expected energies.  ``library_size``:
+    (M,) library sizes of scVI's softmax head (route ``"softmax"``)."""
     if gamma.device.type == "cpu":
-        return energy_fwd_plain(ws, bs, gamma, wmb, precision)
+        return energy_fwd_plain(ws, bs, gamma, wmb, precision, library_size)
     if gamma.device.type != "cuda":
         raise ValueError(f"no kernel for device {gamma.device}")
+    if library_size is not None:
+        return _softmax_route("energy_fwd", ws, bs, gamma, wmb, None,
+                              precision, library_size)
     from vae_latent_geometry_tpu_torch.ops._build import check, library
 
     check_precision(precision)
     ws = [w.contiguous() for w in ship_weights(ws, precision)]
     T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb)
     lib = library("energy_expected")
+    hidden = [w.shape[-1] for w in ws[:-1]]
+    routes = [k1_route(precision, [D, *hidden, x]) for x in _slice_widths(X)]
 
     def launch(wsx, bsx, g, w_b):
         Bc = g.shape[1]
@@ -441,20 +508,27 @@ def energy_fwd(ws, bs, gamma, wmb, precision):
                                  _stream(g.device)),
               "energy_fwd")
         LAUNCHES["energy_fwd"] += 1
+        K1_ROUTES[k1_route(precision, widths)] += 1
         return out
 
-    with trace_annotation("op.energy_fwd"):
+    with trace_annotation("op.energy_fwd",
+                          route="+".join(dict.fromkeys(routes))):
         return by_splines(T, B, ws, lambda b0, b1: sum_slices(
             ws, bs, lambda wsx, bsx, c0, c1: launch(
                 wsx, bsx, _splines(gamma, b0, b1), _splines(wmb, b0, b1))))
 
 
-def energy_bwd(ws, bs, gamma, wmb, ct, precision):
-    """K2: dgamma (T, B, D) of sum_b ct_b E_b (route: :func:`k2_route`)."""
+def energy_bwd(ws, bs, gamma, wmb, ct, precision, library_size=None):
+    """K2: dgamma (T, B, D) of sum_b ct_b E_b (route: :func:`k2_route`).
+    ``library_size``: as :func:`energy_fwd`'s."""
     if gamma.device.type == "cpu":
-        return energy_bwd_plain(ws, bs, gamma, wmb, ct, precision)
+        return energy_bwd_plain(ws, bs, gamma, wmb, ct, precision,
+                                library_size)
     if gamma.device.type != "cuda":
         raise ValueError(f"no kernel for device {gamma.device}")
+    if library_size is not None:
+        return _softmax_route("energy_bwd", ws, bs, gamma, wmb, ct,
+                              precision, library_size)
     from vae_latent_geometry_tpu_torch.ops._build import check, library
 
     check_precision(precision)
@@ -506,6 +580,42 @@ def energy_bwd(ws, bs, gamma, wmb, ct, precision):
                 ct[b0:b1].contiguous())))
 
 
+def _softmax_route(which, ws, bs, gamma, wmb, ct, precision, library_size):
+    """K1 (``which`` "energy_fwd") or K2 ("energy_bwd") on the softmax
+    route (``energy_softmax``): checks, spline ranges and counts."""
+    from vae_latent_geometry_tpu_torch.ops import energy_softmax
+
+    check_precision(precision)
+    ws = [w.contiguous() for w in ws]  # shipped at the rung by the route
+    extra = (library_size,) + (() if ct is None else (ct,))
+    T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb, extra)
+    energy_softmax.check_shape(ws, library_size)
+    if ct is not None and tuple(ct.shape) != (B,):
+        raise ValueError(f"ct must be (B,) = ({B},), got {tuple(ct.shape)}")
+    H = ws[0].shape[-1]
+    # the route's buffers: (T b, X) logits-wide and (M, T b, H) hidden-wide
+    ranges = spline_ranges(T, B, [X, M * H])
+    routes = K1_ROUTES if which == "energy_fwd" else K2_ROUTES
+
+    def run(b0, b1):
+        g, w_b = _splines(gamma, b0, b1), _splines(wmb, b0, b1)
+        if ct is None:
+            out = energy_softmax.energy_fwd(ws, bs, library_size, g, w_b,
+                                            precision)
+        else:
+            out = energy_softmax.energy_bwd(ws, bs, library_size, g, w_b,
+                                            ct[b0:b1].contiguous(), precision)
+        LAUNCHES[which] += 1
+        routes["softmax"] += 1
+        SOFTMAX_PASSES[which] += len(energy_softmax.PLAN[which])
+        return out
+
+    with trace_annotation(f"op.{which}", route="softmax"):
+        parts = [run(b0, b1) for b0, b1 in ranges]
+        return parts[0] if len(parts) == 1 else torch.cat(
+            parts, dim=0 if ct is None else 1)
+
+
 def _aligned16(x):
     """x, or a copy of it where its data does not start on 16 bytes."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
@@ -524,27 +634,34 @@ def _splines(x, b0, b1):
 class _EnergyExpectedFused(torch.autograd.Function):
     """Energy (or zeros, ``grad_only``) forward; K2 backward.  The backward
     needs only the inputs (it recomputes activations), so the gradient is
-    the same whether or not the forward kernel ran."""
+    the same whether or not the forward kernel ran.  ``library_size``:
+    None, or the (M,) library sizes of scVI's softmax head."""
 
     @staticmethod
-    def forward(ctx, gamma, ws, bs, wmb, precision, grad_only):
+    def forward(ctx, gamma, ws, bs, wmb, precision, grad_only, library_size):
         ctx.save_for_backward(gamma)
         ctx.ws, ctx.bs, ctx.wmb, ctx.precision = ws, bs, wmb, precision
+        ctx.library_size = library_size
         if grad_only:
             check_precision(precision)
             return gamma.new_zeros(gamma.shape[1])
-        return energy_fwd(ws, bs, gamma, wmb, precision)
+        return energy_fwd(ws, bs, gamma, wmb, precision, library_size)
 
     @staticmethod
     def backward(ctx, ct):
         (gamma,) = ctx.saved_tensors
         dg = energy_bwd(ctx.ws, ctx.bs, gamma.contiguous(), ctx.wmb,
-                        ct.contiguous().float(), ctx.precision)
-        return dg, None, None, None, None, None
+                        ct.contiguous().float(), ctx.precision,
+                        ctx.library_size)
+        return dg, None, None, None, None, None, None
 
 
-def _prepare(decoders, gamma, wmb):
-    ws, bs = stack_weights(decoders)
+def _prepare(decoders, gamma, wmb, path: str = "stats"):
+    ws, bs = stack_weights(decoders, path)
+    return _detached(ws, bs, gamma, wmb)
+
+
+def _detached(ws, bs, gamma, wmb):
     ws = [w.detach() for w in ws]
     bs = [b.detach().contiguous() for b in bs]
     M, B = ws[0].shape[0], gamma.shape[1]
@@ -554,16 +671,36 @@ def _prepare(decoders, gamma, wmb):
     return ws, bs, wmb
 
 
+def _prepare_expected(decoders, gamma, wmb):
+    """(ws, bs, wmb, library_size) of K1/K2: the layers and, for scVI's
+    head, its library sizes (None for a linear head).  scVI's BatchNorms
+    are folded into the layers before the call (``nets.fold_batchnorm``,
+    once a chunk in ``optim/geodesic.make_loss_fn``): a tree that still
+    has them is refused."""
+    if decoders.get("norms"):
+        raise ValueError(
+            "expected_fused takes scVI's decoders with their BatchNorms "
+            "folded into the layers before them: pass "
+            "models.nets.fold_batchnorm(decoders)")
+    library_size = None
+    if "softmax" in decoders:
+        library_size = decoders["softmax"]["library"].detach().float(
+            ).reshape(-1).contiguous()
+    ws, bs = stack_weights({"layers": decoders["layers"]})
+    return (*_detached(ws, bs, gamma, wmb), library_size)
+
+
 def energy_expected_fused(decoders, gamma, wmb=None,
                           precision: str = "float32"):
     """Fused expected ensemble energy: (T, B, D) curve -> (B,) energies.
 
     ``wmb``: optional (M, B) per-spline weights summing to 1 over M (default
     uniform); see :func:`active_weights`.  Differentiable in ``gamma``
-    only."""
-    ws, bs, wmb = _prepare(decoders, gamma, wmb)
+    only.  scVI's decoders take the softmax route, their BatchNorms folded
+    (:func:`_prepare_expected`)."""
+    ws, bs, wmb, library_size = _prepare_expected(decoders, gamma, wmb)
     return _EnergyExpectedFused.apply(gamma.contiguous(), ws, bs, wmb,
-                                      precision, False)
+                                      precision, False, library_size)
 
 
 def energy_expected_fused_grad(decoders, gamma, wmb=None,
@@ -571,9 +708,9 @@ def energy_expected_fused_grad(decoders, gamma, wmb=None,
     """Gradient-only variant: returns ZEROS as the value but carries the
     same backward, so the forward kernel never runs.  Use only where the
     energy value is discarded (the optimizer's trajectory steps)."""
-    ws, bs, wmb = _prepare(decoders, gamma, wmb)
+    ws, bs, wmb, library_size = _prepare_expected(decoders, gamma, wmb)
     return _EnergyExpectedFused.apply(gamma.contiguous(), ws, bs, wmb,
-                                      precision, True)
+                                      precision, True, library_size)
 
 
 # ---------------------------------------------------------------------------
@@ -761,8 +898,9 @@ def ensemble_stats_fused(decoders, gamma, wmb, precision: str = "float32"):
     the global weight plane that belong to this shard; they need not sum to
     1).  Returns (x0, yb, sq): the local reference decoder's output
     (T, B, X) and the weighted centered moments yb (T, B, X), sq (T, B).
-    Differentiable in ``gamma`` only."""
-    ws, bs, wmb = _prepare(decoders, gamma, wmb)
+    Differentiable in ``gamma`` only.  A decoder with scVI's head is
+    refused (:func:`refuse_head`)."""
+    ws, bs, wmb = _prepare(decoders, gamma, wmb, "stats (ep)")
     return _EnsembleStatsFused.apply(gamma.contiguous(), ws, bs, wmb,
                                      precision)
 
@@ -807,6 +945,7 @@ def energy_expected_sharded(decoders, gamma, wmb, group=None,
     resulting gradients (``optim/geodesic`` does both)."""
     from vae_latent_geometry_tpu_torch.parallel.collectives import psum
 
+    refuse_head(decoders, "decoder-sharded (ep)")
     x0, yb, sq = ensemble_stats_fused(decoders, gamma, wmb, precision)
     w_sum = wmb.detach().float().sum(0)                          # (B,)
     s1 = w_sum[None, :, None] * x0 + yb                          # (T, B, X)

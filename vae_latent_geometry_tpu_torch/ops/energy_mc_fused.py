@@ -396,7 +396,7 @@ class _EnergyMCFusedRng(torch.autograd.Function):
 
 
 def _weights(decoders):
-    ws, bs = stack_weights(decoders)
+    ws, bs = stack_weights(decoders, "Monte-Carlo (mc_fused)")
     return [w.detach() for w in ws], [b.detach().contiguous() for b in bs]
 
 

@@ -40,6 +40,8 @@ from vae_latent_geometry_tpu_torch.geometry.spline import (
     eval_spline_velocity,
     t_grid,
 )
+from vae_latent_geometry_tpu_torch.io.checkpoint import tree_map
+from vae_latent_geometry_tpu_torch.models.nets import fold_batchnorm
 from vae_latent_geometry_tpu_torch.ops import energy_fused, energy_mc_fused
 from vae_latent_geometry_tpu_torch.parallel.collectives import all_reduce_sum
 from vae_latent_geometry_tpu_torch.utils.profiling import trace_annotation
@@ -112,8 +114,7 @@ def _energy_fn(mode: str, decoders, gamma, seed: int = 0, mc_samples: int = 2,
     if mode in ("single_fused", "single_fused_bf16"):
         # the expected kernel with an M=1 ensemble IS the single-decoder
         # energy (its statistics reduce to direct segment differences)
-        stacked = {"layers": [{"w": l["w"][None], "b": l["b"][None]}
-                              for l in decoders["layers"]]}
+        stacked = tree_map(lambda x: x[None], decoders)
         precision = "bfloat16" if mode.endswith("bf16") else kernel_precision
         fn = (energy_fused.energy_expected_fused_grad if grad_only
               else energy_fused.energy_expected_fused)
@@ -172,6 +173,12 @@ def _energy_fn(mode: str, decoders, gamma, seed: int = 0, mc_samples: int = 2,
                      f"supports {', '.join(ENERGY_MODES)})")
 
 
+# The modes whose kernels (energy_fused.energy_expected_fused) take the
+# decoders with their BatchNorms folded.
+_FOLDED_MODES = ("expected_fused", "expected_fused_bf16", "single_fused",
+                 "single_fused_bf16")
+
+
 def make_loss_fn(decoders, basis, cfg: GeodesicConfig, device,
                  grad_only: bool = False, mesh=None) -> Callable:
     """loss(omega, a, b, seed=0, num_active=None) -> (scalar_loss,
@@ -189,6 +196,10 @@ def make_loss_fn(decoders, basis, cfg: GeodesicConfig, device,
     the exact global gradient.  The reported energies stay unscaled."""
     e_cfg = cfg.energy
     ep_size = _ep_size(e_cfg.ep_axis, mesh)
+    if e_cfg.mode in _FOLDED_MODES:
+        # the fused expected kernels take scVI's eval-mode BatchNorms folded
+        # into the layers before them: once here, not on every step
+        decoders = fold_batchnorm(decoders)
     t = t_grid(e_cfg.num_t, device)
     phi = design_matrix(t, basis, cfg.spline.n_poly)
     needs_vel = e_cfg.mode.startswith("jvp")

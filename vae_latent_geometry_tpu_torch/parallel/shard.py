@@ -80,8 +80,7 @@ def sharded_optimize_splines(
             cfg, energy=dataclasses.replace(cfg.energy, ep_axis="ep"))
         m_loc = m_dec // ep
         lo = mesh.index("ep") * m_loc
-        decoders = {"layers": [{k: v[lo:lo + m_loc] for k, v in l.items()}
-                               for l in decoders["layers"]]}
+        decoders = tree_map(lambda v: v[lo:lo + m_loc], decoders)
     gen = torch.Generator().manual_seed(
         fold_seed(root_seed(generator), i_dp))
     res = optimize_splines(decoders, omega0, a, b, basis, cfg,

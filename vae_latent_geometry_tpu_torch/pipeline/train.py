@@ -45,7 +45,11 @@ from warnings import warn
 import numpy as np
 import torch
 
-from vae_latent_geometry_tpu_torch.config import ModelConfig, TrainConfig
+from vae_latent_geometry_tpu_torch.config import (
+    ModelConfig,
+    TrainConfig,
+    to_dict,
+)
 from vae_latent_geometry_tpu_torch.data.tasic import train_val_split
 from vae_latent_geometry_tpu_torch.device import resolve_device
 from vae_latent_geometry_tpu_torch.io.checkpoint import (
@@ -196,8 +200,8 @@ def _cfg_stamp(cfg: TrainConfig, model_cfg: ModelConfig,
         stamped["seed"] = None
     return {
         "cfg": json.dumps(stamped, sort_keys=True, default=str),
-        "model_cfg": json.dumps(dataclasses.asdict(model_cfg),
-                                sort_keys=True, default=str),
+        "model_cfg": json.dumps(to_dict(model_cfg), sort_keys=True,
+                                default=str),
         **extra,
     }
 
