@@ -10,7 +10,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
              the tensor-core instructions (HMMA) in K1's, K2's, K3/K4's,
              K5-K8's and K9/K10's SASS: present in the production shape's
              mma kernels at the reduced rungs, absent at float32 and in the
-             generic decode's kernels; none, no stack and no spill in the
+             generic decode's kernels; no stack and no spill in the
+             one-pass kernels (``k2_onepass_mma``, ``k10_mma``,
+             ``mc_chain_onepass``, whose registers the line reports);
+             none, no stack and no spill in the
              float32 forward kernels on decode_f32.cuh (``k1_fwd_fma``,
              ``mc_fwd_fma``); no stack and no spill in the reduced-rung
              forward kernels on tiles_mma.cuh (``k1_tiles_mma``,
@@ -32,7 +35,10 @@ Phases, each printing one JSON line; any failure exits nonzero:
              curves padded to B=200, T=2000, S=2 MC samples): each kernel
              against its plain PyTorch version on the same inputs, every
              precision rung, M=10 and M=1, and once with mixed per-spline
-             decoder counts, and K5-K8 at S=12 (every rung); a
+             decoder counts, and K5-K8 at S=12 (every rung); K6/K8 on the
+             route ``energy_mc_fused.k8_route`` names, counted in
+             ``K8_ROUTES`` (the one-decode route at S=2, the two-pass pair
+             at S=12, above the cap); a
              second call of K1, K2 and K5-K8 bitwise equal to the first;
              CUDA-event times of kernel and plain version, K1 and K5/K7 at
              every rung (early stop's every step at the reduced rungs).
@@ -63,7 +69,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
              drawn decoder indices.
 6. mc_main — ``optimize_spline_batch`` at ``mc_fused`` (f32x2, draws made
              in the kernels, 1000 steps, final energies by
-             ``expected_fused``): launch counts, steps/s, lengths against
+             ``expected_fused``): launch counts, K8's routes (the one-decode
+             route at every step), steps/s, lengths against
              phase ``main``; mc_repeat — 200 steps twice with one seed and
              the final energies by the MC kernel itself: bit-identical
              curves.
@@ -1461,14 +1468,14 @@ def profile_phase(ef, mc, params, art, cfg, dev, ws, bs, gamma, wmb, ct):
             "k2_onepass_mma_ms": of(k2, "k2_onepass_mma"),
             "k2_prep_planes_ms": of(k2, "k2_prep_planes"),
             "mc_bwd_ms_by_launch": k6, "mc_rng_bwd_ms_by_launch": k8,
-            "mc_select_mma_ms": of(k8, "mc_select_mma"),
-            "mc_chain_mma_ms": of(k8, "mc_chain_mma"),
+            "mc_select_planes_ms": of(k8, "mc_select_planes"),
+            "mc_chain_onepass_ms": of(k8, "mc_chain_onepass"),
             **main,
             "k2_share_of_span": of(by, "k2_") / 1e3
             / main["device_span_ms"],
             **mc_main,
-            "mc_main_k8_share_of_span": (of(mc_by, "mc_select_mma")
-                                         + of(mc_by, "mc_chain_mma")) / 1e3
+            "mc_main_k8_share_of_span": (of(mc_by, "mc_select")
+                                         + of(mc_by, "mc_chain")) / 1e3
             / mc_main["mc_main_device_span_ms"],
             **ep})
         # each step launches the tensor-core K3 and K4 once (f32x2); the
@@ -3418,6 +3425,10 @@ def main() -> int:
               "energy_transposed"], k) for k in T_MMA},
           "k2_onepass_ptxas": ptxas_of(_build.BUILD_LOG["energy_expected"],
                                        "k2_onepass_mma"),
+          "mc_onepass_ptxas": {
+              f"mc_chain_onepass<{r}>": ptxas_of(_build.BUILD_LOG["energy_mc"],
+                                                 "mc_chain_onepass", r)
+              for r in (1, 2, 3)},
           "softmax_sass_hmma": sm_hmma,
           "softmax_ptxas": {
               f"{k}<{r}>": ptxas_of(_build.BUILD_LOG["energy_softmax"], k, r)
@@ -3430,7 +3441,8 @@ def main() -> int:
                ("k2_xbar_any", "k2_chain_any"))
     check_hmma(k1_hmma, ("k1_tiles_mma",), ("k1_fwd_fma",),
                ("k1_energy_tiles_any",))
-    check_hmma(mc_hmma, ("mc_select_mma", "mc_chain_mma", "mc_tiles_mma"),
+    check_hmma(mc_hmma, ("mc_chain_onepass", "mc_select_mma", "mc_chain_mma",
+                         "mc_tiles_mma"),
                ("mc_chain", "mc_segments", "mc_fwd_fma"),
                ("mc_segments_any", "mc_chain_any"))
     check_hmma(stats_hmma, ("k3_stats_mma", "k4_stats_chain_mma"),
@@ -3440,11 +3452,13 @@ def main() -> int:
     # kernel (K9) and k10_dgamma<0> at float32, the generic decode's none
     check_hmma(t_hmma, T_MMA, ("k1_fwd_fma", "k10_dgamma"),
                ("k9_energy_spans_any", "k10_dgamma_any"))
-    for src, k in (*(("energy_transposed", k) for k in T_MMA),
-                   ("energy_expected", "k2_onepass_mma")):
-        r = ptxas_of(_build.BUILD_LOG[src], k)
+    for src, k, rung in (*(("energy_transposed", k, None) for k in T_MMA),
+                         ("energy_expected", "k2_onepass_mma", None),
+                         *(("energy_mc", "mc_chain_onepass", r)
+                           for r in (1, 2, 3))):
+        r = ptxas_of(_build.BUILD_LOG[src], k, rung)
         if r.get("spill_bytes") != 0 or r.get("stack_bytes") != 0:
-            fail(f"ptxas of {k}: {r}")
+            fail(f"ptxas of {k}<{rung}>: {r}")
     # the float32 forward energies (K1, K5/K7) on decode_f32.cuh: FMAs only,
     # no stack, no spill; their reduced-rung kernels on tiles_mma.cuh: no
     # stack, no spill
@@ -3511,6 +3525,7 @@ def main() -> int:
         versions on those planes; a second K6 and K8 call bitwise equal to
         the first."""
         d1, d2, kmax, p1, p2 = mc_inputs(M, num_active, S)
+        ef.reset_launch_counts()
         e5 = mc.energy_mc_fwd(ws, bs, gamma, d1, d2, prec)
         e5_p = mc.energy_mc_fwd_plain(ws, bs, gamma, d1, d2, prec)
         g6 = mc.energy_mc_bwd(ws, bs, gamma, d1, d2, mc_ct, prec)
@@ -3521,8 +3536,12 @@ def main() -> int:
         e7_p = mc.energy_mc_fwd_plain(ws, bs, gamma, p1, p2, prec)
         g8_p = mc.energy_mc_bwd_plain(ws, bs, gamma, p1, p2, mc_ct, prec)
         torch.cuda.synchronize()
+        # K6 and K8 each launched once, on the route of this rung and S
+        route = mc.k8_route(prec, [D, H, H, X], S)
+        if mc.K8_ROUTES != {**dict.fromkeys(mc.K8_ROUTES, 0), route: 2}:
+            fail(f"K6/K8 routes at {prec}, S={S}: {mc.K8_ROUTES}")
         return {
-            "mc_samples": S,
+            "mc_samples": S, "k8_route": route,
             "k5_repeat_bitwise": bool(torch.equal(e5, mc.energy_mc_fwd(
                 ws, bs, gamma, d1, d2, prec))),
             "k7_repeat_bitwise": bool(torch.equal(e7, mc.energy_mc_fwd_rng(
@@ -3832,11 +3851,13 @@ def main() -> int:
                                     mc_samples=MC_SAMPLES,
                                     mc_inkernel_rng=True)
     mc_out, mc_s, mc_launches = mc_run(mc_energy, STEPS, "expected_fused")
+    mc_routes = dict(mc.K8_ROUTES)
     mc_len = np.asarray(mc_out.geodesic_length, np.float64)
     rel_mc = np.abs(mc_len / lengths - 1)
     mc_rec = {"phase": "mc_main", "mode": "mc_fused", "precision": "f32x2",
               "mc_inkernel_rng": True, "steps": STEPS, "optimize_s": mc_s,
               "steps_per_s": STEPS / mc_s, "launches": mc_launches,
+              "k8_routes": mc_routes,
               "lengths_finite": bool(np.isfinite(mc_len).all()),
               "vs_main_len_rel_median": float(np.median(rel_mc)),
               "vs_main_len_rel_p99": float(np.quantile(rel_mc, 0.99)),
@@ -4061,8 +4082,11 @@ def main() -> int:
         """K6's or K8's design, its times at the other rungs and at
         MC_SAMPLES_WIDE samples, and its pass split (phase profile)."""
         wide = f"S{MC_SAMPLES_WIDE}"
-        return {"design": "mma.sync bf16 (reduced rungs): mc_select_mma "
-                          "(endpoint planes) + mc_chain_mma; FMA at float32",
+        return {"design": "mma.sync bf16 (reduced rungs): mc_select_planes "
+                          "+ mc_chain_onepass (one decode, S <= "
+                          f"{mc.mc_onepass_cap(X)}), above it "
+                          "mc_select_mma (endpoint planes) + mc_chain_mma; "
+                          "FMA at float32",
                 "ms_f32x3": errors[(M, "f32x3")][key + "_ms"],
                 "ms_bfloat16": errors[(M, "bfloat16")][key + "_ms"],
                 "ms_float32": times["float32"][key + "_ms"],
@@ -4329,6 +4353,10 @@ def main() -> int:
             if count != expected.get(name, 0):
                 fail(f"{phase}: {name} launched {count} times, expected "
                      f"{expected.get(name, 0)}")
+    # every K8 launch of the MC main path decodes once (f32x2, S = 2)
+    if mc_routes != {**dict.fromkeys(mc_routes, 0),
+                     "one_decode": mc_launches["energy_mc_bwd_rng"]}:
+        fail(f"mc_main: K8 routes {mc_routes}")
     if not (mc_rec["lengths_finite"] and ext_rec["lengths_finite"]
             and np.isfinite(rep_len).all() and rep_rec["moved_from_init"]
             and scan_rec["lengths_finite"] and scan_rec["moved_from_init"]

@@ -194,7 +194,7 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
                             "k1_fwd_f32.cuh", "tiles_mma.cuh",
                             "onepass_mma.cuh"},
         "energy_mc": {"decode_mma.cuh", "decode_common.cuh", "decode_f32.cuh",
-                      "decode_any.cuh", "tiles_mma.cuh"},
+                      "decode_any.cuh", "tiles_mma.cuh", "onepass_mma.cuh"},
         "energy_stats": {"decode_mma.cuh", "decode_common.cuh",
                          "decode_any.cuh"},
         "energy_softmax": {"decode_mma.cuh", "decode_common.cuh"},
@@ -656,10 +656,13 @@ def _assert_dgamma_close(d, d_p):
 @pytest.mark.parametrize("precision", ["f32x3", "f32x2", "bfloat16"])
 def test_mc_backward_on_tensor_cores_matches_plain_versions_on_gpu(
         precision, X, D, M, S):
-    """K6 and K8 at the reduced rungs (the tensor-core pair mc_select_mma +
-    mc_chain_mma of ``csrc/energy_mc.cu``) against their plain versions:
-    the committed model (X, D, M = 50, 2, 10) and random decoders at the
-    widths the production kernels take, T*B = 67*13 (a ragged last tile),
+    """K6 and K8 at the reduced rungs (on the tensor cores, ``csrc/
+    energy_mc.cu``: the one-decode route mc_select_planes +
+    mc_chain_onepass up to ``mc_onepass_cap`` samples, 3 at X = 50 and 64,
+    the two-pass pair mc_select_mma + mc_chain_mma above) against their
+    plain versions: the committed model (X, D, M = 50, 2, 10) and random
+    decoders at the widths the production kernels take, T*B = 67*13 (a
+    ragged last tile),
     mixed per-spline decoder counts, S up to two sweeps of draws; every
     call repeated bitwise, K8 = K6 on the planes of ``philox_draws``."""
     if not torch.cuda.is_available():

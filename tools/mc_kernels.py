@@ -8,16 +8,19 @@
 ``--times``: device time by kernel (torch.profiler) of K6 (index planes)
 and K8 (in-kernel draws) on the production chunk (the committed model, the
 seed-42 init curves padded to B=200, T=2000) at every rung and S in
-``--samples``: each launch's share of a call (``mc_segments`` against
-``mc_chain``, or the tensor-core pair).
+``--samples``: each launch's ms and share of a call (``mc_segments``
+against ``mc_chain`` at float32; at the reduced rungs ``mc_select_planes``
+against ``mc_chain_onepass`` up to the one-decode route's cap, the
+two-pass ``mc_select_mma`` against ``mc_chain_mma`` above it), and the
+route the call took.
 
 ``--hashes``: SHA-256 of the outputs of K5-K8 on seeded inputs, written to
-FILE: on the production chunk K5/K7 at every rung and K6/K8 at float32
-(the kernels that keep their CUDA-core code), and every rung of K5-K8 on
-the generic decode (decoder S2 of ``chip_smoke.SHAPES``, T=400, B=100), at
-S = 1, 2, 3 and 8.  ``--compare`` prints which entries of two such files
-differ: run ``--hashes`` on a parent checkout and on this one, each in a
-process of its own, on one card.
+FILE: on the production chunk K5-K8 at every rung, and every rung of K5-K8
+on the generic decode (decoder S2 of ``chip_smoke.SHAPES``, T=400, B=100),
+at S = 1, 2, 3 and 8 (K6/K8 at the reduced rungs: the one-decode route up
+to 3, the two-pass kernels at 8).  ``--compare`` prints which entries of
+two such files differ: run ``--hashes`` on a parent checkout and on this
+one, each in a process of its own, on one card.
 
 Loads ``<checkout>/chip_smoke.py`` and that checkout's package; needs one
 CUDA GPU.
@@ -103,9 +106,15 @@ def times(smoke, dev, samples):
                         key = e.name.replace("(anonymous namespace)::", "")
                         key = key.replace("void ", "").split("(")[0][:60]
                         by[key] = by.get(key, 0.0) + e.time_range.elapsed_us()
+                total = sum(by.values())
+                widths = [ws[0].shape[1]] + [w.shape[-1] for w in ws]
                 rec = {"kernel": name, "S": S, "precision": prec,
+                       "route": (mc.k8_route(prec, widths, S)
+                                 if hasattr(mc, "k8_route") else None),
                        "ms_by_launch": {k: v / 3e3 for k, v in by.items()},
-                       "ms_per_call": sum(by.values()) / 3e3}
+                       "share_by_launch": {k: v / total
+                                           for k, v in by.items()},
+                       "ms_per_call": total / 3e3}
                 print(json.dumps(rec), flush=True)
                 out.append(rec)
     return out
@@ -129,9 +138,8 @@ def hashes(smoke, dev):
     layers = smoke.shape_layers("S2")
     ws_any = [torch.as_tensor(w, device=dev) for w, _ in layers]
     bs_any = [torch.as_tensor(b, device=dev) for _, b in layers]
-    for tag, (w, b, g, bwd_rungs) in {
-            "production": (ws, bs, gamma, ("float32",)),
-            "S2": (ws_any, bs_any, g_any, RUNGS)}.items():
+    for tag, (w, b, g) in {"production": (ws, bs, gamma),
+                           "S2": (ws_any, bs_any, g_any)}.items():
         T, B = g.shape[:2]
         M = w[0].shape[0]
         ct = torch.linspace(0.5, 2.0, B, device=dev)
@@ -148,11 +156,10 @@ def hashes(smoke, dev):
                                                            prec))
                 out[key + "/K7"] = digest(mc.energy_mc_fwd_rng(
                     w, b, g, seed, kmax, S, prec))
-                if prec in bwd_rungs:
-                    out[key + "/K6"] = digest(mc.energy_mc_bwd(
-                        w, b, g, d1, d2, ct, prec))
-                    out[key + "/K8"] = digest(mc.energy_mc_bwd_rng(
-                        w, b, g, seed, kmax, S, ct, prec))
+                out[key + "/K6"] = digest(mc.energy_mc_bwd(w, b, g, d1, d2, ct,
+                                                          prec))
+                out[key + "/K8"] = digest(mc.energy_mc_bwd_rng(
+                    w, b, g, seed, kmax, S, ct, prec))
     return out
 
 

@@ -56,9 +56,12 @@ SIGNATURES = {
         "vlg_f32_scratch_words": [_I, _I, _I, _P],
         "vlg_mc_fwd": [_I, _P, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U, _U, _I,
                        _P, _P, _P, _I, _P],
-        "vlg_mc_bwd": [_I, _P, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U, _U, _I,
-                       _P, _P, _P, _P, _I, _P],
+        "vlg_mc_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, *_DEC, _P, _P, _P, _U,
+                       _U, _I, _P, _P, _P, _P, _I, _P],
         "vlg_mc_bwd_planes": [_I, _I, _I, _I, _P],
+        "vlg_mc_onepass_cap": [_I],
+        "vlg_mc_block_words": [_I, _I],
+        "vlg_mc_plane_words": [_I],
     },
     "energy_transposed": {
         "vlg_t_scratch_words": [_I, _I, _I],

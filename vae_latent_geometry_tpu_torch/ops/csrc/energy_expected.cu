@@ -360,8 +360,8 @@ k2_onepass_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int 
                float4* __restrict__ xs_scr, uint4* __restrict__ mk_scr,
                const __nv_bfloat16* __restrict__ planes, float* __restrict__ dgamma) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  onepass_body<R>(*reinterpret_cast<OnePassSmem*>(smem_raw), gamma, T, B, D, M, X, span,
-                  n_items, w, W1c, wmb, ct, xs_scr, mk_scr, planes, dgamma);
+  onepass_body<R>(*reinterpret_cast<OnePassSmem*>(smem_raw), ExpectedCot{wmb}, gamma, T, B, D,
+                  M, X, span, n_items, w, W1c, ct, xs_scr, mk_scr, planes, dgamma);
 }
 
 // The warp product of decode_mma.cuh alone, for its test: out (n, 128) =

@@ -6,9 +6,10 @@
 //   K5  _fwd_kernel      (:473)  -> mc_fwd_fma (float32) or mc_tiles_mma
 //       (f32x3, f32x2, bfloat16; K1's tiles, tiles_mma.cuh), + mc_sum_tiles,
 //       planes given
-//   K6  _bwd_kernel      (:548)  -> mc_select_mma + mc_chain_mma (f32x3,
-//       f32x2, bfloat16), mc_segments (writing differences) + mc_chain
-//       (float32)
+//   K6  _bwd_kernel      (:548)  -> mc_select_planes + mc_chain_onepass
+//       (f32x3, f32x2, bfloat16, S <= mc_onepass_cap; onepass_mma.cuh) or
+//       mc_select_mma + mc_chain_mma (above the cap), mc_segments (writing
+//       differences) + mc_chain (float32)
 //   K7  _fwd_kernel_rng  (:166)  -> K5 with the draws made in the kernel
 //   K8  _bwd_kernel_rng  (:235)  -> K6 with the draws made in the kernel
 //
@@ -42,11 +43,11 @@
 //
 // Work (counted from the code, per point per decoder): the float32 decode is
 // 46 kFLOP at D=2, X=50 (energy_expected.cu), i.e. 1.8e11 FLOP per K5 call at
-// T=2000, B=200, M=10.  K6 at f32x2 is two two-pass decodes plus a
-// single-pass chain.  The index planes (6.4 MB at S=2) and K6's planes of
-// endpoints or differences (320 or 160 MB at S=2, written and read once)
-// are small beside that: all four kernels are bound by operations, not
-// bytes, on this card.
+// T=2000, B=200, M=10.  K6 at f32x2 is one two-pass decode (two above the
+// one-decode route's cap) plus a single-pass chain.  The index planes (6.4
+// MB at S=2) and the two-pass routes' planes of endpoints or differences
+// (320 or 160 MB at S=2, written and read once) are small beside that: all
+// four kernels are bound by operations, not bytes, on this card.
 //
 // Design for Hopper.  The TPU kernels stream T in chunks inside one program
 // with a one-row carry; here blocks run in no order.  mc_segments (the
@@ -65,19 +66,21 @@
 // the tensor cores instead (below): K1's tiles of 32 rows x 4 splines,
 // every drawn decoder decoded once a sweep of samples, the differences in
 // shared memory.
-// The backward is two launches, as K2.  At float32: mc_segments writes the S
+// The backward is two launches.  At float32: mc_segments writes the S
 // difference planes (S, T-1, B, X), then mc_chain re-decodes each decoder
 // per tile of 128 points, gathers dx from the planes and runs the masked
-// chain.  At the reduced rungs both passes run on the tensor cores
-// (mma.sync m16n8k16 bf16, decode_mma.cuh) over flat tiles of 128 points of
-// the (T*B) curve, a warp's 16 points in the C-fragment layout:
+// chain.  At the reduced rungs, up to mc_onepass_cap samples (3 at X = 50),
+// K2's one-pass body decodes each (point, decoder) once (mc_chain_onepass
+// after mc_select_planes, below).  Above the cap both passes run on the
+// tensor cores (mma.sync m16n8k16 bf16, decode_mma.cuh) over flat tiles of
+// 128 points of the (T*B) curve, a warp's 16 points in the C-fragment
+// layout:
 // mc_select_mma copies, where a draw names the decoder, the decoded point
 // into the endpoint planes L_s(t) = x_{d1[s,t]}(t) and R_s(t) =
 // x_{d2[s,t-1]}(t) (2S, T, B, X; no accumulators, no halo rows), and
 // mc_chain_mma forms dx in registers from diff_s(t) = R_s(t+1) - L_s(t),
 // the same single fp32 subtraction as mc_segments', in the same per-sample
-// order, then runs chain_mma.  Both decode twice where the TPU kernel
-// decodes once; the single decode with kept masks is later work.
+// order, then runs chain_mma.  Both decode, so this route decodes twice.
 //
 // At float32 the forward is mc_fwd_fma on decode_f32.cuh instead: selective
 // decode (only the (point, decoder) pairs that the draws name, 3.44 of 10 a
@@ -98,6 +101,7 @@
 #include "decode_common.cuh"
 #include "decode_f32.cuh"
 #include "decode_mma.cuh"
+#include "onepass_mma.cuh"
 #include "tiles_mma.cuh"
 
 namespace {
@@ -946,6 +950,164 @@ mc_chain_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X,
   store_dgamma<FixedDecode>(s, FixedDecode::Ctx{}, dgamma, N, D, p0);
 }
 
+// K6/K8 at a reduced rung, one decode: the one-pass body of onepass_mma.cuh
+// (K2's: tiles of 32 rows x 4 splines, 31 owned, persistent blocks over
+// pick_spans' items) with the MC cotangent in place of the expected one.
+// Round k stages each decoder once, runs the chain of tile k-1 and decodes
+// tile k into the block's scratch (outputs and masks of two tiles of every
+// decoder); no accumulator rides along the decode.  As round k starts, every
+// decoder's outputs of tile k-1 are in the scratch, and of tile k-2 too
+// (its buffer is overwritten by this round's decodes): begin_chain stages the
+// draws of tile k-1's segments, slot i for the segment from the point before
+// point i (row -1 is tile k-2's row 30) to point i, and forms the S
+// difference planes diff_s(slot i) = x_{d2}(point i) - x_{d1}(its left
+// neighbour), one fp32 subtraction of two kept outputs, as mc_chain_mma's
+// R_s(t+1) - L_s(t).  The chain of decoder m takes
+// dx = (2/S) ct_b sum_s (-[d1 names m] diff_s(slot after) + [d2 names m]
+// diff_s(slot before)) in mc_chain_mma's order (per sample: subtract, then
+// add; zero where a draw names another decoder).  The planes and the draws
+// (a dynamic tail of 4 TP (2 + SD) bytes a sample) sit where K2 keeps two
+// xbar tiles and the chain's outputs, so S is capped (mc_onepass_cap: 3 at X
+// = 50 and at X = 64); above the cap the two-pass pair runs.
+struct McOnePassSmem : MmaSmem {
+  uint4 mpre[NT];     // the chain's masks of tile k-1, each thread's own
+  float cct[TP];      // tile k-1's point: (2/S) ct_b, 0 if not owned
+  OnePassRound rd;
+};
+// dynamic tail: int idx[2][S][TP] (d1, then d2 of slot i; -1 where there is
+// no segment); float diff[S][TP][SD] (SD = mc_tiles_stride(X): the float2
+// rows of a half-warp's four rows in distinct banks)
+
+inline size_t mc_onepass_per_sample(int X) {
+  return 4 * (size_t)TP * (2 + mc_tiles_stride(X));
+}
+inline size_t mc_onepass_smem(int X, int S) {
+  return sizeof(McOnePassSmem) + (size_t)S * mc_onepass_per_sample(X);
+}
+inline int mc_onepass_cap(int X) {
+  return (int)((SMEM_MAX - sizeof(McOnePassSmem)) / mc_onepass_per_sample(X));
+}
+
+// The MC energy's cotangent: onepass_body's policy for K6/K8 (ExpectedCot's
+// counterpart in onepass_mma.cuh).
+struct McCot {
+  using Smem = McOnePassSmem;
+  Draws dr;
+  int S, SD;
+  int* idx;
+  float* diff;
+
+  __device__ void begin_tile(Smem&, int) const {}
+  __device__ void begin_chain(Smem& s, const float* __restrict__ ct, int k, int T, int B, int M,
+                              int X, const float4* __restrict__ xs_scr) const {
+    const int tid = threadIdx.x;
+    const int t1 = s.rd.t0 - TILE_KR;   // tile k-1's row 0
+    for (int e = tid; e < 2 * S * TP; e += NT) {
+      const int i = e % TP, q = e / TP, side = q / S, smp = q % S;
+      const int t = t1 - 1 + i / TILE_NS, b = s.rd.b0 + i % TILE_NS;
+      // row -1 is there only where tile k-2 is of the same span
+      const bool seg = t >= 0 && t < T - 1 && b < B && (i >= TILE_NS || k > 1);
+      idx[e] = seg ? draw(dr, S, T, B, side, smp, t, b) : -1;
+    }
+    if (tid < TP)
+      s.cct[tid] = onepass_owned(s.rd, tid, T, B)
+                       ? __fmul_rn(2.f / (float)S, ct[s.rd.b0 + tid % TILE_NS])
+                       : 0.f;
+    __syncthreads();
+    // x of point p, columns 8j + 2q + {0, 1}, in buffer buf: half (p >> 3) & 1
+    // of thread (p >> 4) * 32 + (p & 7) * 4 + q's float4 of n8 tile j
+    const int nj = (X + 7) / 8, prv = (k & 1) ^ 1;
+    const float2* xs =
+        reinterpret_cast<const float2*>(xs_scr + (size_t)blockIdx.x * 2 * M * nj * NT);
+    const auto at = [&](int buf, int d, int j, int p, int q) {
+      return 2 * ((((size_t)buf * M + d) * nj + j) * NT + (p >> 4) * 32 + (p & 7) * 4 + q) +
+             ((p >> 3) & 1);
+    };
+    const int n = S * nj * TP * 4;
+#pragma unroll 4
+    for (int e = tid; e < n; e += NT) {
+      const int q = e & 3, i = (e >> 2) % TP, js = (e >> 2) / TP, j = js % nj, smp = js / nj;
+      const int d1 = idx[smp * TP + i], d2 = idx[(S + smp) * TP + i];
+      // an index outside [0, M) selects no decoder: its endpoint is 0
+      const float2 r = (unsigned)d2 < (unsigned)M ? __ldcg(xs + at(prv, d2, j, i, q))
+                                                  : make_float2(0.f, 0.f);
+      // the left end: point i - 4 of tile k-1, or row 30 of tile k-2
+      const size_t li = i >= TILE_NS ? at(prv, d1, j, i - TILE_NS, q)
+                                     : at(k & 1, d1, j, (TILE_KR - 1) * TILE_NS + i, q);
+      const float2 l = (unsigned)d1 < (unsigned)M ? __ldcg(xs + li) : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(diff + ((size_t)smp * TP + i) * SD + 8 * j + 2 * q) =
+          make_float2(__fsub_rn(r.x, l.x), __fsub_rn(r.y, l.y));
+    }
+  }
+  __device__ void fetch(Smem&, int, int, int, const float4* __restrict__, int) const {}
+  // dx of decoder m on the lane's rows of tile k-1, packed into A fragments
+  __device__ void cotangent(const Smem& s, int m, int, int X, int nj,
+                            uint32_t (&a)[NK3][4]) const {
+    const int tid = threadIdx.x, lane = tid & 31, q = lane & 3;
+    const int p0 = (tid >> 5) * 16 + (lane >> 2);
+    float dx[NJ3][4];
+#pragma unroll
+    for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dx[j][c] = 0.f;
+    for (int smp = 0; smp < S; ++smp) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pp = p0 + 8 * r;
+        // d1 of the segment after point pp (slot pp + 4), d2 of the one before (slot pp)
+        const bool after = pp + TILE_NS < TP && idx[smp * TP + pp + TILE_NS] == m;
+        const bool before = idx[(S + smp) * TP + pp] == m;
+        const float* da = diff + ((size_t)smp * TP + pp + TILE_NS) * SD + 2 * q;
+        const float* db = diff + ((size_t)smp * TP + pp) * SD + 2 * q;
+#pragma unroll
+        for (int j = 0; j < NJ3; ++j) {
+          if (j >= nj) continue;
+          const float2 cu = after ? *reinterpret_cast<const float2*>(da + 8 * j)
+                                  : make_float2(0.f, 0.f);
+          const float2 pv = before ? *reinterpret_cast<const float2*>(db + 8 * j)
+                                   : make_float2(0.f, 0.f);
+          dx[j][2 * r] = __fadd_rn(__fsub_rn(dx[j][2 * r], cu.x), pv.x);
+          dx[j][2 * r + 1] = __fadd_rn(__fsub_rn(dx[j][2 * r + 1], cu.y), pv.y);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ3; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        dx[j][c] = 8 * j + 2 * q + (c & 1) < X ? __fmul_rn(dx[j][c], s.cct[p0 + 8 * (c >> 1)])
+                                               : 0.f;
+    to_a<false>(dx, a);
+  }
+  __device__ void keep(Smem&, int, int, const float (&x)[NJ3][4], int nj,
+                       float4* __restrict__ xm) const {
+#pragma unroll
+    for (int j = 0; j < NJ3; ++j)
+      if (j < nj) xm[(size_t)j * NT] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+  }
+  __device__ void end_round(Smem&, int) const {}
+};
+
+// The bf16 weight planes of the one-decode route (K8's time: the name reads
+// as mc_select's), then the body.
+__global__ void mc_select_planes(const float* __restrict__ W2, const float* __restrict__ W3,
+                                 int M, int X, __nv_bfloat16* __restrict__ planes) {
+  prep_planes(W2, W3, M, X, planes);
+}
+
+template <int R>
+__global__ void __launch_bounds__(NT, 1)
+mc_chain_onepass(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int S,
+                 int span, int n_items, Weights w, Draws dr, const float* __restrict__ ct,
+                 float4* __restrict__ xs_scr, uint4* __restrict__ mk_scr,
+                 const __nv_bfloat16* __restrict__ planes, float* __restrict__ dgamma) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* idx = reinterpret_cast<int*>(smem_raw + sizeof(McOnePassSmem));
+  const McCot cot{dr, S, mc_tiles_stride(X), idx, reinterpret_cast<float*>(idx + 2 * S * TP)};
+  onepass_body<R>(*reinterpret_cast<McOnePassSmem*>(smem_raw), cot, gamma, T, B, D, M, X, span,
+                  n_items, w, w.W1, ct, xs_scr, mk_scr, planes, dgamma);
+}
+
 int fwd_tiles(int T) { return T > 1 ? (T - 1 + MC_TILE_SEGS - 1) / MC_TILE_SEGS : 1; }
 
 template <int R>
@@ -998,6 +1160,32 @@ cudaError_t launch_bwd_mma(const float* gamma, int T, int B, int D, int M, int X
   if (err != cudaSuccess) return err;
   mc_chain_mma<R><<<n_blocks, NT, sizeof(McMmaSmem), st>>>(gamma, T, B, D, M, X, S, w, dr, ct,
                                                            ends, dgamma);
+  return cudaGetLastError();
+}
+
+// The one-decode route over `scratch`: each block's outputs
+// (onepass_xs_words), then each block's masks (onepass_mk_words), then the
+// planes (onepass_plane_words); S at most mc_onepass_cap(X).
+template <int R>
+cudaError_t launch_bwd_onepass(const float* gamma, int T, int B, int D, int M, int X, int S,
+                               int span, int G, int n_blocks, Weights w, Draws dr,
+                               const float* ct, void* scratch, float* dgamma, cudaStream_t st) {
+  if (scratch == nullptr || span < 1 || G < 1 || n_blocks < 1 || S < 1 ||
+      S > mc_onepass_cap(X))
+    return cudaErrorInvalidValue;
+  const size_t smem = mc_onepass_smem(X, S);
+  cudaError_t err = cudaFuncSetAttribute(mc_chain_onepass<R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  uint32_t* words = static_cast<uint32_t*>(scratch);
+  float4* xs = reinterpret_cast<float4*>(words);
+  uint4* mk = reinterpret_cast<uint4*>(words + n_blocks * onepass_xs_words(M, X));
+  __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(
+      words + n_blocks * (onepass_xs_words(M, X) + onepass_mk_words(M)));
+  if (err == cudaSuccess) err = launch_prep(mc_select_planes, w, M, X, n_blocks, planes, st);
+  if (err != cudaSuccess) return err;
+  mc_chain_onepass<R><<<n_blocks, NT, smem, st>>>(gamma, T, B, D, M, X, S, span,
+                                                  G * ((B + TILE_NS - 1) / TILE_NS), w, dr, ct,
+                                                  xs, mk, planes, dgamma);
   return cudaGetLastError();
 }
 
@@ -1098,18 +1286,36 @@ int vlg_mc_fwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
   });
 }
 
-// (B, X) planes of the backward's scratch (`diffs` of vlg_mc_bwd): the
-// difference planes (S, T-1, B, X) of the FMA kernels, or the endpoint
-// planes (2S, T, B, X) of the tensor-core pair (the production shape at a
-// reduced rung); -1 for a decoder the kernels do not take.
+// (B, X) planes of the backward's scratch (`diffs` of vlg_mc_bwd) on the
+// two-pass routes: the difference planes (S, T-1, B, X) of the FMA kernels,
+// or the endpoint planes (2S, T, B, X) of the tensor-core pair (the
+// production shape at a reduced rung); -1 for a decoder the kernels do not
+// take.
 int vlg_mc_bwd_planes(int rung, int T, int S, int L, const int* widths) {
   Decoder d;
   if (!make_decoder(L, widths, nullptr, nullptr, d)) return -1;
   return rung != F32 && fixed_shape(d) ? 2 * S * T : S * (T - 1);
 }
 
-int vlg_mc_bwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
-               const int* widths, const float* const* Ws, const float* const* bs,
+// The most samples the one-decode route takes at output width X.
+int vlg_mc_onepass_cap(int X) { return mc_onepass_cap(X); }
+
+// 32-bit words of the one-decode route's scratch: per block (outputs and
+// masks of two tiles of M decoders), and of the M decoders' weight planes.
+int vlg_mc_block_words(int M, int X) {
+  return (int)(onepass_xs_words(M, X) + onepass_mk_words(M));
+}
+
+int vlg_mc_plane_words(int M) { return (int)onepass_plane_words(M); }
+
+// span > 0: the one-decode route (a reduced rung on the production shape, S
+// <= vlg_mc_onepass_cap(X)), whose `scratch` holds n_blocks x
+// vlg_mc_block_words + vlg_mc_plane_words words and whose blocks take the G
+// spans of `span` rows per group of four splines; `diffs` is unused there.
+// span = 0: the two-pass kernels over the planes `diffs`
+// (vlg_mc_bwd_planes), `scratch` the generic kernels' (vlg_mc_fwd's).
+int vlg_mc_bwd(int rung, const float* gamma, int T, int B, int M, int S, int span, int G,
+               int L, const int* widths, const float* const* Ws, const float* const* bs,
                const int* d1, const int* d2, const float* kmax, unsigned key0, unsigned key1,
                int b_base, const float* ct, float* diffs, float* dgamma, void* scratch,
                int n_blocks, void* stream) {
@@ -1119,6 +1325,7 @@ int vlg_mc_bwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int D = d.D, X = d.X;
   AnyArgs a{};
+  if (span > 0 && (rung == F32 || !fixed_shape(d))) return cudaErrorInvalidValue;
   if (!fixed_shape(d)) {
     const cudaError_t err = any_args(d, scratch, 1, st, a);
     if (err != cudaSuccess) return err;
@@ -1129,7 +1336,10 @@ int vlg_mc_bwd(int rung, const float* gamma, int T, int B, int M, int S, int L,
       return launch_bwd_any<R>(gamma, T, B, M, S, a, n_blocks, dr, ct, diffs, dgamma, st);
     if constexpr (R == F32)  // CUDA-core FMAs (TF32 is barred)
       return launch_bwd<R>(gamma, T, B, D, M, X, S, fixed_weights(d), dr, ct, diffs, dgamma, st);
-    else  // tensor cores
+    else if (span > 0)  // tensor cores, one decode
+      return launch_bwd_onepass<R>(gamma, T, B, D, M, X, S, span, G, n_blocks, fixed_weights(d),
+                                   dr, ct, scratch, dgamma, st);
+    else  // tensor cores, two passes
       return launch_bwd_mma<R>(gamma, T, B, D, M, X, S, fixed_weights(d), dr, ct, diffs, dgamma,
                                st);
   });

@@ -702,8 +702,8 @@ k10_mma(const float* __restrict__ gamma, int T, int B, int D, int M, int X, int 
         const float* __restrict__ ct, float4* __restrict__ xs_scr, uint4* __restrict__ mk_scr,
         const __nv_bfloat16* __restrict__ planes, float* __restrict__ dgamma) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  onepass_body<R>(*reinterpret_cast<OnePassSmem*>(smem_raw), gamma, T, B, D, M, X, span,
-                  n_items, w, W1f, wmb, ct, xs_scr, mk_scr, planes, dgamma);
+  onepass_body<R>(*reinterpret_cast<OnePassSmem*>(smem_raw), ExpectedCot{wmb}, gamma, T, B, D,
+                  M, X, span, n_items, w, W1f, ct, xs_scr, mk_scr, planes, dgamma);
 }
 
 // Rows of K9's partial-energy buffer: K1's float32 tiles of 127 segments,

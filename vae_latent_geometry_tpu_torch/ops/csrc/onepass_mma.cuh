@@ -1,16 +1,18 @@
-// The expected energy's gradient in one pass on the tensor cores, for sm_90a
+// A gradient of the curve energy in one pass on the tensor cores, for sm_90a
 // (H100): one body for K2's reduced rungs (energy_expected.cu:
-// k2_onepass_mma) and K10's (energy_transposed.cu: k10_mma), the same
-// function with other parameters.
+// k2_onepass_mma), K10's (energy_transposed.cu: k10_mma) and K6/K8's
+// (energy_mc.cu: mc_chain_onepass), the same function over a compile-time
+// cotangent policy: ExpectedCot below (the expected energy, any weight
+// plane) or McCot (the sampled energy's draws, energy_mc.cu).
 //
-// Function.  dgamma (T, B, D) of sum_b ct_b E_b for the per-spline weight
-// plane wmb (M, B) (K10 passes its uniform one):
+// Function (ExpectedCot).  dgamma (T, B, D) of sum_b ct_b E_b for the
+// per-spline weight plane wmb (M, B) (K10 passes its uniform one):
 //   dx_m = 2 wmb[m, b] ct_b (c_t x_m - xbar_{t-1}[t>0] - xbar_{t+1}[t<T-1]),
 //   xbar = sum_m wmb[m, b] x_m (uncentred), c_t = [t>0] + [t<T-1],
 // back through the ReLU masks of the same decode (decode_mma.cuh: the decode
 // at the rung, the chain single-pass bf16).  The dgamma product takes W1c:
-// the W1 the decode uses (K2) or float32 W1 where that differs, at the
-// bfloat16 rung (K10), swapped into the staged decoder around the chain.
+// the W1 the decode uses (K2, K6/K8) or float32 W1 where that differs, at
+// the bfloat16 rung (K10), swapped into the staged decoder around the chain.
 //
 // Design.  The decode and chain of decode_mma.cuh (a warp owns 16 points x
 // 128 units, activations and ReLU masks in registers, mma.sync m16n8k16
@@ -33,6 +35,14 @@
 // wmb[m, b0..b0+3] rides in a two-row table in shared memory, the row of
 // decoder m written as its round starts (any M).  Repeated calls are bitwise
 // equal: no float atomics, every sum in a fixed order.
+//
+// A policy P gives P::Smem (MmaSmem with at least mpre and rd) and the
+// body's hooks: begin_tile (tile k about to decode), begin_chain (tile k-1's
+// per-point state as round k starts, every decoder's outputs of tile k-1
+// and k-2 in the scratch), fetch (decoder m's inputs by cp.async besides its
+// masks), cotangent (the chain's A fragments), keep (decoder m's outputs
+// of tile k to the scratch, and what else the policy keeps of them) and
+// end_round.
 
 #pragma once
 
@@ -135,12 +145,116 @@ inline size_t onepass_xs_words(int M, int X) { return (size_t)2 * M * ((X + 7) /
 inline size_t onepass_mk_words(int M) { return (size_t)2 * M * NT * 4; }
 inline size_t onepass_plane_words(int M) { return (size_t)M * PLANE_ELEMS / 2; }
 
-template <int R>
-__device__ __forceinline__ void onepass_body(OnePassSmem& s, const float* __restrict__ gamma,
-                                             int T, int B, int D, int M, int X, int span,
-                                             int n_items, const Weights& w,
-                                             const float* __restrict__ W1c,
-                                             const float* __restrict__ wmb,
+// Whether point pp of tile k-1 (row pp / 4 from t0 - 31) is one the tile owns.
+__device__ __forceinline__ bool onepass_owned(const OnePassRound& rd, int pp, int T, int B) {
+  const int row = pp / TILE_NS, t = rd.t0 - TILE_KR + row, b = rd.b0 + pp % TILE_NS;
+  return row < TILE_KR && t >= rd.t_s && t < rd.t_e && t < T && b < B;
+}
+
+// The expected energy's cotangent, the body's policy for K2 and K10 (the
+// MC energy's is energy_mc.cu's McCot): the weight plane wmb (M, B), xbar
+// summed in shared memory in decoder order while tile k decodes, and the
+// chain's dx from the decoder's own outputs of tile k-1 and the xbar of its
+// neighbours.
+struct ExpectedCot {
+  using Smem = OnePassSmem;
+  const float* wmb;
+
+  // tile k is about to decode: its xbar starts at zero
+  __device__ void begin_tile(Smem& s, int cur) const {
+    for (int e = threadIdx.x; e < TP * OP_SXB; e += NT) s.xb[cur][e] = 0.f;
+  }
+  // tile k-1's points: cotangent, c_t, neighbours
+  __device__ void begin_chain(Smem& s, const float* __restrict__ ct, int, int T, int B, int,
+                              int, const float4*) const {
+    const int tid = threadIdx.x;
+    if (tid < TP) {
+      const int t = s.rd.t0 - TILE_KR + tid / TILE_NS, b = s.rd.b0 + tid % TILE_NS;
+      s.cct[tid] = onepass_owned(s.rd, tid, T, B) ? ct[b] : 0.f;
+      s.ccl[tid] = (float)((int)(t > 0) + (int)(t < T - 1));
+      s.cfl[tid] = (t > 0 ? 1 : 0) | (t < T - 1 ? 2 : 0);
+    }
+  }
+  // decoder m's inputs besides its masks, by cp.async: its weight of the
+  // tile's splines (so that no warp waits on the load before the staging's
+  // barrier; row m & 1 was last read two decoders or a round ago, barriers
+  // between) and, past the first round, its outputs of tile k-1
+  __device__ void fetch(Smem& s, int m, int k, int B, const float4* __restrict__ xm,
+                        int nj) const {
+    const int tid = threadIdx.x;
+    if (tid < TILE_NS)
+      cp_async4(&s.wq[m & 1][tid], wmb + (size_t)m * B + min(s.rd.b0 + tid, B - 1));
+    if (k > 0)
+      for (int j = 0; j < nj; ++j)
+        cp_async16(reinterpret_cast<float*>(&s.xpre[j * NT + tid]),
+                   reinterpret_cast<const float*>(xm + (size_t)j * NT));
+  }
+  // dx = 2 wm ct_b (c_t x - xbar_{t-1} - xbar_{t+1}) on the lane's rows that
+  // tile k-1 owns (both of the lane's spline p0 % 4), packed straight into A
+  // fragments
+  __device__ void cotangent(const Smem& s, int m, int prv, int X, int nj,
+                            uint32_t (&a)[NK3][4]) const {
+    const int tid = threadIdx.x, lane = tid & 31, q = lane & 3;
+    const int p0 = (tid >> 5) * 16 + (lane >> 2);
+    const float w2 = __fmul_rn(2.f, s.wq[m & 1][p0 & (TILE_NS - 1)]);
+#pragma unroll
+    for (int j = 0; j < NJ3; ++j) {
+      const float4 v = j < nj ? s.xpre[j * NT + tid] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float xv[4] = {v.x, v.y, v.z, v.w};
+      float dv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int pp = p0 + 8 * (c >> 1), n = 8 * j + 2 * q + (c & 1);
+        const float sc = __fmul_rn(w2, s.cct[pp]);
+        dv[c] = 0.f;
+        if (sc != 0.f && n < X) {
+          const int fl = s.cfl[pp];
+          const float left = (fl & 1) ? (pp >= TILE_NS ? s.xb[prv][(pp - TILE_NS) * OP_SXB + n]
+                                                       : s.edge[n * TILE_NS + pp])
+                                      : 0.f;
+          const float right = (fl & 2) ? s.xb[prv][(pp + TILE_NS) * OP_SXB + n] : 0.f;
+          dv[c] = __fmul_rn(sc, __fsub_rn(__fsub_rn(__fmul_rn(s.ccl[pp], xv[c]), left), right));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) a[j >> 1][(j & 1) * 2 + r] = bf16x2(dv[2 * r], dv[2 * r + 1]);
+    }
+  }
+  // decoder m's outputs of tile k to the scratch (xm: the thread's) and into
+  // xbar, weighted
+  __device__ void keep(Smem& s, int m, int cb, const float (&x)[NJ3][4], int nj,
+                       float4* __restrict__ xm) const {
+    const int lane = threadIdx.x & 31, q = lane & 3;
+    const int p0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
+    const float wm = s.wq[m & 1][p0 & (TILE_NS - 1)];
+#pragma unroll
+    for (int j = 0; j < NJ3; ++j) {
+      if (j >= nj) continue;
+      xm[(size_t)j * NT] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2* xb2 = reinterpret_cast<float2*>(&s.xb[cb][(p0 + 8 * r) * OP_SXB + 8 * j + 2 * q]);
+        const float2 o = *xb2;
+        *xb2 = make_float2(o.x + wm * x[j][2 * r], o.y + wm * x[j][2 * r + 1]);
+      }
+    }
+  }
+  // the round is over: tile k's left carry, tile k-1's row 30
+  __device__ void end_round(Smem& s, int k) const {
+    if (k > 0 && k < s.rd.n_tiles)
+      for (int e = threadIdx.x; e < XMAX * TILE_NS; e += NT)
+        s.edge[e] =
+            s.xb[(k & 1) ^ 1][((TILE_KR - 1) * TILE_NS + e % TILE_NS) * OP_SXB + e / TILE_NS];
+  }
+};
+
+// The one-pass body over the cotangent policy P (ExpectedCot, or the MC
+// energy's McCot): P::Smem derives from MmaSmem and holds mpre and rd.
+template <int R, class P>
+__device__ __forceinline__ void onepass_body(typename P::Smem& s, const P& cot,
+                                             const float* __restrict__ gamma, int T, int B,
+                                             int D, int M, int X, int span, int n_items,
+                                             const Weights& w, const float* __restrict__ W1c,
                                              const float* __restrict__ ct,
                                              float4* __restrict__ xs_scr,
                                              uint4* __restrict__ mk_scr,
@@ -173,33 +287,20 @@ __device__ __forceinline__ void onepass_body(OnePassSmem& s, const float* __rest
           const int t = min(s.rd.t0 + pp / NS, T - 1), b = min(s.rd.b0 + pp % NS, B - 1);
           s.g[e] = d < D ? gamma[((size_t)t * B + b) * D + d] : 0.f;
         }
-        for (int e = tid; e < TP * OP_SXB; e += NT) s.xb[cur][e] = 0.f;
+        cot.begin_tile(s, cur);
       }
       for (int e = tid; e < TP * DMAX; e += NT) s.dg[e] = 0.f;
-      if (k > 0 && tid < TP) {   // tile k-1's points: cotangent, c_t, neighbours
-        const int row = tid / NS, t = s.rd.t0 - KR + row, b = s.rd.b0 + tid % NS;
-        const bool own = row < KR && t >= s.rd.t_s && t < s.rd.t_e && t < T && b < B;
-        s.cct[tid] = own ? ct[b] : 0.f;
-        s.ccl[tid] = (float)((int)(t > 0) + (int)(t < T - 1));
-        s.cfl[tid] = (t > 0 ? 1 : 0) | (t < T - 1 ? 2 : 0);
-      }
+      if (k > 0) cot.begin_chain(s, ct, k, T, B, M, X, xs_scr);
       for (int m = 0; m < M; ++m) {
         const int prv = (k & 1) ^ 1;
-        // the decoder's weight of the tile's splines, by cp.async so that no
-        // warp waits on the load before the staging's barrier (row m & 1 was
-        // last read two decoders or a round ago, barriers between)
-        if (tid < NS)
-          cp_async4(&s.wq[m & 1][tid], wmb + (size_t)m * B + min(s.rd.b0 + tid, B - 1));
-        if (k > 0) {   // tile k-1's outputs and masks of decoder m, in flight while it stages
-          const float4* xm =
-              xs_scr + ((size_t)blockIdx.x * 2 * M + prv * M + m) * nj * NT + tid;
-          for (int j = 0; j < nj; ++j)
-            cp_async16(reinterpret_cast<float*>(&s.xpre[j * NT + tid]),
-                       reinterpret_cast<const float*>(xm + (size_t)j * NT));
+        // tile k-1's outputs (where the policy reads them) and masks of
+        // decoder m, in flight while it stages
+        cot.fetch(s, m, k, B, xs_scr + ((size_t)blockIdx.x * 2 * M + prv * M + m) * nj * NT + tid,
+                  nj);
+        if (k > 0)
           cp_async16(reinterpret_cast<float*>(&s.mpre[tid]),
                      reinterpret_cast<const float*>(
                          mk_scr + ((size_t)blockIdx.x * 2 * M + prv * M + m) * NT + tid));
-        }
         cp_commit();
         if (m != staged) {
           __syncthreads();
@@ -215,35 +316,8 @@ __device__ __forceinline__ void onepass_body(OnePassSmem& s, const float* __rest
         __syncthreads();
         // ---- chain of tile k-1 ----
         if (k > 0) {
-          // dx = 2 wm ct_b (c_t x - xbar_{t-1} - xbar_{t+1}) on the lane's
-          // rows that tile k-1 owns (both of the lane's spline p0 % 4),
-          // packed straight into A fragments
-          const int lane = tid & 31, q = lane & 3, p0 = (tid >> 5) * 16 + (lane >> 2);
-          const float w2 = __fmul_rn(2.f, s.wq[m & 1][p0 & (NS - 1)]);
           uint32_t a[NK3][4];
-#pragma unroll
-          for (int j = 0; j < NJ3; ++j) {
-            const float4 v = j < nj ? s.xpre[j * NT + tid] : make_float4(0.f, 0.f, 0.f, 0.f);
-            const float xv[4] = {v.x, v.y, v.z, v.w};
-            float dv[4];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int pp = p0 + 8 * (c >> 1), n = 8 * j + 2 * q + (c & 1);
-              const float sc = __fmul_rn(w2, s.cct[pp]);
-              dv[c] = 0.f;
-              if (sc != 0.f && n < X) {
-                const int fl = s.cfl[pp];
-                const float left = (fl & 1) ? (pp >= NS ? s.xb[prv][(pp - NS) * OP_SXB + n]
-                                                        : s.edge[n * NS + pp])
-                                            : 0.f;
-                const float right = (fl & 2) ? s.xb[prv][(pp + NS) * OP_SXB + n] : 0.f;
-                dv[c] = __fmul_rn(sc, __fsub_rn(__fsub_rn(__fmul_rn(s.ccl[pp], xv[c]), left),
-                                                right));
-              }
-            }
-#pragma unroll
-            for (int r = 0; r < 2; ++r) a[j >> 1][(j & 1) * 2 + r] = bf16x2(dv[2 * r], dv[2 * r + 1]);
-          }
+          cot.cotangent(s, m, prv, X, nj, a);
           const uint4 mv = s.mpre[tid];
           const uint32_t m1[2] = {mv.x, mv.y}, m2[2] = {mv.z, mv.w};
           chain_mma(s, D, X, a, m1, m2);
@@ -260,22 +334,9 @@ __device__ __forceinline__ void onepass_body(OnePassSmem& s, const float* __rest
           float x[NJ3][4];
           uint32_t m1[2], m2[2];
           decode_mma<R>(s, D, X, x, m1, m2);
-          const int lane = tid & 31, q = lane & 3, p0 = (tid >> 5) * 16 + (lane >> 2);
           const int cb = k & 1;
-          float4* xm = xs_scr + ((size_t)blockIdx.x * 2 * M + cb * M + m) * nj * NT + tid;
-          const float wm = s.wq[m & 1][p0 & (NS - 1)];
-#pragma unroll
-          for (int j = 0; j < NJ3; ++j) {
-            if (j >= nj) continue;
-            xm[(size_t)j * NT] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              float2* xb2 =
-                  reinterpret_cast<float2*>(&s.xb[cb][(p0 + 8 * r) * OP_SXB + 8 * j + 2 * q]);
-              const float2 o = *xb2;
-              *xb2 = make_float2(o.x + wm * x[j][2 * r], o.y + wm * x[j][2 * r + 1]);
-            }
-          }
+          cot.keep(s, m, cb, x, nj,
+                   xs_scr + ((size_t)blockIdx.x * 2 * M + cb * M + m) * nj * NT + tid);
           mk_scr[((size_t)blockIdx.x * 2 * M + cb * M + m) * NT + tid] =
               make_uint4(m1[0], m1[1], m2[0], m2[1]);
         }
@@ -284,23 +345,32 @@ __device__ __forceinline__ void onepass_body(OnePassSmem& s, const float* __rest
       // dgamma of tile k-1's owned points
       if (k > 0)
         for (int e = tid; e < TP * D; e += NT) {
-          const int pp = e / D, d = e % D, row = pp / NS;
-          const int t = s.rd.t0 - KR + row, b = s.rd.b0 + pp % NS;
-          if (row < KR && t >= s.rd.t_s && t < s.rd.t_e && t < T && b < B)
+          const int pp = e / D, d = e % D;
+          const int t = s.rd.t0 - KR + pp / NS, b = s.rd.b0 + pp % NS;
+          if (onepass_owned(s.rd, pp, T, B))
             dgamma[((size_t)t * B + b) * D + d] = s.dg[pp * DMAX + d];
         }
-      // left carry of tile k: tile k-1's row 30
-      if (k > 0 && k < s.rd.n_tiles)
-        for (int e = tid; e < XMAX * NS; e += NT)
-          s.edge[e] = s.xb[(k & 1) ^ 1][((KR - 1) * NS + e % NS) * OP_SXB + e / NS];
+      cot.end_round(s, k);
     }
   }
 }
 
+// Check the 16-byte alignment cp.async needs (W1, b1, b2 and the planes)
+// and launch the op's plane-preparing kernel `prep` (a prep_planes loop):
+// the first of a one-pass op's two launches.
+template <class Prep>
+cudaError_t launch_prep(Prep prep, const Weights& w, int M, int X, int n_blocks,
+                        __nv_bfloat16* planes, cudaStream_t st) {
+  if ((reinterpret_cast<uintptr_t>(w.W1) | reinterpret_cast<uintptr_t>(w.b1) |
+       reinterpret_cast<uintptr_t>(w.b2) | reinterpret_cast<uintptr_t>(planes)) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  prep<<<n_blocks, NT, 0, st>>>(w.W2, w.W3, M, X, planes);
+  return cudaGetLastError();
+}
+
 // Prepare the planes, then run the body: `prep` and `body` are the op's own
-// kernels over prep_planes and onepass_body (K2's and K10's names differ, so
-// that each op's device time reads by its own prefix).  W1, b1, b2 and the
-// planes must be 16-byte aligned (cp.async).
+// kernels over prep_planes and onepass_body<R, ExpectedCot> (K2's and K10's
+// names differ, so that each op's device time reads by its own prefix).
 template <int R, class Prep, class Body>
 cudaError_t launch_onepass(Prep prep, Body body, const float* gamma, int T, int B, int D, int M,
                            int X, int span, int G, int n_blocks, const Weights& w,
@@ -308,12 +378,7 @@ cudaError_t launch_onepass(Prep prep, Body body, const float* gamma, int T, int 
                            uint4* mk_scr, __nv_bfloat16* planes, float* dgamma,
                            cudaStream_t st) {
   cudaError_t err = prepare<OnePassSmem>(body);
-  if (err != cudaSuccess) return err;
-  if ((reinterpret_cast<uintptr_t>(w.W1) | reinterpret_cast<uintptr_t>(w.b1) |
-       reinterpret_cast<uintptr_t>(w.b2) | reinterpret_cast<uintptr_t>(planes)) % 16 != 0)
-    return cudaErrorMisalignedAddress;
-  prep<<<n_blocks, NT, 0, st>>>(w.W2, w.W3, M, X, planes);
-  err = cudaGetLastError();
+  if (err == cudaSuccess) err = launch_prep(prep, w, M, X, n_blocks, planes, st);
   if (err != cudaSuccess) return err;
   const int n_items = G * ((B + TILE_NS - 1) / TILE_NS);
   body<<<n_blocks, NT, sizeof(OnePassSmem), st>>>(gamma, T, B, D, M, X, span, n_items, w, W1c,

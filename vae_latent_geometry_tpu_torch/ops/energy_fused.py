@@ -82,8 +82,13 @@ SPAN_SPLINES = 4
 SPAN_ROWS = 32
 
 
+# Every counter reset_launch_counts zeroes (``energy_mc_fused`` adds its
+# K8_ROUTES).
+COUNTERS = [LAUNCHES, K1_ROUTES, K2_ROUTES, SOFTMAX_PASSES]
+
+
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, K1_ROUTES, K2_ROUTES, SOFTMAX_PASSES):
+    for counts in COUNTERS:
         for k in counts:
             counts[k] = 0
 
@@ -122,6 +127,7 @@ def k2_route(precision: str, widths, head: str = "linear") -> str:
     return "fma" if precision == "float32" else "one_decode"
 
 
+@functools.lru_cache(maxsize=256)
 def pick_spans(T: int, B: int, n_sm: int, halo: int,
                rows: int = SPAN_ROWS):
     """(span, G): the T-span each block walks and the number of spans per

@@ -39,18 +39,25 @@ from vae_latent_geometry_tpu_torch.geometry.energy import (  # noqa: F401
 )
 from vae_latent_geometry_tpu_torch.ops.energy_fused import (
     _RUNG,
+    COUNTERS,
     LAUNCHES,
+    SPAN_ROWS,
+    SPAN_SPLINES,
+    _aligned16,
     _any_scratch,
     _check_cuda,
     _decode_plain,
     _decoder_args,
+    _fixed_shape,
     _fwd_scratch,
     _mp_matmul,
+    _n_sm,
     _ptr,
     _splines,
     _stream,
     by_splines,
     check_precision,
+    pick_spans,
     ship_weights,
     stack_weights,
     sum_slices,
@@ -59,6 +66,16 @@ from vae_latent_geometry_tpu_torch.utils.profiling import trace_annotation
 
 LAUNCHES.update({"energy_mc_fwd": 0, "energy_mc_bwd": 0,
                  "energy_mc_fwd_rng": 0, "energy_mc_bwd_rng": 0})
+# K6's and K8's launches again, by the route each took (:func:`k8_route`);
+# kept out of LAUNCHES, reset with it.
+K8_ROUTES = {"one_decode": 0, "two_pass": 0, "fma": 0, "any": 0}
+COUNTERS.append(K8_ROUTES)
+
+# The one-decode route's shared memory (``csrc/energy_mc.cu``: a block's 227
+# KB, sizeof(McOnePassSmem), then per sample the draws and a difference
+# plane of 128 rows of SD floats, SD = mc_tiles_stride(X)).
+_SMEM_MAX = 232448
+_ONEPASS_FIXED = 118560
 
 _M32 = 0xFFFFFFFF
 
@@ -194,6 +211,32 @@ def energy_mc_bwd_rng_plain(ws, bs, gamma, seed, kmax, mc_samples, ct,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def mc_onepass_cap(X: int) -> int:
+    """The most samples K6/K8's one-decode route takes at output width X
+    (``vlg_mc_onepass_cap``): 3 at X = 50 and at X = 64."""
+    sd = 16 * ((X + 7) // 16) + 8
+    return (_SMEM_MAX - _ONEPASS_FIXED) // (4 * 128 * (2 + sd))
+
+
+def k8_route(precision: str, widths, mc_samples: int) -> str:
+    """The kernels K6/K8 launch for a rung, a decoder of ``widths`` (D,
+    ..., X) and S = ``mc_samples``: ``"one_decode"`` (one launch that
+    decodes every point once per decoder, on the tensor cores, after one
+    that prepares the weight planes) at a reduced rung on the production
+    shape up to :func:`mc_onepass_cap`, ``"two_pass"`` (the endpoint planes,
+    then the chain, each decoding every point) above it, ``"fma"`` (two
+    passes through the difference planes) at float32 there, ``"any"`` (the
+    generic decode's two passes) for every other decoder."""
+    check_precision(precision)
+    widths = list(widths)
+    if not _fixed_shape(widths):
+        return "any"
+    if precision == "float32":
+        return "fma"
+    return ("one_decode" if mc_samples <= mc_onepass_cap(widths[-1])
+            else "two_pass")
+
+
 def _check_range(what, x, lo, hi):
     """Raise unless lo <= x <= hi everywhere: a value outside selects no
     decoder, and that endpoint would silently be 0 in the kernel and in the
@@ -251,6 +294,10 @@ def _launch(name, backward, ws, bs, gamma, precision, S, d1, d2, kmax, seed,
     lib = library("energy_mc")
     dev = gamma.device
     key = _seed_key(seed)
+    if backward:
+        # the one-decode kernel stages W1, b1, b2 by cp.async
+        ws = [_aligned16(ws[0]), *ws[1:]]
+        bs = [_aligned16(bs[0]), _aligned16(bs[1]), *bs[2:]]
 
     def launch(wsx, bsx, b0, b1):
         # splines b0..b1-1: their planes, counts and cotangents; the in-kernel
@@ -261,27 +308,45 @@ def _launch(name, backward, ws, bs, gamma, precision, S, d1, d2, kmax, seed,
         k_b = None if kmax is None else kmax[b0:b1].contiguous()
         draws = [_ptr(p1), _ptr(p2), _ptr(k_b), *key, b0]
         widths, dec = _decoder_args(wsx, bsx)
-        scratch, n_blocks = (_any_scratch(lib, widths, 1, dev) if backward
-                             else _fwd_scratch(lib, precision, widths, M, dev))
-        head = [_RUNG[precision], g.data_ptr(), T, Bc, M, S, *dec, *draws]
-        tail = [_ptr(scratch), n_blocks, _stream(dev)]
+        head = [_RUNG[precision], g.data_ptr(), T, Bc, M, S]
         if backward:
-            # the kernels' difference or endpoint planes
-            n_planes = lib.vlg_mc_bwd_planes(_RUNG[precision], T, S, *dec[:2])
-            planes = torch.empty((n_planes, Bc, Xs), dtype=torch.float32,
-                                 device=dev)
+            route = k8_route(precision, widths, S)
+            planes = None
+            if route == "one_decode":
+                # per-block scratch of the one-pass body, then the planes
+                n_sm = _n_sm(dev)
+                span, G = pick_spans(T, Bc, n_sm, 1, SPAN_ROWS - 1)
+                n_blocks = min(G * -(-Bc // SPAN_SPLINES), n_sm)
+                scratch = torch.empty(
+                    (n_blocks * lib.vlg_mc_block_words(M, Xs)
+                     + lib.vlg_mc_plane_words(M),), dtype=torch.int32,
+                    device=dev)
+            else:
+                # the two-pass kernels' difference or endpoint planes
+                span = G = 0
+                scratch, n_blocks = _any_scratch(lib, widths, 1, dev)
+                n_planes = lib.vlg_mc_bwd_planes(_RUNG[precision], T, S,
+                                                  *dec[:2])
+                planes = torch.empty((n_planes, Bc, Xs), dtype=torch.float32,
+                                     device=dev)
             out = torch.empty((T, Bc, D), dtype=torch.float32, device=dev)
-            err = lib.vlg_mc_bwd(*head, ct[b0:b1].contiguous().data_ptr(),
-                                 planes.data_ptr(), out.data_ptr(), *tail)
+            err = lib.vlg_mc_bwd(*head, span, G, *dec, *draws,
+                                 ct[b0:b1].contiguous().data_ptr(),
+                                 _ptr(planes), out.data_ptr(), _ptr(scratch),
+                                 n_blocks, _stream(dev))
         else:
+            scratch, n_blocks = _fwd_scratch(lib, precision, widths, M, dev)
             partial = torch.empty((lib.vlg_mc_fwd_tiles(
                 _RUNG[precision], T, M, S, *dec[:2]), Bc),
                 dtype=torch.float32, device=dev)
             out = torch.empty((Bc,), dtype=torch.float32, device=dev)
-            err = lib.vlg_mc_fwd(*head, partial.data_ptr(), out.data_ptr(),
-                                 *tail)
+            err = lib.vlg_mc_fwd(*head, *dec, *draws, partial.data_ptr(),
+                                 out.data_ptr(), _ptr(scratch), n_blocks,
+                                 _stream(dev))
         check(err, name)
         LAUNCHES[name] += 1
+        if backward:
+            K8_ROUTES[route] += 1
         return out
 
     with trace_annotation(f"op.{name}"):
@@ -303,14 +368,17 @@ def energy_mc_fwd(ws, bs, gamma, d1, d2, precision):
 
 
 def energy_mc_bwd(ws, bs, gamma, d1, d2, ct, precision):
-    """K6: dgamma (T, B, D) of sum_b ct_b E_b on the given planes.
+    """K6: dgamma (T, B, D) of sum_b ct_b E_b on the given planes (route:
+    :func:`k8_route`).
 
-    Any number of samples S.  On the card the call holds a scratch that
-    grows linearly with S: the endpoint planes (2S, T, B, X) float32 of the
-    tensor-core kernels (the production decoder at f32x3, f32x2, bfloat16)
-    or the difference planes (S, T-1, B, X) of the others.  At the
-    production chunk (T=2000, B=200, X=50) and S=16 that is 2.56 GB or
-    1.28 GB; only a failed allocation refuses a larger S."""
+    Any number of samples S.  The one-decode route (a reduced rung on the
+    production decoder, S up to :func:`mc_onepass_cap`) holds a per-block
+    scratch of M decoders' outputs of two tiles (87 MB at M=10, X=50 on
+    132 SMs) whatever T and B; the others a scratch that grows linearly
+    with S: the endpoint planes (2S, T, B, X) float32 of the two-pass
+    tensor-core kernels or the difference planes (S, T-1, B, X) of the
+    others.  At the production chunk (T=2000, B=200, X=50) and S=16 that is
+    2.56 GB or 1.28 GB; only a failed allocation refuses a larger S."""
     _check_device(gamma)
     S = _check_planes(d1, d2, gamma)
     if gamma.device.type == "cpu":
