@@ -7,11 +7,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
 
 1. build   — compile the CUDA kernels from ``vae_latent_geometry_tpu_torch/
              ops/csrc`` with nvcc (sm_90a); card name, power limit, versions;
-             the tensor-core instructions (HMMA) in K1's, K2's, K3/K4's,
-             K5-K8's and K9/K10's SASS: present in the production shape's
+             the tensor-core instructions (HMMA) in K1's, K2's, K3/K4's and
+             K5-K8's SASS: present in the production shape's
              mma kernels at the reduced rungs, absent at float32 and in the
              generic decode's kernels; no stack and no spill in the
-             one-pass kernels (``k2_onepass_mma``, ``k10_mma``,
+             one-pass kernels (``k2_onepass_mma``,
              ``mc_chain_onepass``, whose registers the line reports);
              none, no stack and no spill in the
              float32 forward kernels on decode_f32.cuh (``k1_fwd_fma``,
@@ -183,13 +183,12 @@ decoders at X = 7 and 64 with a ragged tile, and every K2 call there is
 repeated and must be bitwise equal.
 The kernels phase also holds the four MC kernels (K5-K8) against their plain
 versions, and K7/K8 against K5/K6 on the planes of ``philox_draws``; phase
-``transposed`` holds K9/K10 (``ops/csrc/energy_transposed.cu``) against
-their plain versions at every rung, M=10 and M=1, and against K1/K2 (K10,
-an FMA kernel, against the tensor-core K2 at f32x3 and f32x2), runs
-the JAX bench's numerics gate (smooth curves against a float64 host truth)
-through the plain expected energy, K1 and K9, times K9+K10 against K1+K2,
-and drives ``energy_expected_fused_t`` forward and backward with the launch
-counts set to 0.
+``transposed`` holds K9/K10 (the transposed op, ``ops/_research/
+energy_fused_t.py``, on K1's and K2's kernels) against their plain versions
+at every rung, M=10 and M=1, times them, runs the JAX bench's numerics
+gate (smooth curves against a float64 host truth) through the plain
+expected energy, K1 and K9, and drives ``energy_expected_fused_t`` forward
+and backward with the launch counts set to 0: one K1 and one K2 launch.
 
 Imports nothing of JAX or of the JAX package.  Needs one CUDA GPU.
 """
@@ -557,8 +556,6 @@ def check_hmma(hmma, mma_kernels, fma_kernels, any_kernels):
 FWD_FMA = (("energy_expected", "k1_fwd_fma"), ("energy_mc", "mc_fwd_fma"))
 # the reduced-rung forward-energy kernels on tiles_mma.cuh: (source, kernel)
 FWD_MMA = (("energy_expected", "k1_tiles_mma"), ("energy_mc", "mc_tiles_mma"))
-# K9's and K10's tensor-core kernels (energy_transposed.cu; K9's is K1's)
-T_MMA = ("k1_tiles_mma", "k10_mma")
 # the softmax route's CUDA kernels (energy_softmax.cu), and the
 # instantiations that spill: K1 at f32x3 and f32x2 (early stopping's rungs;
 # the cell runs K1 at float32) spills 4 and 80-96 bytes at 255 registers
@@ -1105,11 +1102,11 @@ def float64_function(plain, ws, bs, *tensors):
 
 
 def transposed_phase(params, ws_all, bs_all, gamma, dev):
-    """K9/K10 against their plain versions (M=10 and M=1, every rung) and
-    against K1/K2; the numerics gate; CUDA-event times.  The op's own path
-    (forward and gradient through ``energy_expected_fused_t`` at f32x2, and
-    the gate) runs with the launch counts set to 0.  Returns (records,
-    times, launches)."""
+    """K9/K10 (K1's and K2's kernels on the uniform weight plane) against
+    their plain versions (M=10 and M=1, every rung); the numerics gate;
+    CUDA-event times.  The gate, then the op's own path (forward and
+    gradient through ``energy_expected_fused_t`` at f32x2), each run with
+    the launch counts set to 0.  Returns (records, times, path)."""
     import torch
 
     from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
@@ -1145,30 +1142,11 @@ def transposed_phase(params, ws_all, bs_all, gamma, dev):
                     rel = (x.double() - truth).abs() / truth.abs()
                     rec[key + "_max_rel"] = float(rel.max())
                     rec[key + "_median_rel"] = float(rel.median())
-            if M > 1 and prec in ("float32", "f32x3", "f32x2"):
-                # K9/K10 against K1/K2, the same functions: since K9/K10 run
-                # the tensor-core decode of decode_mma.cuh at the reduced
-                # rungs (and K9 K1's own kernel at float32) this is no longer
-                # an independent implementation; the plain versions above
-                # remain the independent check
-                e1 = ef.energy_fwd(ws, bs, gamma, wmb, prec)
-                d2 = ef.energy_bwd(ws, bs, gamma, wmb, ct, prec)
-                rec["vs_k1_energy_max_rel"] = float(
-                    ((e - e1).abs() / e1.abs()).max())
-                rec.update(dgamma_stats(d, d2, "vs_k2_"))
-                if prec != "float32":   # K2's one-pass body: bit for bit
-                    rec["vs_k2_bitwise"] = bool(torch.equal(d, d2))
             if M > 1:
                 tr = {"k9_ms": time_ms(lambda: eft.energy_t_fwd(
                           ws, bs, gamma, prec), 3),
                       "k10_ms": time_ms(lambda: eft.energy_t_bwd(
-                          ws, bs, gamma, ct, prec), 3),
-                      "k1_ms": time_ms(lambda: ef.energy_fwd(
-                          ws, bs, gamma, wmb, prec), 3),
-                      "k2_ms": time_ms(lambda: ef.energy_bwd(
-                          ws, bs, gamma, wmb, ct, prec), 3)}
-                tr["k9_k10_ms"] = tr["k9_ms"] + tr["k10_ms"]
-                tr["k1_k2_ms"] = tr["k1_ms"] + tr["k2_ms"]
+                          ws, bs, gamma, ct, prec), 3)}
                 if prec in ("float32", "f32x2"):
                     tr["k9_plain_ms"] = time_ms(lambda: eft.energy_t_fwd_plain(
                         ws, bs, gamma, prec), 2)
@@ -1184,19 +1162,21 @@ def transposed_phase(params, ws_all, bs_all, gamma, dev):
     torch.cuda.synchronize()
     ef.reset_launch_counts()
     gate = numerics_gate(params.decoders, dev)
+    gate_launches = dict(ef.LAUNCHES)
+    ef.reset_launch_counts()
     g = gamma.clone().requires_grad_(True)
     e = eft.energy_expected_fused_t(params.decoders, g, "f32x2")
     e.sum().backward()
     torch.cuda.synchronize()
-    launches = dict(ef.LAUNCHES)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     path = {"phase": "transposed_path", "gate_medrel": gate,
             "op_energy_finite": bool(torch.isfinite(e).all()),
             "op_grad_finite": bool(torch.isfinite(g.grad).all()),
-            # (K9 on this decoder takes tiles, not spans) the tensor-core
-            # K10 at f32x2: tiles that add 31 rows, one halo row
-            "spans_bwd": eft.pick_spans(T, B, n_sm, 1, eft.SPAN_ROWS - 1),
-            "launches": launches}
+            # K10 on K2's one-pass kernel at f32x2: tiles that add 31 rows,
+            # one halo row
+            "spans_bwd": ef.pick_spans(T, B, n_sm, 1, ef.SPAN_ROWS - 1),
+            "gate_launches": gate_launches, "launches": dict(ef.LAUNCHES),
+            "k1_routes": dict(ef.K1_ROUTES), "k2_routes": dict(ef.K2_ROUTES)}
     emit(path)
     return recs, times, path
 
@@ -3407,7 +3387,6 @@ def main() -> int:
     k1_hmma = sass_hmma(_build._target("energy_expected"), "k1_")
     mc_hmma = sass_hmma(_build._target("energy_mc"), "mc_")
     stats_hmma = sass_hmma(_build._target("energy_stats"), "k[34]_")
-    t_hmma = sass_hmma(_build._target("energy_transposed"), "k(?:1|9|10)_")
     sm_hmma = sass_hmma(_build._target("energy_softmax"), "k[12]s_")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
@@ -3416,13 +3395,11 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc, "ptxas": ptxas, "k2_sass_hmma": hmma,
           "k1_sass_hmma": k1_hmma, "mc_sass_hmma": mc_hmma,
-          "stats_sass_hmma": stats_hmma, "transposed_sass_hmma": t_hmma,
+          "stats_sass_hmma": stats_hmma,
           "fwd_fma_ptxas": {k: ptxas_of(_build.BUILD_LOG[src], k)
                             for src, k in FWD_FMA},
           "fwd_mma_ptxas": {k: ptxas_of(_build.BUILD_LOG[src], k)
                             for src, k in FWD_MMA},
-          "transposed_mma_ptxas": {k: ptxas_of(_build.BUILD_LOG[
-              "energy_transposed"], k) for k in T_MMA},
           "k2_onepass_ptxas": ptxas_of(_build.BUILD_LOG["energy_expected"],
                                        "k2_onepass_mma"),
           "mc_onepass_ptxas": {
@@ -3448,12 +3425,7 @@ def main() -> int:
     check_hmma(stats_hmma, ("k3_stats_mma", "k4_stats_chain_mma"),
                ("k3_stats", "k4_stats_chain"),
                ("k3_stats_any", "k4_stats_chain_any"))
-    # K9/K10: the tensor-core kernels at the reduced rungs, K1's float32
-    # kernel (K9) and k10_dgamma<0> at float32, the generic decode's none
-    check_hmma(t_hmma, T_MMA, ("k1_fwd_fma", "k10_dgamma"),
-               ("k9_energy_spans_any", "k10_dgamma_any"))
-    for src, k, rung in (*(("energy_transposed", k, None) for k in T_MMA),
-                         ("energy_expected", "k2_onepass_mma", None),
+    for src, k, rung in (("energy_expected", "k2_onepass_mma", None),
                          *(("energy_mc", "mc_chain_onepass", r)
                            for r in (1, 2, 3))):
         r = ptxas_of(_build.BUILD_LOG[src], k, rung)
@@ -4180,10 +4152,10 @@ def main() -> int:
         {"name": "energy_t_fwd (K9, transposed layout, float32)",
          "route": "cuda",
          "source":
-             "vae_latent_geometry_tpu_torch/ops/csrc/energy_transposed.cu",
+             "vae_latent_geometry_tpu_torch/ops/csrc/energy_expected.cu",
          "replaces":
              "vae_latent_geometry_tpu/ops/_research/energy_pallas_t.py:119",
-         "launches": t_path["launches"]["energy_t_fwd"],
+         "launches": t_path["launches"]["energy_fwd"],
          "max_abs_err": t_recs[(M, "float32")]["energy_max_abs"],
          "ms": t_times["float32"]["k9_ms"],
          "plain_ms": t_times["float32"]["k9_plain_ms"],
@@ -4194,28 +4166,26 @@ def main() -> int:
                    "bf16, tiles of 32 rows x 4 splines, one row of overlap) "
                    "at the reduced rungs",
          **{f"ms_{p}": t_times[p]["k9_ms"]
-            for p in ("f32x3", "f32x2", "bfloat16")},
-         "k1_ms_same_call": t_times["float32"]["k1_ms"]},
+            for p in ("f32x3", "f32x2", "bfloat16")}},
         {"name": "energy_t_bwd (K10, transposed layout, f32x2, one decode)",
          "route": "cuda",
          "source":
-             "vae_latent_geometry_tpu_torch/ops/csrc/energy_transposed.cu",
+             "vae_latent_geometry_tpu_torch/ops/csrc/energy_expected.cu",
          "replaces":
              "vae_latent_geometry_tpu/ops/_research/energy_pallas_t.py:193",
-         "launches": t_path["launches"]["energy_t_bwd"],
+         "launches": t_path["launches"]["energy_bwd"],
          "max_abs_err": t_recs[(M, "f32x2")]["dgamma_max_abs"],
          "ms": t_times["f32x2"]["k10_ms"],
          "plain_ms": t_times["f32x2"]["k10_plain_ms"],
          "bound_ms": 1e3 * max(k10_bound), "bound_by": bound_by(k10_bound),
          "library_ms": None,
-         "design": "k10_mma (K2's one-pass body, onepass_mma.cuh, on the "
-                   "uniform plane; mma.sync bf16): one staging per tile and "
-                   "decoder serves the chain of tile k-1 and the decode of "
-                   "tile k; outputs and masks in the block's scratch, "
-                   "prefetched by cp.async; k10_dgamma<0> (FMA) at float32",
+         "design": "K2's kernels on the uniform weight plane, float32 W1 "
+                   "in the dgamma product: k2_prep_planes + k2_onepass_mma "
+                   "(the one-pass body of onepass_mma.cuh, mma.sync bf16) "
+                   "at the reduced rungs, k2_xbar + k2_chain (FMA) at "
+                   "float32",
          **{f"ms_{p}": t_times[p]["k10_ms"]
-            for p in ("float32", "f32x3", "bfloat16")},
-         "k2_ms_same_call": t_times["f32x2"]["k2_ms"]},
+            for p in ("float32", "f32x3", "bfloat16")}},
         {**mc_kernel("energy_mc_fwd (K5, float32 final evaluation, planes)",
                      473, ext_launches["energy_mc_fwd"], "mc_energy_max_abs",
                      "mc_fwd", "float32", mc_bounds["k5"]),
@@ -4241,9 +4211,10 @@ def main() -> int:
 
     # each kernel's records on the other decoder shapes (on the optimized
     # shapes those at the production chunk, where their runs launch it), and
-    # its launches on their optimizer runs
+    # its launches on their optimizer runs (none of the transposed op's K9
+    # and K10: no optimizer run calls it)
     counter = {"K1": "energy_fwd", "K2": "energy_bwd", "K3": "stats_fwd",
-               "K4": "stats_bwd", "K9": "energy_t_fwd", "K10": "energy_t_bwd",
+               "K4": "stats_bwd", "K9": None, "K10": None,
                "K5": "energy_mc_fwd", "K6": "energy_mc_bwd",
                "K7": "energy_mc_fwd_rng", "K8": "energy_mc_bwd_rng"}
     keep = ("dims", "M", "T", "B", "rung", "ms", "bound_ms", "bound_by",
@@ -4385,27 +4356,19 @@ def main() -> int:
             fail(f"K10 dgamma median/p99/share {r['dgamma_rel_median']:.3g}/"
                  f"{r['dgamma_rel_p99']:.3g}/"
                  f"{r['dgamma_share_over_1e-3']:.3g} at M={m} {prec}")
-        if "vs_k1_energy_max_rel" in r and (
-                not r["vs_k1_energy_max_rel"] <= E_RTOL
-                or not r["vs_k2_dgamma_rel_median"] <= DG_MED
-                or not r["vs_k2_dgamma_rel_p99"] <= DG_P99):
-            fail(f"K9/K10 vs K1/K2 at {prec}: energy "
-                 f"{r['vs_k1_energy_max_rel']:.3g}, dgamma median/p99 "
-                 f"{r['vs_k2_dgamma_rel_median']:.3g}/"
-                 f"{r['vs_k2_dgamma_rel_p99']:.3g}")
-        if r.get("vs_k2_bitwise") is False:
-            fail(f"K10 and K2 on the uniform plane differ at {prec}: one "
-                 "body, the same arithmetic")
     for path, v in t_path["gate_medrel"].items():
         if not v <= GATE_MEDREL:
             fail(f"numerics gate: {path} median rel err {v} > {GATE_MEDREL}")
     if not (t_path["op_energy_finite"] and t_path["op_grad_finite"]):
         fail("energy_expected_fused_t: non-finite energy or gradient")
-    for name, count in t_path["launches"].items():
-        want_t = {"energy_t_fwd": 2, "energy_t_bwd": 1, "energy_fwd": 1}
-        if count != want_t.get(name, 0):
-            fail(f"transposed path: {name} launched {count} times, expected "
-                 f"{want_t.get(name, 0)}")
+    # the gate's K1 and K9 are two K1 launches; the op at f32x2 one K1 on
+    # the tensor cores and one K2 on the one-decode route
+    for key, want in (("gate_launches", {"energy_fwd": 2}),
+                      ("launches", {"energy_fwd": 1, "energy_bwd": 1}),
+                      ("k1_routes", {"tiles_mma": 1}),
+                      ("k2_routes", {"one_decode": 1})):
+        if t_path[key] != {**{k: 0 for k in t_path[key]}, **want}:
+            fail(f"transposed path: {key} {t_path[key]}, expected {want}")
     for r in jvp_recs:
         if r["launches"] != {**{k: 0 for k in r["launches"]},
                              "energy_fwd": n_chunks}:

@@ -1,10 +1,10 @@
-"""The forward energies at the reduced rungs on the tensor cores (K1's and
-K9's ``k1_tiles_mma`` in ``ops/csrc/tiles_mma.cuh``, K5/K7's
+"""The forward energies at the reduced rungs on the tensor cores (K1's
+``k1_tiles_mma`` in ``ops/csrc/tiles_mma.cuh``, K5/K7's
 ``mc_tiles_mma`` in ``ops/csrc/energy_mc.cu``), checked where no card is
 needed.
 
-- The sources: the reduced-rung branch of each forward launcher (K1, K5/K7,
-  K9) launches a tensor-core kernel and no longer the CUDA-core kernels
+- The sources: the reduced-rung branch of each forward launcher (K1, K5/K7)
+  launches a tensor-core kernel and no longer the CUDA-core kernels
   (``k1_energy_tiles``, ``mc_segments``, ``k9_tiles_mma``), which are gone;
   both kernels decode with ``decode_mma<R, true>``.
 - The tiling: a plain-PyTorch model of the kernels' work split -- tiles of
@@ -83,8 +83,7 @@ def _reduced_branch(source):
 
 @pytest.mark.parametrize("src,kernel", [
     ("energy_expected.cu", "k1_tiles_mma"),
-    ("energy_mc.cu", "mc_tiles_mma"),
-    ("energy_transposed.cu", "k1_tiles_mma")])
+    ("energy_mc.cu", "mc_tiles_mma")])
 def test_reduced_rungs_launch_the_tensor_core_kernels(src, kernel):
     branch = _reduced_branch(_code(src))
     assert f"{kernel}<R><<<" in branch, branch

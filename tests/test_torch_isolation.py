@@ -197,11 +197,7 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
                       "decode_any.cuh", "tiles_mma.cuh", "onepass_mma.cuh"},
         "energy_stats": {"decode_mma.cuh", "decode_common.cuh",
                          "decode_any.cuh"},
-        "energy_softmax": {"decode_mma.cuh", "decode_common.cuh"},
-        "energy_transposed": {"decode_mma.cuh", "decode_common.cuh",
-                              "decode_f32.cuh", "decode_any.cuh",
-                              "k1_fwd_f32.cuh", "tiles_mma.cuh",
-                              "onepass_mma.cuh"}}
+        "energy_softmax": {"decode_mma.cuh", "decode_common.cuh"}}
     for name, want in headers.items():
         files = [p.name for p in _build.source_files(name)]
         assert files[0] == f"{name}.cu" and set(files[1:]) == want
@@ -226,6 +222,15 @@ def test_kernel_library_name_follows_included_headers(tmp_path, monkeypatch):
     assert _build._target("energy_expected").name == after["energy_expected"]
 
 
+def test_every_cuda_source_is_a_registered_library():
+    """Each csrc/*.cu is a library the build knows (a key of SIGNATURES),
+    and each key has its source: no CUDA source is built by nobody."""
+    from vae_latent_geometry_tpu_torch.ops import _build
+
+    sources = {f[:-3] for f in os.listdir(_build.CSRC) if f.endswith(".cu")}
+    assert sources == set(_build.SIGNATURES)
+
+
 def test_console_script_and_package_data_in_pyproject():
     import tomllib
 
@@ -237,7 +242,7 @@ def test_console_script_and_package_data_in_pyproject():
     assert "ops/csrc/*.cu" in data["vae_latent_geometry_tpu_torch"]
     assert "ops/csrc/*.cuh" in data["vae_latent_geometry_tpu_torch"]
     for src in ("energy_expected.cu", "energy_mc.cu", "energy_stats.cu",
-                "energy_transposed.cu", "energy_softmax.cu",
+                "energy_softmax.cu",
                 "softmax_passes.py", "decode_common.cuh",
                 "decode_mma.cuh", "decode_any.cuh", "decode_f32.cuh",
                 "k1_fwd_f32.cuh", "tiles_mma.cuh", "onepass_mma.cuh"):
@@ -264,8 +269,7 @@ def test_new_modules_are_scanned_and_stats_kernel_is_registered():
                 "pipeline/full_run.py", "ops/_research/energy_fused_t.py"):
         assert mod in rel, mod
     assert set(_build.SIGNATURES) == {"energy_expected", "energy_mc",
-                                      "energy_stats", "energy_transposed",
-                                      "energy_softmax"}
+                                      "energy_stats", "energy_softmax"}
     assert set(_build.SIGNATURES["energy_stats"]) == {"vlg_stats_fwd",
                                                       "vlg_stats_bwd"}
 
@@ -1225,8 +1229,10 @@ def test_every_kernel_matches_its_plain_version_on_big_shapes_on_gpu(
     pairs = _every_kernel(ws, bs, g, wmb, ct, cts, planes, (1 << 40) + 3,
                           kmax, precision, len(dims) == 4,
                           float64_energies=f64)
-    # the big decoder's X = 200 runs in two column slices per call
-    assert ef.LAUNCHES["energy_fwd"] == 2 * (2 if X > 128 else 1)
+    # the big decoder's X = 200 runs in two column slices per call; the
+    # transposed op's K9 (3 layers) runs K1's kernels, counted as K1's
+    assert ef.LAUNCHES["energy_fwd"] == (2 * (2 if X > 128 else 1)
+                                         * (2 if len(dims) == 4 else 1))
     _held_on_gpu(pairs)
 
 

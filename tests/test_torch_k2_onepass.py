@@ -1,9 +1,10 @@
 """K2 decodes once: the expected energy's gradient at the reduced rungs runs
-the one-pass body it shares with K10 (``ops/csrc/onepass_mma.cuh``).
+the one-pass body it shares with K6/K8 (``ops/csrc/onepass_mma.cuh``).
 
 CPU: the route choice and its counter (``energy_fused.k2_route``,
-``K2_ROUTES``), the launch branches in the sources, and a plain model of the
-tiles and spans the kernel walks at the ragged shapes.  Card (marker
+``K2_ROUTES``), the launch branches in the sources, the transposed op's
+entry points on K1 and K2, and a plain model of the tiles and spans the
+kernel walks at the ragged shapes.  Card (marker
 ``gpu``; ``python -m pytest --noconftest tests/test_torch_k2_onepass.py -m
 gpu``): the kernel against its plain version at those shapes and weight
 planes, bitwise repeats, and K10 bit for bit equal to it on the uniform
@@ -81,12 +82,11 @@ def _body(source, head):
 
 
 @pytest.mark.parametrize("src,prep,kernel", [
-    ("energy_expected.cu", "k2_prep_planes", "k2_onepass_mma"),
-    ("energy_transposed.cu", "t_prep_planes", "k10_mma")])
+    ("energy_expected.cu", "k2_prep_planes", "k2_onepass_mma")])
 def test_reduced_rungs_launch_the_one_pass_body(src, prep, kernel):
-    """K2's and K10's reduced rungs launch their own names over the one
-    body and plane preparation of onepass_mma.cuh (K2's device time reads
-    by the prefix k2_); K2's two-pass tensor-core kernels are gone."""
+    """K2's reduced rungs launch their own names over the one body and
+    plane preparation of onepass_mma.cuh (K2's device time reads by the
+    prefix k2_); K2's two-pass tensor-core kernels are gone."""
     code = _code(src)
     launch = _body(code, "cudaError_t launch_bwd(")
     assert f"launch_onepass<R>({prep}, {kernel}<R>," in launch
@@ -97,7 +97,32 @@ def test_reduced_rungs_launch_the_one_pass_body(src, prep, kernel):
         for gone in ("k2_xbar_mma", "k2_chain_mma", "TMmaSmem", "SmemMma"):
             assert gone not in other, (name, gone)
     # the float32 K2 keeps its two FMA passes, launched by that branch only
-    assert code.count("k2_xbar<R><<<") == (1 if kernel.startswith("k2") else 0)
+    assert code.count("k2_xbar<R><<<") == 1
+
+
+@pytest.mark.parametrize("entry,call", [
+    ("energy_t_fwd", "energy_fwd(ws, bs, gamma, uniform_weights(M, B, "
+                     "gamma.device),"),
+    ("energy_t_bwd", "energy_bwd(ws, bs, gamma, uniform_weights(M, B, "
+                     "gamma.device), ct,")])
+def test_transposed_op_runs_k1_and_k2(entry, call):
+    """The transposed op's K9 and K10 are K1 and K2 on the uniform weight
+    plane: each entry point checks the op's shape rule and calls
+    energy_fused's wrapper, K10 with float32 W1 for the dgamma product; no
+    CUDA source defines a kernel of its own any more."""
+    path = os.path.join(os.path.dirname(CSRC), "_research",
+                        "energy_fused_t.py")
+    src = open(path).read()
+    body = src[src.index(f"def {entry}("):]
+    body = body[:body.index("\n\n\n")]
+    flat = " ".join(body.split())
+    assert "_check_fits(ws, gamma)" in flat
+    assert call in flat, flat
+    if entry == "energy_t_bwd":
+        assert "w1=ws[0].float().contiguous())" in flat
+    assert "library(" not in src and "LAUNCHES" not in src
+    for name in os.listdir(CSRC):
+        assert not re.search(r"\bk(?:9|10)_\w", _code(name)), name
 
 
 def _owned(T, B, span, G):

@@ -136,7 +136,7 @@ def test_reduced_rungs_launch_the_one_pass_body():
     """K6/K8's one-decode route launches mc_select_planes (prep_planes) and
     mc_chain_onepass (onepass_body over McCot); every kernel of K8 keeps
     mc_select or mc_chain in its name (the names K8's device time reads
-    by), and K2's and K10's kernels run the body over ExpectedCot."""
+    by), and K2's kernel runs the body over ExpectedCot."""
     code = _code("energy_mc.cu")
     launch = _body(code, "cudaError_t launch_bwd_onepass(")
     assert "launch_prep(mc_select_planes," in launch
@@ -153,9 +153,8 @@ def test_reduced_rungs_launch_the_one_pass_body():
     for name in names:
         assert "mc_select" in name or "mc_chain" in name or name.startswith(
             ("mc_segments", "mc_fwd", "mc_tiles", "mc_sum")), name
-    for src, kernel in (("energy_expected.cu", "k2_onepass_mma"),
-                        ("energy_transposed.cu", "k10_mma")):
-        assert "ExpectedCot{wmb}" in _body(_code(src), f"\n{kernel}(")
+    assert "ExpectedCot{wmb}" in _body(_code("energy_expected.cu"),
+                                       "\nk2_onepass_mma(")
 
 
 def _items(T, B, span, G):

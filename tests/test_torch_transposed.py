@@ -149,9 +149,9 @@ def test_refused_shapes_raise(decoders):
 def test_spans_cover_the_curve():
     """Every (spline group, span) item is inside [0, T), the spans tile T,
     and the production shape splits T into 13 spans on 132 SMs."""
-    assert eft.pick_spans(2000, 200, 132, 1) == (154, 13)
+    assert ef.pick_spans(2000, 200, 132, 1) == (154, 13)
     for T, B, n_sm in ((32, 6, 132), (64, 300, 132), (2000, 200, 7),
                        (40, 1, 1)):
         for halo in (1, 2):
-            span, G = eft.pick_spans(T, B, n_sm, halo)
+            span, G = ef.pick_spans(T, B, n_sm, halo)
             assert (G - 1) * span < T <= G * span

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """One-off measurements of one checkout's K2 (the expected energy's
-gradient, ``energy_fused.energy_bwd``) and K10 on the card.
+gradient, ``energy_fused.energy_bwd``) on the card.
 
     python3 tools/k2_kernels.py --tree <checkout> --times [--out FILE]
     python3 tools/k2_kernels.py --tree <checkout> --hashes FILE
@@ -9,9 +9,8 @@ gradient, ``energy_fused.energy_bwd``) and K10 on the card.
 ``--times``: device time by kernel (torch.profiler, 5 calls after a warm-up)
 and ms per call by CUDA events (``chip_smoke.time_ms``, 10 calls) of K2 on
 the production chunk (the committed model, the seed-42 init curves padded
-to B=200, T=2000, ``chip_smoke.cotangent``) at every rung, of K2 at M=1,
-f32x3, B=500 (golden's shape: decoder 0, the curves repeated), and of K10
-at f32x2 on the production chunk.
+to B=200, T=2000, ``chip_smoke.cotangent``) at every rung and at M=1,
+f32x3, B=500 (golden's shape: decoder 0, the curves repeated).
 
 ``--hashes``: SHA-256 of K2's dgamma on the production chunk at every rung,
 at M=1, and on the generic decode (decoder S2 of ``chip_smoke.SHAPES``,
@@ -40,8 +39,6 @@ def _cases(smoke, dev):
     import torch
 
     from vae_latent_geometry_tpu_torch.ops import energy_fused as ef
-    from vae_latent_geometry_tpu_torch.ops._research import (
-        energy_fused_t as eft)
 
     ws, bs, gamma = production_inputs(smoke, dev)
     B = gamma.shape[1]
@@ -56,8 +53,6 @@ def _cases(smoke, dev):
     w500 = ef.uniform_weights(1, 500, dev)
     cases.append(("K2 M=1 f32x3 B=500", lambda: ef.energy_bwd(
         ws1, bs1, g500, w500, ct500, "f32x3")))
-    cases.append(("K10 f32x2", lambda: eft.energy_t_bwd(
-        ws, bs, gamma, ct, "f32x2")))
     return cases
 
 

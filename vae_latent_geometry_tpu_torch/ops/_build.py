@@ -46,7 +46,7 @@ SIGNATURES = {
         "vlg_f32_scratch_words": [_I, _I, _I, _P],
         "vlg_energy_fwd": [_I, _P, _I, _I, _I, *_DEC, _P, _P, _P, _P, _I, _P],
         "vlg_energy_bwd": [_I, _P, _I, _I, _I, _I, _I, *_DEC, _P, _P, _P, _P,
-                           _P, _I, _P],
+                           _P, _P, _I, _P],
         "vlg_k2_block_words": [_I, _I],
         "vlg_k2_plane_words": [_I],
         "vlg_mma_selftest": [_I, _P, _P, _P, _I, _P],
@@ -62,17 +62,6 @@ SIGNATURES = {
         "vlg_mc_onepass_cap": [_I],
         "vlg_mc_block_words": [_I, _I],
         "vlg_mc_plane_words": [_I],
-    },
-    "energy_transposed": {
-        "vlg_t_scratch_words": [_I, _I, _I],
-        "vlg_t_chunk_rows": [_I, _I, _P, _I],
-        "vlg_t_fwd_rows": [_I, _I, _I, _I, _P],
-        "vlg_f32_scratch_words": [_I, _I, _I, _P],
-        "vlg_energy_t_fwd": [_I, _P, _I, _I, _I, _I, _I, _I, *_DEC, _P, _P,
-                             _P, _P, _P],
-        "vlg_t_plane_words": [_I],
-        "vlg_energy_t_bwd": [_I, _P, _I, _I, _I, _I, _I, _I, *_DEC, _P, _P,
-                             _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "energy_softmax": {
         "vlg_softmax_rows": [_I, _I, *[_P] * 11, _I, _I, _I, _I, _I, _P],

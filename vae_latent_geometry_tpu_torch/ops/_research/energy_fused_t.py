@@ -1,21 +1,23 @@
 """Transposed-layout fused expected energy: the port of
 ``ops/_research/energy_pallas_t.py``.
 
-Two kernels (``ops/csrc/energy_transposed.cu``), each beside a plain PyTorch
-version of the same function:
+Two entry points, each beside a plain PyTorch version of the same function:
 
 - :func:`energy_t_fwd` (K9, replaces ``energy_pallas_t.py:119
   _fwd_kernel_T``): (T, B, D) curve -> (B,) expected energies with uniform
   ensemble weights, the statistics centred on decoder 0;
 - :func:`energy_t_bwd` (K10, ``:193 _bwd_kernel_T``): dgamma for a
-  per-spline cotangent, one launch that decodes every point once per decoder.
+  per-spline cotangent.
 
-Weights are the left operand and points run along the wide dimension, the
-output features padded to a multiple of 8 (the TPU layout); the kernels'
-source says what that means on this card.  On the TPU this layout measured
-slower than the production kernels (``energy_pallas_t.py:13-27``); it is
-kept as a layout experiment, measured on the card by ``chip_smoke.py``
-(phase ``transposed``), and not dispatched by the optimizer.
+Both are K1's and K2's function on the uniform weight plane, and on the
+card they run K1's and K2's kernels (``energy_fused.energy_fwd`` and
+``energy_bwd``, counted there), K10 with float32 W1 in the dgamma product.
+The TPU kernels put the weights on the left and the points along the wide
+dimension (the TPU layout); on the TPU this layout measured slower than the
+production kernels (``energy_pallas_t.py:13-27``).  The op is kept with its
+shape rule as the JAX package's research op, checked on the card by
+``chip_smoke.py`` (phase ``transposed``), and not dispatched by the
+optimizer.
 
 Precision rungs as in the JAX op: the decode's products follow
 ``_mp_dot_T`` (w.h_hi + w.h_lo, + w_lo.h_hi at f32x3; one bf16 pass at
@@ -33,29 +35,16 @@ from __future__ import annotations
 import torch
 
 from vae_latent_geometry_tpu_torch.ops.energy_fused import (
-    _RUNG,
-    LAUNCHES,
-    SPAN_ROWS,
-    SPAN_SPLINES,
-    _any_scratch,
-    _check_cuda,
     _decode_plain,
-    _decoder_args,
     _mp_matmul,
-    _n_sm,
-    _ptr,
-    _splines,
-    _stream,
-    by_splines,
     check_precision,
+    energy_bwd,
+    energy_fwd,
     energy_fwd_plain,
-    pick_spans,
     ship_weights,
     stack_weights,
     uniform_weights,
 )
-
-LAUNCHES.update({"energy_t_fwd": 0, "energy_t_bwd": 0})
 
 _BB = 256              # the JAX op's lane block: only its shape rule reads it
 
@@ -147,104 +136,28 @@ def energy_t_bwd_plain(ws, bs, gamma, ct, precision):
 
 
 # ---------------------------------------------------------------------------
-# kernel wrappers
+# entry points
 # ---------------------------------------------------------------------------
 
-def _prepare_cuda(ws, bs, gamma, precision, extra=()):
-    check_precision(precision)
-    _check_fits(ws, gamma)
-    shipped = [w.contiguous() for w in ship_weights(ws, precision)]
-    T, B, D, M, X = _check_cuda(shipped, bs, gamma, None, extra)
-    return shipped, T, B, D, M, X
-
-
 def energy_t_fwd(ws, bs, gamma, precision):
-    """K9: (T, B, D) curve -> (B,) expected energies (uniform weights)."""
-    if gamma.device.type == "cpu":
-        _check_fits(ws, gamma)
-        return energy_t_fwd_plain(ws, bs, gamma, precision)
-    if gamma.device.type != "cuda":
-        raise ValueError(f"no kernel for device {gamma.device}")
-    from vae_latent_geometry_tpu_torch.ops._build import check, library
-
-    shipped, T, B, D, M, X = _prepare_cuda(ws, bs, gamma, precision)
-    lib = library("energy_transposed")
-    widths, dec = _decoder_args(shipped, bs)
-
-    rung = _RUNG[precision]
-
-    def launch(b0, b1):
-        g, Bc = _splines(gamma, b0, b1), b1 - b0
-        n_sm = _n_sm(g.device)
-        span, G = pick_spans(T, Bc, n_sm, 1)
-        n_blocks = min(G * -(-Bc // SPAN_SPLINES), n_sm)
-        scratch, _ = _any_scratch(lib, widths, 1, g.device, n_blocks)
-        if scratch is None:      # K1's float32 kernel: W3 padded to 64
-            words = lib.vlg_f32_scratch_words(rung, M, *dec[:2])
-            if words > 0:
-                scratch = torch.empty((words,), dtype=torch.float32,
-                                      device=g.device)
-        wmb = uniform_weights(M, Bc, g.device)
-        partial = torch.empty((lib.vlg_t_fwd_rows(rung, T, G, *dec[:2]), Bc),
-                              dtype=torch.float32, device=g.device)
-        out = torch.empty((Bc,), dtype=torch.float32, device=g.device)
-        check(lib.vlg_energy_t_fwd(rung, g.data_ptr(), T, Bc, M, span, G,
-                                   n_blocks, *dec, wmb.data_ptr(),
-                                   partial.data_ptr(), out.data_ptr(),
-                                   _ptr(scratch), _stream(g.device)),
-              "energy_t_fwd")
-        LAUNCHES["energy_t_fwd"] += 1
-        return out
-
-    return by_splines(T, B, shipped, launch)
+    """K9: (T, B, D) curve -> (B,) expected energies (uniform weights), by
+    K1 (its plain version on a CPU tensor)."""
+    _check_fits(ws, gamma)
+    M, B = ws[0].shape[0], gamma.shape[1]
+    return energy_fwd(ws, bs, gamma, uniform_weights(M, B, gamma.device),
+                      precision)
 
 
 def energy_t_bwd(ws, bs, gamma, ct, precision):
-    """K10: dgamma (T, B, D) of sum_b ct_b E_b: one launch of the kernel
-    (after one that prepares its bf16 weight planes at the reduced rungs)."""
+    """K10: dgamma (T, B, D) of sum_b ct_b E_b, by K2 on the uniform plane
+    with float32 W1 in the dgamma product (its plain version on a CPU
+    tensor)."""
+    _check_fits(ws, gamma)
     if gamma.device.type == "cpu":
-        _check_fits(ws, gamma)
         return energy_t_bwd_plain(ws, bs, gamma, ct, precision)
-    if gamma.device.type != "cuda":
-        raise ValueError(f"no kernel for device {gamma.device}")
-    from vae_latent_geometry_tpu_torch.ops._build import check, library
-
-    w1 = ws[0].float().contiguous()
-    shipped, T, B, D, M, X = _prepare_cuda(ws, bs, gamma, precision,
-                                           (ct, w1))
-    if tuple(ct.shape) != (B,):
-        raise ValueError(f"ct must be (B,) = ({B},), got {tuple(ct.shape)}")
-    lib = library("energy_transposed")
-    widths, dec = _decoder_args(shipped, bs)
-
-    def launch(b0, b1):
-        g, Bc = _splines(gamma, b0, b1), b1 - b0
-        n_sm = _n_sm(g.device)
-        rows = lib.vlg_t_chunk_rows(_RUNG[precision], *dec[:2], 1)
-        span, G = pick_spans(T, Bc, n_sm, 2 if rows == SPAN_ROWS else 1, rows)
-        n_blocks = min(G * -(-Bc // SPAN_SPLINES), n_sm)
-        scratch = [torch.empty((n_blocks * lib.vlg_t_scratch_words(M, X, k),),
-                               dtype=torch.float32 if k != 1 else torch.int32,
-                               device=g.device) for k in range(3)]
-        any_scratch, _ = _any_scratch(lib, widths, 2 * M, g.device, n_blocks)
-        # the tensor-core kernel's bf16 weight planes, prepared per call
-        planes = torch.empty((lib.vlg_t_plane_words(M),), dtype=torch.int32,
-                             device=g.device) if rows != SPAN_ROWS else None
-        # the tensor-core kernel (K2's body) takes the weight plane
-        wmb = uniform_weights(M, Bc, g.device)
-        dgamma = torch.empty((T, Bc, D), dtype=torch.float32, device=g.device)
-        check(lib.vlg_energy_t_bwd(_RUNG[precision], g.data_ptr(), T, Bc, M,
-                                   span, G, n_blocks, *dec, w1.data_ptr(),
-                                   wmb.data_ptr(),
-                                   ct[b0:b1].contiguous().data_ptr(),
-                                   *(x.data_ptr() for x in scratch),
-                                   _ptr(any_scratch), dgamma.data_ptr(),
-                                   _ptr(planes), _stream(g.device)),
-              "energy_t_bwd")
-        LAUNCHES["energy_t_bwd"] += 1
-        return dgamma
-
-    return by_splines(T, B, shipped, launch)
+    M, B = ws[0].shape[0], gamma.shape[1]
+    return energy_bwd(ws, bs, gamma, uniform_weights(M, B, gamma.device), ct,
+                      precision, w1=ws[0].float().contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -80,7 +80,7 @@ __host__ __device__ inline int mask_area_words(const Decoder& d) {
 
 // A thread's private tile of 64 floats in the scratch: where a kernel body
 // keeps, with the generic decode, a running register tile that would not
-// fit beside the decode's (K4's sum of cotangents, K10's xbar).
+// fit beside the decode's (K4's sum of cotangents, the MC chain's running dx).
 constexpr int PRIV_WORDS = 8 * NJA * NT;
 
 // Floats a point of the tile's points and of its dgamma accumulators: in

@@ -6,6 +6,10 @@
 //   K2  _bwd_kernel (:325)  -> k2_prep_planes + k2_onepass_mma (f32x3, f32x2,
 //       bfloat16; onepass_mma.cuh), k2_xbar + k2_chain (float32)
 //       (with _backprop_chain_masked :406 and _center_masks :426)
+// and, on the uniform weight plane, those of
+// vae_latent_geometry_tpu/ops/_research/energy_pallas_t.py (K9 _fwd_kernel_T
+// :119 by K1's kernels, K10 _bwd_kernel_T :193 by K2's, whose dgamma product
+// then takes float32 W1: vlg_energy_bwd's w1p).
 //
 // Function.  The decoder ensemble is M ReLU MLPs D -> 128 -> 128 -> X applied
 // to every curve point gamma[t, b, :] (T, B, D).  With per-spline weights
@@ -49,7 +53,7 @@
 // summed apart): early stopping evaluates it at the trajectory rung on every
 // step, also at M = 1 (single_fused), where it must stay within 1e-5 of its
 // plain version.  K2 at the reduced rungs runs the one-pass body it shares
-// with K10 (onepass_mma.cuh): persistent blocks, one per SM, walk spans of
+// with K6/K8 (onepass_mma.cuh): persistent blocks, one per SM, walk spans of
 // K1's tiles; each (point, decoder) is decoded once (one row in 31 twice,
 // the tiles' overlap), the chain of the previous tile runs with the same
 // staged decoder, the decoder outputs and masks of two tiles wait in a
@@ -329,24 +333,38 @@ k2_xbar_any(const float* __restrict__ gamma, int T, int B, int M, AnyArgs a,
   }
 }
 
+// The generic decode whose chain takes the dgamma product through W1c, which
+// its context carries.
+struct AnyDecodeW1 : AnyDecode {
+  struct Ctx : AnyCtx {
+    const float* W1c;
+  };
+  template <int C>
+  __device__ static void chain(Smem& s, const Ctx& c, int m, int, int, const Masks& mk) {
+    chain_any<C>(s, c, m, mk.area, c.W1c);
+  }
+};
+
 template <int R>
 __global__ void __launch_bounds__(NT, 1)
 k2_chain_any(const float* __restrict__ gamma, int T, int B, int M, AnyArgs a,
-             const float* __restrict__ wmb, const float* __restrict__ ct,
-             const float* __restrict__ xbar, float* __restrict__ dgamma, int n_items) {
+             const float* __restrict__ W1c, const float* __restrict__ wmb,
+             const float* __restrict__ ct, const float* __restrict__ xbar,
+             float* __restrict__ dgamma, int n_items) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SmemAny& s = *reinterpret_cast<SmemAny*>(smem_raw);
-  const AnyCtx c = any_begin(s, a);
+  const AnyDecodeW1::Ctx c{any_begin(s, a), W1c};
   const int D = s.dec.D, X = s.dec.X;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    k2_chain_body<R, AnyDecode>(s, c, item, gamma, T, B, D, M, X, wmb, ct, xbar, dgamma);
+    k2_chain_body<R, AnyDecodeW1>(s, c, item, gamma, T, B, D, M, X, wmb, ct, xbar, dgamma);
     __syncthreads();
   }
 }
 
 // K2 at a reduced rung, on the tensor cores: one launch of the one-pass
 // body (onepass_mma.cuh) after one that prepares the bf16 weight planes; the
-// dgamma product takes the W1 the decode takes (W1 as shipped).
+// dgamma product takes W1c (W1 as shipped, or the transposed op's float32
+// W1).
 __global__ void k2_prep_planes(const float* __restrict__ W2, const float* __restrict__ W3, int M,
                                int X, __nv_bfloat16* __restrict__ planes) {
   prep_planes(W2, W3, M, X, planes);
@@ -431,13 +449,15 @@ cudaError_t launch_fwd(const float* gamma, int T, int B, int D, int M, int X, We
 }
 
 // K2 on the production shape: at float32 the two FMA passes through the
-// (T, B, X) xbar buffer; at a reduced rung one launch of k2_onepass_mma over
-// `scratch`: each block's outputs (onepass_xs_words), then each block's
-// masks (onepass_mk_words), then the planes (onepass_plane_words).
+// (T, B, X) xbar buffer (shipped W1 is float32 W1 there); at a reduced rung
+// one launch of k2_onepass_mma over `scratch`: each block's outputs
+// (onepass_xs_words), then each block's masks (onepass_mk_words), then the
+// planes (onepass_plane_words).
 template <int R>
 cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, int span, int G,
-                       int n_blocks, Weights w, const float* wmb, const float* ct, float* xbar,
-                       void* scratch, float* dgamma, cudaStream_t st) {
+                       int n_blocks, Weights w, const float* W1c, const float* wmb,
+                       const float* ct, float* xbar, void* scratch, float* dgamma,
+                       cudaStream_t st) {
   if constexpr (R == F32) {  // CUDA-core FMAs
     const int n_tiles = (T * B + TP - 1) / TP;
     cudaError_t err = prepare<Smem>(k2_xbar<R>);
@@ -457,7 +477,7 @@ cudaError_t launch_bwd(const float* gamma, int T, int B, int D, int M, int X, in
     __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(
         words + n_blocks * (onepass_xs_words(M, X) + onepass_mk_words(M)));
     return launch_onepass<R>(k2_prep_planes, k2_onepass_mma<R>, gamma, T, B, D, M, X, span, G,
-                             n_blocks, w, w.W1, wmb, ct, xs, mk, planes, dgamma, st);
+                             n_blocks, w, W1c, wmb, ct, xs, mk, planes, dgamma, st);
   }
 }
 
@@ -479,8 +499,8 @@ cudaError_t launch_fwd_any(const float* gamma, int T, int B, int M, const AnyArg
 
 template <int R>
 cudaError_t launch_bwd_any(const float* gamma, int T, int B, int M, const AnyArgs& a,
-                           int n_blocks, const float* wmb, const float* ct, float* xbar,
-                           float* dgamma, cudaStream_t st) {
+                           int n_blocks, const float* W1c, const float* wmb, const float* ct,
+                           float* xbar, float* dgamma, cudaStream_t st) {
   const int n_items = (T * B + TP - 1) / TP;
   cudaError_t err = prepare<SmemAny>(k2_xbar_any<R>);
   if (err == cudaSuccess) err = prepare<SmemAny>(k2_chain_any<R>);
@@ -488,8 +508,8 @@ cudaError_t launch_bwd_any(const float* gamma, int T, int B, int M, const AnyArg
   k2_xbar_any<R><<<n_blocks, NT, sizeof(SmemAny), st>>>(gamma, T, B, M, a, wmb, xbar, n_items);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  k2_chain_any<R><<<n_blocks, NT, sizeof(SmemAny), st>>>(gamma, T, B, M, a, wmb, ct, xbar,
-                                                         dgamma, n_items);
+  k2_chain_any<R><<<n_blocks, NT, sizeof(SmemAny), st>>>(gamma, T, B, M, a, W1c, wmb, ct,
+                                                         xbar, dgamma, n_items);
   return cudaGetLastError();
 }
 
@@ -533,11 +553,13 @@ int vlg_energy_fwd(int rung, const float* gamma, int T, int B, int M, int L, con
 // on the fixed shape, where `scratch` holds n_blocks x vlg_k2_block_words +
 // vlg_k2_plane_words words and the blocks take the G spans of `span` rows
 // per group of four splines; `xbar` is the (T, B, X) buffer of the other
-// kernels (unused there).
+// kernels (unused there).  w1p: the W1 (M, D, width[1]) of the dgamma
+// product, null for W1 as shipped (the transposed op passes float32 W1,
+// which differs from it at the bfloat16 rung).
 int vlg_energy_bwd(int rung, const float* gamma, int T, int B, int M, int span, int G, int L,
                    const int* widths, const float* const* Ws, const float* const* bs,
-                   const float* wmb, const float* ct, float* xbar, float* dgamma,
-                   void* scratch, int n_blocks, void* stream) {
+                   const float* wmb, const float* ct, const float* w1p, float* xbar,
+                   float* dgamma, void* scratch, int n_blocks, void* stream) {
   Decoder d;
   if (!make_decoder(L, widths, Ws, bs, d)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -547,12 +569,13 @@ int vlg_energy_bwd(int rung, const float* gamma, int T, int B, int M, int span, 
     const cudaError_t err = any_args(d, scratch, 1, st, a);
     if (err != cudaSuccess) return err;
   }
+  const float* W1c = w1p != nullptr ? w1p : d.W[0];
   return by_rung(rung, [&](auto r) {
     constexpr int R = decltype(r)::value;
     return fixed_shape(d)
-        ? launch_bwd<R>(gamma, T, B, D, M, X, span, G, n_blocks, fixed_weights(d), wmb, ct,
-                        xbar, scratch, dgamma, st)
-        : launch_bwd_any<R>(gamma, T, B, M, a, n_blocks, wmb, ct, xbar, dgamma, st);
+        ? launch_bwd<R>(gamma, T, B, D, M, X, span, G, n_blocks, fixed_weights(d), W1c, wmb,
+                        ct, xbar, scratch, dgamma, st)
+        : launch_bwd_any<R>(gamma, T, B, M, a, n_blocks, W1c, wmb, ct, xbar, dgamma, st);
   });
 }
 

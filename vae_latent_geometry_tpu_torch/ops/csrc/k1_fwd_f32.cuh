@@ -1,6 +1,6 @@
-// K1's float32 kernel on the production decoder (k1_fwd_fma), shared by
-// energy_expected.cu (K1) and energy_transposed.cu (K9 at float32: K1's
-// function on the uniform weight plane), for sm_90a (H100).  Its decode is
+// K1's float32 kernel on the production decoder (k1_fwd_fma), of
+// energy_expected.cu (K1, and the transposed op's K9 through it, on the
+// uniform weight plane), for sm_90a (H100).  Its decode is
 // decode_f32.cuh's; energy_expected.cu says what bounds it and why it is
 // built so.
 

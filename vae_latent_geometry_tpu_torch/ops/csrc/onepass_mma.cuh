@@ -1,18 +1,19 @@
 // A gradient of the curve energy in one pass on the tensor cores, for sm_90a
 // (H100): one body for K2's reduced rungs (energy_expected.cu:
-// k2_onepass_mma), K10's (energy_transposed.cu: k10_mma) and K6/K8's
+// k2_onepass_mma; the transposed op's K10 through it) and K6/K8's
 // (energy_mc.cu: mc_chain_onepass), the same function over a compile-time
 // cotangent policy: ExpectedCot below (the expected energy, any weight
 // plane) or McCot (the sampled energy's draws, energy_mc.cu).
 //
 // Function (ExpectedCot).  dgamma (T, B, D) of sum_b ct_b E_b for the
-// per-spline weight plane wmb (M, B) (K10 passes its uniform one):
+// per-spline weight plane wmb (M, B) (the transposed op's is uniform):
 //   dx_m = 2 wmb[m, b] ct_b (c_t x_m - xbar_{t-1}[t>0] - xbar_{t+1}[t<T-1]),
 //   xbar = sum_m wmb[m, b] x_m (uncentred), c_t = [t>0] + [t<T-1],
 // back through the ReLU masks of the same decode (decode_mma.cuh: the decode
 // at the rung, the chain single-pass bf16).  The dgamma product takes W1c:
 // the W1 the decode uses (K2, K6/K8) or float32 W1 where that differs, at
-// the bfloat16 rung (K10), swapped into the staged decoder around the chain.
+// the bfloat16 rung (K2 for the transposed op), swapped into the staged
+// decoder around the chain.
 //
 // Design.  The decode and chain of decode_mma.cuh (a warp owns 16 points x
 // 128 units, activations and ReLU masks in registers, mma.sync m16n8k16
@@ -151,7 +152,7 @@ __device__ __forceinline__ bool onepass_owned(const OnePassRound& rd, int pp, in
   return row < TILE_KR && t >= rd.t_s && t < rd.t_e && t < T && b < B;
 }
 
-// The expected energy's cotangent, the body's policy for K2 and K10 (the
+// The expected energy's cotangent, the body's policy for K2 (the
 // MC energy's is energy_mc.cu's McCot): the weight plane wmb (M, B), xbar
 // summed in shared memory in decoder order while tile k decodes, and the
 // chain's dx from the decoder's own outputs of tile k-1 and the xbar of its
@@ -369,8 +370,8 @@ cudaError_t launch_prep(Prep prep, const Weights& w, int M, int X, int n_blocks,
 }
 
 // Prepare the planes, then run the body: `prep` and `body` are the op's own
-// kernels over prep_planes and onepass_body<R, ExpectedCot> (K2's and K10's
-// names differ, so that each op's device time reads by its own prefix).
+// kernels over prep_planes and onepass_body<R, ExpectedCot> (K2's, named so
+// that its device time reads by the prefix k2_).
 template <int R, class Prep, class Body>
 cudaError_t launch_onepass(Prep prep, Body body, const float* gamma, int T, int B, int D, int M,
                            int X, int span, int G, int n_blocks, const Weights& w,

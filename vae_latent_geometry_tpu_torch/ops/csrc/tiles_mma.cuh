@@ -6,9 +6,9 @@
 // 16 points (4 rows of 4 splines) through decode_mma.cuh; a lane holds rows
 // p and p + 8 of the tile, two rows of ONE spline (p % 4).
 //
-// K1 at the reduced rungs (f32x3, f32x2, bfloat16) is k1_tiles_mma below;
-// K9 (energy_transposed.cu) runs the same kernel on the uniform weight
-// plane.  The MC forward (K5/K7, energy_mc.cu: mc_tiles_mma) runs its own
+// K1 at the reduced rungs (f32x3, f32x2, bfloat16) is k1_tiles_mma below
+// (and the transposed op's K9 through it, on the uniform weight plane).
+// The MC forward (K5/K7, energy_mc.cu: mc_tiles_mma) runs its own
 // body over the same tiles.
 
 #pragma once

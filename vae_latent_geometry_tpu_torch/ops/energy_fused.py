@@ -268,12 +268,14 @@ def energy_fwd_plain(ws, bs, gamma, wmb, precision, library_size=None):
     return seg.sum(0)
 
 
-def energy_bwd_plain(ws, bs, gamma, wmb, ct, precision, library_size=None):
+def energy_bwd_plain(ws, bs, gamma, wmb, ct, precision, library_size=None,
+                     w1=None):
     """Plain version of K2 (same arguments as :func:`energy_bwd`).  With
     the softmax head the cotangent g of x = L s reaches the logits as
     L s (g - <s, g>): a reduction over every output column of the row."""
     check_precision(precision)
     ws = ship_weights(ws, precision)
+    w1 = ws[0] if w1 is None else w1
     T, B, D = gamma.shape
     M = ws[0].shape[0]
     chain = "bfloat16" if precision in ("f32x3", "f32x2") else precision
@@ -301,7 +303,7 @@ def energy_bwd_plain(ws, bs, gamma, wmb, ct, precision, library_size=None):
                                                           keepdim=True))
         for i in range(len(ws) - 1, 0, -1):
             dh = _mp_matmul(dh, ws[i][m].T, chain) * masks[i - 1]
-        dg = dg + dh @ ws[0][m].T
+        dg = dg + dh @ w1[m].T
     return dg.reshape(T, B, D)
 
 
@@ -524,12 +526,16 @@ def energy_fwd(ws, bs, gamma, wmb, precision, library_size=None):
                 wsx, bsx, _splines(gamma, b0, b1), _splines(wmb, b0, b1))))
 
 
-def energy_bwd(ws, bs, gamma, wmb, ct, precision, library_size=None):
+def energy_bwd(ws, bs, gamma, wmb, ct, precision, library_size=None,
+               w1=None):
     """K2: dgamma (T, B, D) of sum_b ct_b E_b (route: :func:`k2_route`).
-    ``library_size``: as :func:`energy_fwd`'s."""
+    ``library_size``: as :func:`energy_fwd`'s.  ``w1``: the float32 (M, D,
+    H) first-layer weights of the dgamma product where they differ from
+    the shipped ones, at the bfloat16 rung (the transposed op's K10); None
+    takes W1 as shipped."""
     if gamma.device.type == "cpu":
         return energy_bwd_plain(ws, bs, gamma, wmb, ct, precision,
-                                library_size)
+                                library_size, w1)
     if gamma.device.type != "cuda":
         raise ValueError(f"no kernel for device {gamma.device}")
     if library_size is not None:
@@ -539,9 +545,13 @@ def energy_bwd(ws, bs, gamma, wmb, ct, precision, library_size=None):
 
     check_precision(precision)
     ws = [w.contiguous() for w in ship_weights(ws, precision)]
-    T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb, (ct,))
+    T, B, D, M, X = _check_cuda(ws, bs, gamma, wmb,
+                                (ct,) if w1 is None else (ct, w1))
     if tuple(ct.shape) != (B,):
         raise ValueError(f"ct must be (B,) = ({B},), got {tuple(ct.shape)}")
+    if w1 is not None and w1.shape != ws[0].shape:
+        raise ValueError(f"w1 must be {tuple(ws[0].shape)}, got "
+                         f"{tuple(w1.shape)}")
     lib = library("energy_expected")
     hidden = [w.shape[-1] for w in ws[:-1]]
     routes = [k2_route(precision, [D, *hidden, x]) for x in _slice_widths(X)]
@@ -570,7 +580,7 @@ def energy_bwd(ws, bs, gamma, wmb, ct, precision, library_size=None):
         dgamma = torch.empty((T, Bc, D), dtype=torch.float32, device=g.device)
         check(lib.vlg_energy_bwd(_RUNG[precision], g.data_ptr(), T, Bc, M,
                                  span, G, *dec, w_b.data_ptr(),
-                                 ct_b.data_ptr(), _ptr(xbar),
+                                 ct_b.data_ptr(), _ptr(w1), _ptr(xbar),
                                  dgamma.data_ptr(), _ptr(scratch), n_blocks,
                                  _stream(g.device)),
               "energy_bwd")
