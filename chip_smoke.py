@@ -18,16 +18,20 @@ Phases, each printing one JSON line; any failure exits nonzero:
              ``mc_fwd_fma``); no stack and no spill in the reduced-rung
              forward kernels on tiles_mma.cuh (``k1_tiles_mma``,
              ``mc_tiles_mma``); the softmax route's CUDA kernels
-             (``k1s_rows``, ``k2s_rows``, ``k2s_chain``): HMMA at the
-             reduced rungs only; no stack and no spill at any rung but
-             ``SOFTMAX_SPILLS``' (K1 at f32x3 and f32x2).
+             (``SOFTMAX_CUDA``): K1's ``k1s_rows`` HMMA at the reduced
+             rungs, K2's ``k2s_rows_wg`` and ``k2s_chain_wg`` HGMMA
+             (warpgroup MMA) and no HMMA there, no tensor-core
+             instruction at float32 (``k1s_rows<0>``, ``k2s_rows<0>``,
+             ``k2s_chain<0>``); registers and spills of each (no stack
+             and no spill but ``SOFTMAX_SPILLS``').
 1b. softmax — scVI's decoder on the softmax route (``ops/energy_softmax.py``):
              K1 and K2 against their plain versions on the card at every
              rung, on a ragged small shape, the benchmark cell's (T=2000,
              B=8, 10 decoders 10-128-2000) and at B=16, each call repeated
              bit for bit and counted on the route; the next rung down
-             outside the limits at the cell's rungs; ms per call
-             (``softmax``); then ``optimize_spline_batch`` on an scVI
+             outside the limits at the cell's rungs; ms per call and, for
+             K2, per kernel (torch.profiler; the kernels line sets them
+             beside the bound) (``softmax``); then ``optimize_spline_batch`` on an scVI
              ensemble at the cell's recipe, 100 steps, with the launch
              counts and routes of that run alone (``softmax_main``).  Both
              are entries of the last ``kernels`` line.
@@ -492,6 +496,29 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def kernel_ms(fn, reps, pattern):
+    """Device ms a call of each kernel whose name matches ``pattern`` (a
+    regex whose first group names it, e.g. ``k2s_rows_wg<2>``), from a
+    torch.profiler trace of ``reps`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(pattern, e.key)
+        if m:
+            us = getattr(e, "device_time_total", None)
+            us = e.cuda_time_total if us is None else us
+            out[m.group(1)] = out.get(m.group(1), 0.0) + us / reps / 1e3
+    return out
+
+
 def dgamma_stats(g_k, g_p, prefix=""):
     """Errors of a kernel's dgamma relative to max|dgamma| of the plain
     version's."""
@@ -507,8 +534,9 @@ def dgamma_stats(g_k, g_p, prefix=""):
                 (err > DG_OVER).double().mean())}
 
 
-def sass_hmma(lib_path, prefix):
-    """Tensor-core instructions (HMMA) in the SASS of each kernel template
+def sass_hmma(lib_path, prefix, op="HMMA"):
+    """Tensor-core instructions (``op``: HMMA, mma.sync's, or HGMMA,
+    warpgroup MMA's) in the SASS of each kernel template
     ``<prefix>...<R>`` of the built library, by ``cuobjdump -sass``:
     {"k2_onepass_mma<R>": n, ...}, R the rung (0 float32, 1 f32x3, 2 f32x2,
     3 bfloat16).  cuobjdump ships with every CUDA toolkit that nvcc comes
@@ -531,7 +559,7 @@ def sass_hmma(lib_path, prefix):
             counts[fn] = 0
         elif "Function :" in line:
             fn = None
-        elif fn and "HMMA" in line:
+        elif fn and op in line:
             counts[fn] += 1
     return counts
 
@@ -552,15 +580,34 @@ def check_hmma(hmma, mma_kernels, fma_kernels, any_kernels):
                      f"{hmma.get(f'{name}<{rung}>')} HMMA instructions")
 
 
+def check_softmax_sass(hmma, hgmma):
+    """Each of ``SOFTMAX_CUDA``'s instantiations in the SASS: at float32
+    no tensor-core instruction, at the reduced rungs HGMMA and no HMMA in
+    K2's ``_wg`` kernels, HMMA and no HGMMA in K1's."""
+    for k, rungs in SOFTMAX_CUDA.items():
+        for rung in rungs:
+            key = f"{k}<{rung}>"
+            got = (hmma.get(key), hgmma.get(key))
+            want = ((False, False) if rung == 0 else (False, True)
+                    if k.endswith("_wg") else (True, False))
+            if None in got or (got[0] > 0, got[1] > 0) != want:
+                fail(f"SASS of {key}: {got[0]} HMMA, {got[1]} HGMMA "
+                     f"instructions")
+
+
 # the float32 forward-energy kernels on decode_f32.cuh: (source, kernel)
 FWD_FMA = (("energy_expected", "k1_fwd_fma"), ("energy_mc", "mc_fwd_fma"))
 # the reduced-rung forward-energy kernels on tiles_mma.cuh: (source, kernel)
 FWD_MMA = (("energy_expected", "k1_tiles_mma"), ("energy_mc", "mc_tiles_mma"))
-# the softmax route's CUDA kernels (energy_softmax.cu), and the
-# instantiations that spill: K1 at f32x3 and f32x2 (early stopping's rungs;
-# the cell runs K1 at float32) spills 4 and 80-96 bytes at 255 registers
-SOFTMAX_CUDA = ("k1s_rows", "k2s_rows", "k2s_chain")
-SOFTMAX_SPILLS = ("k1s_rows<1>", "k1s_rows<2>")
+# the softmax route's CUDA kernels (energy_softmax.cu) and their rungs: K1's
+# row pass at every rung and K2 at float32 on rows_body and k2s_chain, K2 at
+# the reduced rungs on warpgroup MMA (the _wg kernels); the instantiations
+# allowed to spill: none (K1 at f32x3 and f32x2 spilled 4 and 80-96 bytes
+# until its hidden layer took d outermost; the _wg kernels run at 240-255
+# registers)
+SOFTMAX_CUDA = {"k1s_rows": (0, 1, 2, 3), "k2s_rows": (0,), "k2s_chain": (0,),
+                "k2s_rows_wg": (1, 2, 3), "k2s_chain_wg": (1, 2, 3)}
+SOFTMAX_SPILLS = ()
 
 
 def ptxas_of(log, kernel, rung=None):
@@ -3195,6 +3242,9 @@ def softmax_phase(ef, dev):
                                        3)
                 rec["k2_ms"] = time_ms(
                     lambda: ef.energy_bwd(*args, ct, p, lib), 10)
+                rec["k2_kernel_ms"] = kernel_ms(
+                    lambda: ef.energy_bwd(*args, ct, p, lib), 5,
+                    r"(k2s_[A-Za-z_]+(?:<\d>)?)")
                 rec["k1_plain_ms"] = time_ms(
                     lambda: ef.energy_fwd_plain(*args, p, lib), 1)
                 rec["k2_plain_ms"] = time_ms(
@@ -3339,12 +3389,18 @@ def softmax_kernels(recs, main_rec):
          "ms": cell["f32x2"]["k2_ms"],
          "plain_ms": cell["f32x2"]["k2_plain_ms"], **bound(k2_bound),
          "library_ms": None,
-         "design": "k2s_rows (the log-sum-exps, then xbar) + k2s_neighbours "
-                   "(Triton) + k2s_chain (<s, g>, then du W2^T on mma.sync "
-                   "bf16, the ReLU mask and dh W1^T)",
+         "design": "k2s_rows_wg (the log-sum-exps, then xbar) + "
+                   "k2s_neighbours (Triton) + k2s_chain_wg (<s, g>, then du "
+                   "W2^T, the ReLU mask and dh W1^T): 64-row warpgroups on "
+                   "wgmma bf16, each tile's logits issued before the "
+                   "previous tile's exponentials; k2s_rows + k2s_chain FMA "
+                   "at float32",
          **{f"ms_{p}": cell[p]["k2_ms"] for p in ("float32", "f32x3",
                                                   "bfloat16")},
-         "ms_B16_f32x2": wide["k2_ms"]},
+         "ms_B16_f32x2": wide["k2_ms"],
+         **{f"kernel_ms_{p}": cell[p]["k2_kernel_ms"]
+            for p in ("float32", "f32x3", "f32x2", "bfloat16")},
+         "kernel_ms_B16_f32x2": wide["k2_kernel_ms"]},
     ]
 
 
@@ -3388,6 +3444,7 @@ def main() -> int:
     mc_hmma = sass_hmma(_build._target("energy_mc"), "mc_")
     stats_hmma = sass_hmma(_build._target("energy_stats"), "k[34]_")
     sm_hmma = sass_hmma(_build._target("energy_softmax"), "k[12]s_")
+    sm_hgmma = sass_hmma(_build._target("energy_softmax"), "k[12]s_", "HGMMA")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     emit({"phase": "build", "seconds": build_s,
@@ -3406,10 +3463,10 @@ def main() -> int:
               f"mc_chain_onepass<{r}>": ptxas_of(_build.BUILD_LOG["energy_mc"],
                                                  "mc_chain_onepass", r)
               for r in (1, 2, 3)},
-          "softmax_sass_hmma": sm_hmma,
+          "softmax_sass_hmma": sm_hmma, "softmax_sass_hgmma": sm_hgmma,
           "softmax_ptxas": {
               f"{k}<{r}>": ptxas_of(_build.BUILD_LOG["energy_softmax"], k, r)
-              for k in SOFTMAX_CUDA for r in range(4)}})
+              for k, rungs in SOFTMAX_CUDA.items() for r in rungs}})
     # K1's, K2's, K3/K4's and K5-K8's reduced rungs run on the tensor cores
     # in the mma kernels of the production shape, their float32 rung does
     # not (TF32 is barred: k1_fwd_fma, mc_fwd_fma, and mc_segments, the
@@ -3442,11 +3499,12 @@ def main() -> int:
         r = ptxas_of(_build.BUILD_LOG[src], k)
         if r.get("spill_bytes") != 0 or r.get("stack_bytes") != 0:
             fail(f"ptxas of {k}: {r}")
-    # the softmax route's CUDA kernels: tensor cores at the reduced rungs,
-    # FMA at float32; no stack, no spill at any rung but SOFTMAX_SPILLS'
-    check_hmma(sm_hmma, SOFTMAX_CUDA, SOFTMAX_CUDA, ())
-    for k in SOFTMAX_CUDA:
-        for rung in range(4):
+    # the softmax route's CUDA kernels: K1 on mma.sync and K2 on warpgroup
+    # MMA at the reduced rungs, no tensor cores at float32 (TF32 is barred);
+    # no stack, no spill but SOFTMAX_SPILLS'
+    check_softmax_sass(sm_hmma, sm_hgmma)
+    for k, rungs in SOFTMAX_CUDA.items():
+        for rung in rungs:
             r = ptxas_of(_build.BUILD_LOG["energy_softmax"], k, rung)
             if "registers" not in r or (
                     f"{k}<{rung}>" not in SOFTMAX_SPILLS

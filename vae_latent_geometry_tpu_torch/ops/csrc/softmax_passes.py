@@ -36,9 +36,13 @@ def k1s_segments(xbar_ptr, var_ptr, part_ptr, T, B, G, TT: tl.constexpr,
 
 @triton.jit
 def k2s_neighbours(xbar_ptr, nb_ptr, N, B, G, BR: tl.constexpr,
-                   BG: tl.constexpr):
+                   BG: tl.constexpr, TR: tl.constexpr, TC: tl.constexpr,
+                   TS: tl.constexpr):
     """nb = xbar_{t-1} + xbar_{t+1} (zero past either end), once for the
-    chain's M x 2 passes."""
+    chain's M x 2 passes.  TR 0: nb (N, G); TR > 0: nb tiled for the
+    wgmma chain, each tile of TR rows and TC columns one contiguous block,
+    tiles in (row block, column tile) order, a tile's rows TS floats apart,
+    rows past N to a multiple of TR zero."""
     rows = tl.program_id(0) * BR + tl.arange(0, BR)
     j = tl.program_id(1) * BG + tl.arange(0, BG)
     jmask = (j < G)[None, :]
@@ -47,5 +51,11 @@ def k2s_neighbours(xbar_ptr, nb_ptr, N, B, G, BR: tl.constexpr,
                    other=0.0)
     nxt = tl.load(xbar_ptr + (rows + B)[:, None] * G + j[None, :],
                   mask=(rows + B < N)[:, None] & jmask, other=0.0)
-    tl.store(nb_ptr + rows[:, None] * G + j[None, :], prev + nxt,
-             mask=(rows < N)[:, None] & jmask)
+    if TR > 0:
+        tile = (rows // TR * (G // TC))[:, None] + (j // TC)[None, :]
+        at = (tile * TR + (rows % TR)[:, None]) * TS + (j % TC)[None, :]
+        tl.store(nb_ptr + at, prev + nxt,
+                 mask=(rows < tl.cdiv(N, TR) * TR)[:, None] & jmask)
+    else:
+        tl.store(nb_ptr + rows[:, None] * G + j[None, :], prev + nxt,
+                 mask=(rows < N)[:, None] & jmask)
